@@ -1,0 +1,32 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on the card unless the caller asks for the CPU. Where
+CUDA is missing and the CPU was not asked for, they raise rather than
+carry on quietly on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None``/``"cuda"`` -> the current CUDA device; ``"cpu"`` -> CPU.
+
+    Raises ``RuntimeError`` when a CUDA device is asked for (explicitly or
+    by default) and none is available."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev} (cuda or cpu)")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
