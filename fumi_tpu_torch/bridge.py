@@ -1,4 +1,4 @@
-"""Carry weights between the JAX package and the port.
+"""Carry weights and episodes between the JAX package and the port.
 
 The JAX package keeps params as pytrees (tuples of ``{"w", "b"}`` layer
 dicts); the port keeps flat state dicts keyed by the reference's
@@ -11,8 +11,9 @@ checkpoints with:
   ``hyper_net.2``.
 
 Linear weights are (out, in) on both sides, so the conversion renames and
-never transposes. The bridge takes and returns numpy leaves (callers turn
-JAX arrays into numpy with ``np.asarray``); it imports no JAX.
+never transposes. Episodes keep their field names and dtypes. The bridge
+takes and returns numpy leaves (callers turn JAX arrays into numpy with
+``np.asarray``); it imports no JAX. Optimizer state is not carried.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from fumi_tpu_torch.core.episode import Episode
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.models import mlp
 from fumi_tpu_torch.models.fumi import im_net_depth
@@ -104,3 +106,24 @@ def params_to_numpy(params: Dict[str, torch.Tensor], family: str) -> Any:
     else:
         names = _name_tree(family, 0, False)
     return _fill(names, lambda n: params[n].detach().cpu().numpy())
+
+
+def episode_from_numpy(episode: Any, device: DeviceLike = None) -> Episode:
+    """An episode with numpy leaves (the JAX package's ``Episode`` after
+    ``np.asarray`` on each leaf, or any object with its field names) ->
+    the port's :class:`Episode` on ``device`` (default: the current CUDA
+    device). Dtypes are kept; None stays None."""
+    dev = resolve_device(device)
+
+    def put(name):
+        leaf = getattr(episode, name)
+        if leaf is None:
+            return None
+        return torch.from_numpy(np.array(leaf)).to(dev)
+    return Episode(*(put(name) for name in Episode._fields))
+
+
+def episode_to_numpy(episode: Episode) -> Episode:
+    """The port's episode with numpy leaves on the host."""
+    return Episode(*(None if t is None else t.detach().cpu().numpy()
+                     for t in episode))

@@ -1,0 +1,95 @@
+"""Synthetic episodic data for tests and benchmarks.
+
+A copy of the embedding-table part of ``fumi_tpu/data/synthetic.py``
+(pure numpy; ``tests/test_torch_sampler.py`` holds it equal to the
+original). Class-clustered Gaussian image embeddings with text features
+correlated to the class mean, so few-shot learners have real signal to
+adapt to. Raw-image sets wait for the raw-image backbones (ROADMAP.md
+Queue 1, item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from fumi_tpu_torch.data.class_set import ClassSet
+
+
+def synthetic_class_set(num_classes: int = 20,
+                        images_per_class: int = 40,
+                        im_dim: int = 64,
+                        text_dim: int = 32,
+                        text_tokens: bool = False,
+                        vocab_size: int = 128,
+                        text_len: int = 12,
+                        noise: float = 0.5,
+                        seed: int = 0) -> Tuple[ClassSet, np.ndarray,
+                                                np.ndarray]:
+    """Returns (class_set, image_table, image_ids).
+
+    Image embeddings: class mean ~ N(0, I), samples mean + noise·N(0, I).
+    Text features: a linear projection of the class mean (+ small noise), or
+    random token ids when ``text_tokens``.
+    """
+    rng = np.random.RandomState(seed)
+    C, M = num_classes, images_per_class
+    means = rng.randn(C, im_dim).astype(np.float32)
+    image_table = (means[:, None, :] +
+                   noise * rng.randn(C, M, im_dim)).astype(np.float32)
+    image_table = image_table.reshape(C * M, im_dim)
+    image_ids = np.arange(C * M, dtype=np.int32)
+
+    proj = rng.randn(im_dim, text_dim).astype(np.float32) / np.sqrt(im_dim)
+    if text_tokens:
+        text = rng.randint(1, vocab_size, size=(C, text_len)).astype(np.int32)
+        text_mask = np.ones((C, text_len), dtype=np.int32)
+    else:
+        text = (means @ proj +
+                0.1 * rng.randn(C, text_dim)).astype(np.float32)
+        text_mask = None
+
+    rows = np.arange(C * M, dtype=np.int32).reshape(C, M)
+    counts = np.full((C,), M, dtype=np.int32)
+    cs = ClassSet(
+        categories=np.arange(C),
+        class_image_rows=rows,
+        class_counts=counts,
+        text_features=text,
+        text_mask=text_mask,
+        descriptions=[f"synthetic class {i}" for i in range(C)],
+    )
+    return cs, image_table, image_ids
+
+
+def synthetic_splits(num_classes: int = 32, images_per_class: int = 64,
+                     im_dim: int = 2048, text_dim: int = 768,
+                     seed: int = 0, raw_images: bool = False, **kw):
+    """Three disjoint 60/20/20 class splits over ONE shared image table.
+    Returns ``({"train", "val", "test"} -> ClassSet, table, ids)``."""
+    if raw_images:
+        raise NotImplementedError(
+            "raw-image synthetic sets are not ported yet (ROADMAP.md Queue 1, "
+            "item 7: raw-image backbones)")
+    cs, table, ids = synthetic_class_set(
+        num_classes=num_classes, images_per_class=images_per_class,
+        im_dim=im_dim, text_dim=text_dim, seed=seed, **kw)
+    rng = np.random.RandomState(0)
+    order = np.arange(num_classes)
+    rng.shuffle(order)
+    cuts = {"train": order[:int(0.6 * num_classes)],
+            "val": order[int(0.6 * num_classes):int(0.8 * num_classes)],
+            "test": order[int(0.8 * num_classes):]}
+    splits = {}
+    for name, idx in cuts.items():
+        splits[name] = ClassSet(
+            categories=cs.categories[idx],
+            class_image_rows=cs.class_image_rows[idx],
+            class_counts=cs.class_counts[idx],
+            text_features=cs.text_features[idx],
+            text_mask=(cs.text_mask[idx]
+                       if cs.text_mask is not None else None),
+            descriptions=[cs.descriptions[i] for i in idx],
+        )
+    return splits, table, ids

@@ -1,19 +1,160 @@
-"""The inner-loop SGD update.
+"""The inner-loop meta-gradient engine.
 
-Only what serving reads is ported: the plain update ``θ' = θ − α·∇ℓ``
-over a state dict. The masked (ANIL) form and the episode losses with an
-outer graph are ROADMAP.md Queue 1, items 3 and 6.
+The counterpart of ``fumi_tpu/metalearn/inner_loop.py``'s
+``sgd_inner_update``, ``maml_episode_loss`` and ``fumi_episode_loss``.
+
+- The B tasks of a meta-batch are a leading axis on per-task weights,
+  ``expand``ed from the shared params (the JAX package ``vmap``s one
+  task's program). The support loss summed over tasks gives each task its
+  own inner gradient, taken with respect to the expanded per-task tensors
+  (not the shared leaves, which would sum the tasks' gradients).
+- One inner SGD step is ``torch.autograd.grad`` and the update, in a Python
+  loop over the steps (the JAX package's ``lax.scan``). With
+  ``create_graph=True`` the outer gradient differentiates through every
+  step (second order); ``first_order`` drops the inner gradients from the
+  graph, as ``stop_gradient`` does.
+- ``differentiable=False`` runs the loop with no outer graph at all (eval:
+  each step detaches, so nothing is retained across the steps).
+
+The JAX package rematerialises long horizons (``jax.checkpoint``); that
+changes memory only, never the numbers. The port stores the graph;
+``torch.utils.checkpoint`` for long horizons is ROADMAP.md Queue 1,
+item 10. The masked (ANIL) update is item 6.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
+
+from fumi_tpu_torch.core.episode import Episode
+
+Params = Dict[str, torch.Tensor]
 
 
-def sgd_inner_update(params: Dict[str, torch.Tensor],
-                     grads: Dict[str, torch.Tensor],
-                     step_size: float) -> Dict[str, torch.Tensor]:
+def sgd_inner_update(params: Params, grads: Params,
+                     step_size: float) -> Params:
     """θ' = θ − α·∇ℓ, leaf by leaf."""
     return {k: p - step_size * grads[k] for k, p in params.items()}
+
+
+def task_cross_entropy(logits: torch.Tensor,
+                       targets: torch.Tensor) -> torch.Tensor:
+    """(B, M, N) logits, (B, M) targets -> (B,) per-task mean CE."""
+    logp = F.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets.long().unsqueeze(-1))[..., 0] \
+        .mean(dim=-1)
+
+
+def _accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Query accuracy over every task and query."""
+    preds = torch.argmax(logits, dim=-1)
+    return (preds == targets).to(torch.float32).mean()
+
+
+def per_task(params: Params, keys, B: int) -> Params:
+    """Per-task views (B, ...) of the shared params named in ``keys``."""
+    return {k: params[k].expand((B,) + tuple(params[k].shape)) for k in keys}
+
+
+def adapt(theta: Params, support_loss: Callable[[Params, int], torch.Tensor],
+          n_steps: int, step_size: float, *, differentiable: bool,
+          first_order: bool = False) -> Params:
+    """``n_steps`` of θ ← θ − α·∇ support_loss(θ, step).
+
+    ``support_loss`` returns the per-task support losses summed over the
+    tasks. ``differentiable`` keeps the outer graph (second order unless
+    ``first_order``); otherwise every step detaches."""
+    for step in range(n_steps):
+        if differentiable:
+            loss = support_loss(theta, step)
+            grads = torch.autograd.grad(loss, list(theta.values()),
+                                        create_graph=not first_order)
+            theta = sgd_inner_update(theta, dict(zip(theta, grads)),
+                                     step_size)
+            continue
+        with torch.enable_grad():
+            leaves = {k: v.detach().requires_grad_()
+                      for k, v in theta.items()}
+            grads = torch.autograd.grad(support_loss(leaves, step),
+                                        list(leaves.values()))
+        with torch.no_grad():
+            theta = sgd_inner_update(leaves, dict(zip(leaves, grads)),
+                                     step_size)
+    return theta
+
+
+def _outer(q_logits: torch.Tensor, query_y: torch.Tensor):
+    """(mean query loss over tasks, {"acc", "preds"})."""
+    loss = task_cross_entropy(q_logits, query_y).mean()
+    detached = q_logits.detach()
+    preds = torch.argmax(detached, dim=-1).to(torch.int32)
+    return loss, {"acc": _accuracy(detached, query_y), "preds": preds}
+
+
+# ---------------------------------------------------------------------------
+# MAML
+# ---------------------------------------------------------------------------
+
+def maml_episode_loss(apply_fn: Callable, params: Params, episode: Episode,
+                      *, n_steps: int, step_size: float, first_order: bool,
+                      differentiable: bool = True):
+    """Mean outer loss over the meta-batch.
+
+    Each task adapts a private copy of every param for ``n_steps`` inner
+    SGD steps on its support set, then contributes the query
+    cross-entropy. Returns ``(outer_loss, {"acc", "preds"})``; the loss is
+    differentiable w.r.t. ``params`` (second order unless
+    ``first_order``) when ``differentiable``."""
+    B = episode.support_im.shape[0]
+    s_x, s_y = episode.support_im, episode.support_y
+
+    def support_loss(theta, step):
+        return task_cross_entropy(apply_fn(theta, s_x), s_y).sum()
+
+    theta = adapt(per_task(params, params.keys(), B), support_loss, n_steps,
+                  step_size, differentiable=differentiable,
+                  first_order=first_order)
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        return _outer(apply_fn(theta, episode.query_im), episode.query_y)
+
+
+# ---------------------------------------------------------------------------
+# FuMI
+# ---------------------------------------------------------------------------
+
+def fumi_episode_loss(model, params: Params, episode: Episode, *,
+                      n_steps: int, step_size: float,
+                      gen: Optional[torch.Generator], train: bool,
+                      differentiable: bool = True):
+    """Mean outer loss over the meta-batch.
+
+    Per task: the hypernetwork emits the generated head from the
+    per-class support text; the inner loop then jointly adapts (im_net,
+    generated head) by SGD on the support cross-entropy, always second
+    order when ``differentiable`` (``--first_order`` does not apply to
+    FuMI). Both gradients are taken at the same pre-update point: one
+    joint ``autograd.grad`` per step. ``gen`` draws the dropout masks
+    (``train``) and the ``rand`` text encoder's noise."""
+    B = episode.support_im.shape[0]
+    s_x, s_y = episode.support_im, episode.support_y
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        hyper0 = model.get_hyper_params(params, episode.support_text, s_y,
+                                        gen)
+    theta = per_task(params, [k for k in params if k.startswith("im_net.")],
+                     B)
+    theta["hyper"] = hyper0
+
+    def support_loss(theta, step):
+        logits = model.im_forward(theta, theta["hyper"], s_x, train=train,
+                                  gen=gen)
+        return task_cross_entropy(logits, s_y).sum()
+
+    theta = adapt(theta, support_loss, n_steps, step_size,
+                  differentiable=differentiable)
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        q_logits = model.im_forward(theta, theta["hyper"], episode.query_im,
+                                    train=train, gen=gen)
+        return _outer(q_logits, episode.query_y)

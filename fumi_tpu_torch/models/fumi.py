@@ -109,8 +109,7 @@ class FUMI:
         from ``gen`` (one generator per episode: callers with a batch of
         episodes call this once per episode)."""
         if self.text_encoder.kind == "rand":
-            noise = torch.rand(text.shape[:-1] + (self.text_emb_dim,),
-                               generator=gen)
+            noise = layers.rand(text.shape[:-1] + (self.text_emb_dim,), gen)
             enc = (2.0 * noise - 1.0).to(text.device)
         else:
             enc_params = params

@@ -52,8 +52,15 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen).to(x.device) < keep
+    mask = rand(x.shape, gen).to(x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def rand(shape, gen: torch.Generator = None) -> torch.Tensor:
+    """Uniform [0, 1) fp32 noise drawn on the generator's own device (the
+    CPU without one)."""
+    return torch.rand(shape, generator=gen,
+                      device=None if gen is None else gen.device)
 
 
 def mlp_init(gen: torch.Generator, dims: Sequence[int]

@@ -1,18 +1,22 @@
-"""Fused test-time adaptation: the CUDA kernel and its plain PyTorch version.
+"""The port's CUDA kernels and their plain PyTorch versions.
 
-The counterpart of ``fumi_tpu/ops/pallas_kernels.py``'s ``fused_adapt``
-family. The eval protocol runs 100 SGD adaptation steps per task, a long
-chain of small dependent products. :func:`fused_adapt` runs the whole
-adaptation of the 2-hidden-layer MLP plus its per-task head, and the
-query forward, in one launch of ``csrc/fused_adapt.cu`` (one thread block
-per task; the design and its bound are in the source's note).
+The counterparts of ``fumi_tpu/ops/pallas_kernels.py``:
 
-- On a CUDA tensor the wrapper launches the kernel or raises.
-- On a CPU tensor it runs :func:`fused_adapt_reference`, the same
-  hand-derived loop written with ``torch.matmul``.
+- :func:`fused_adapt` (``fused_maml_adapt`` / ``fused_fumi_adapt``): the
+  eval protocol runs 100 SGD adaptation steps per task, a long chain of
+  small dependent products. One launch of ``csrc/fused_adapt.cu`` runs the
+  whole adaptation of the 2-hidden-layer MLP plus its per-task head, and
+  the query forward (one thread block per task). Plain version:
+  :func:`fused_adapt_reference`, the same hand-derived loop written with
+  ``torch.matmul``.
+- :func:`gather_rows`: the row gather ``table[idx]`` that assembles each
+  episode from the device-resident embedding table
+  (``csrc/gather_rows.cu``). Plain version: :func:`gather_rows_reference`.
 
-``fused_adapt.launches`` counts kernel launches, so a run can show that
-its main path went through the kernel.
+On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
+it runs the plain version. The design and bound of each kernel are in its
+source's note. ``<wrapper>.launches`` counts kernel launches, so a run can
+show that its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -253,3 +257,64 @@ def fused_fumi_adapt(im_params: Dict[str, torch.Tensor],
                        im_params["im_net.linear1.bias"],
                        head_w, head_b, support_x, support_y, query_x,
                        n_steps, step_size)
+
+
+# ---------------------------------------------------------------------------
+# Row gather
+# ---------------------------------------------------------------------------
+
+def gather_rows_reference(table: torch.Tensor,
+                          idx: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``table[idx]`` as one ``index_select``."""
+    return torch.index_select(table, 0, idx.long())
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_library():
+    from fumi_tpu_torch.ops import _build
+    lib = _build.load("gather_rows")
+    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.gather_rows_launch.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
+    lib.gather_rows_launch.restype = ctypes.c_int
+    return lib
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather ``(R, D)[(M,)] -> (M, D)``, bitwise ``table[idx]``.
+
+    ``table`` is 2-D and contiguous, of any dtype (the kernel copies row
+    bytes); ``idx`` is 1-D int32 on the same device. A CUDA table launches
+    ``csrc/gather_rows.cu`` (an index outside ``[0, R)`` raises at the next
+    synchronisation); a CPU table runs :func:`gather_rows_reference`."""
+    if table.dim() != 2 or not table.is_contiguous():
+        raise ValueError(f"gather_rows takes a contiguous 2-D table, got "
+                         f"shape {tuple(table.shape)}"
+                         f"{'' if table.is_contiguous() else ', strided'}")
+    if idx.dtype != torch.int32 or idx.dim() != 1:
+        raise TypeError(f"gather_rows takes 1-D int32 indices, got "
+                        f"{idx.dtype} of shape {tuple(idx.shape)}")
+    if idx.device != table.device:
+        raise ValueError(f"gather_rows: table on {table.device}, indices "
+                         f"on {idx.device}")
+    dev = table.device
+    if dev.type == "cpu":
+        return gather_rows_reference(table, idx)
+    if dev.type != "cuda":
+        raise ValueError(f"gather_rows runs on cuda or cpu, not {dev}")
+    idx = idx.contiguous()
+    M, (R, D) = idx.shape[0], table.shape
+    out = torch.empty((M, D), dtype=table.dtype, device=dev)
+    if M == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _gather_library().gather_rows_launch(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, M,
+        D * table.element_size(), stream)
+    if err != 0:
+        raise RuntimeError(f"gather_rows kernel launch failed with CUDA "
+                           f"error {err} (R={R} D={D} M={M} {table.dtype})")
+    gather_rows.launches += 1
+    return out
+
+
+gather_rows.launches = 0

@@ -35,7 +35,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from fumi_tpu_torch.core.config import Config, TOKEN_TEXT_ENCODERS
+from fumi_tpu_torch.core.config import Config
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.metalearn.inner_loop import sgd_inner_update
 from fumi_tpu_torch.models import mlp
@@ -128,28 +128,13 @@ def _check_support_y(cfg: Config, support_y) -> None:
 
 
 def _check_slice(cfg: Config) -> None:
-    """Reject the configs the port does not serve yet, naming the ROADMAP
-    item that will port each."""
-    item = None
-    if cfg.model not in ("maml", "fumi"):
-        item = f"--model {cfg.model}: Queue 1, item 5 (the other families)"
-    elif cfg.im_encoder in ("conv4", "resnet12"):
-        item = (f"--im_encoder {cfg.im_encoder}: Queue 1, item 7 "
-                "(raw-image backbones)")
-    elif cfg.model == "fumi" and cfg.text_encoder in TOKEN_TEXT_ENCODERS:
-        item = (f"--text_encoder {cfg.text_encoder}: Queue 1, item 5 "
-                "(token text encoders)")
-    elif cfg.compute_dtype != "float32":
-        item = (f"--tpu_compute_dtype {cfg.compute_dtype}: Queue 1, item 8 "
-                "(bf16 policy)")
-    elif cfg.meta_grad != "explicit" or cfg.adapt_params != "all":
-        item = (f"--tpu_meta_grad {cfg.meta_grad} / --tpu_adapt_params "
-                f"{cfg.adapt_params}: Queue 1, item 6 (iMAML, Reptile, ANIL)")
-    elif cfg.seed_sweep > 1:
-        item = "--tpu_seed_sweep (SeedEnsemble): Queue 1, item 9 (scale-out)"
-    if item is not None:
+    """Reject the serving configs the port does not serve yet. The model
+    configs the port lacks are rejected by ``build_family``, each naming
+    the ROADMAP item that will port it."""
+    if cfg.seed_sweep > 1:
         raise NotImplementedError(
-            f"not ported to the PyTorch package yet — {item} in ROADMAP.md")
+            "not ported to the PyTorch package yet — --tpu_seed_sweep "
+            "(SeedEnsemble): Queue 1, item 9 (scale-out) in ROADMAP.md")
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -170,9 +155,9 @@ class FewShotClassifier:
         cfg = cfg.validate()
         _check_slice(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
         self.family = build_family(
             cfg, torch.Generator().manual_seed(cfg.seed))
+        self.device = resolve_device(device)
         src = params if params is not None else self.family.params
         self.params = {k: torch.as_tensor(v, dtype=torch.float32).to(
             self.device) for k, v in src.items()}

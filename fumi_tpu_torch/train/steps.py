@@ -1,30 +1,68 @@
-"""Model families, as far as serving reads them.
+"""Model families, their episode losses, and the train and eval steps.
 
-The counterpart of the model-and-params part of
-``fumi_tpu/train/steps.py``'s ``build_maml_family`` / ``build_fumi_family``
-and of ``plain_full_gd_adaptation``. The episode losses, optimizers and
-train/eval steps are ROADMAP.md Queue 1, item 3.
+The counterpart of ``fumi_tpu/train/steps.py`` for MAML and FuMI on
+precomputed embeddings, fp32, ``--tpu_meta_grad explicit``,
+``--tpu_adapt_params all``. Each family is built once as a
+:class:`Family` of episode-level functions:
+
+- ``train_loss(params, episode, gen) -> (loss, aux)``, differentiable;
+- ``eval_raw(params, episode, gen) -> dict``, the test-time adaptation
+  with no outer graph (or, with ``--tpu_pallas_fused_eval`` on a CUDA
+  device, one launch of the fused kernel, ``ops/kernels.py``);
+- ``eval_finalize(raw) -> metrics`` and ``eval_reduce``.
+
+:func:`make_steps` wraps a family into train/eval steps;
+:func:`make_chunked_train` / :func:`make_chunked_eval` run ``chunk``
+device-sampled steps per call and return the per-step metrics stacked to
+``(chunk,)`` on the device, so the host syncs once per chunk. ``gen`` is a
+``torch.Generator`` on the device, in place of the JAX package's keys.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
-from fumi_tpu_torch.core.config import Config
+from fumi_tpu_torch.core.config import Config, TOKEN_TEXT_ENCODERS
+from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
+from fumi_tpu_torch.metalearn.inner_loop import (fumi_episode_loss,
+                                                 maml_episode_loss)
 from fumi_tpu_torch.models import fumi as fumi_mod
 from fumi_tpu_torch.models import mlp, text_encoders
+from fumi_tpu_torch.ops import fewshot, kernels
+from fumi_tpu_torch.train import optim
 
 RAW_IMAGE_ENCODERS = ("conv4", "resnet12")
 
 
 class Family(NamedTuple):
-    """A model family: its freshly initialised params and its model spec
-    (None for MAML, whose forward is ``mlp.apply``)."""
+    """A model family's params and pure episode-level functions; ``model``
+    is the model spec (None for MAML, whose forward is ``mlp.apply``)."""
     name: str
     params: Dict[str, torch.Tensor]
+    train_loss: Callable  # (params, episode, gen) -> (loss, aux)
+    eval_raw: Callable  # (params, episode, gen) -> raw dict
+    eval_finalize: Callable  # raw dict -> metrics dict
+    eval_reduce: Dict[str, str]  # raw key -> "mean" | "sum" | "concat"
     model: Any = None
+
+
+class FamilySteps(NamedTuple):
+    """Train/eval steps + params for one model family."""
+    params: Dict[str, torch.Tensor]
+    opt: optim.Optimizer
+    train_step: Callable  # (params, opt_state, episode, gen) -> (p, s, m)
+    eval_step: Callable  # (params, episode, gen) -> metrics
+    family: Family = None
+
+    @property
+    def model(self):
+        return self.family.model if self.family else None
+
+
+EVAL_REDUCE = {"loss": "mean", "acc": "mean", "preds": "concat",
+               "targets": "concat"}
 
 
 def plain_full_gd_adaptation(cfg: Config) -> bool:
@@ -36,23 +74,87 @@ def plain_full_gd_adaptation(cfg: Config) -> bool:
             and cfg.adapt_params == "all")
 
 
-def _no_raw_images(cfg: Config) -> None:
-    if cfg.im_encoder in RAW_IMAGE_ENCODERS:
-        raise NotImplementedError(
-            f"--im_encoder {cfg.im_encoder} is not ported yet (ROADMAP.md "
-            "Queue 1, item 7: raw-image backbones)")
+def _use_fused_eval(cfg: Config, device: torch.device) -> bool:
+    """Gate for the fused eval-adaptation kernel: opt-in
+    (``--tpu_pallas_fused_eval``), fp32 (the kernel computes fp32 only),
+    plain full GD, and covered by the kernel on this device."""
+    return (cfg.pallas_fused_eval and plain_full_gd_adaptation(cfg)
+            and cfg.compute_dtype == "float32"
+            and kernels.fused_adapt_applicable(
+                cfg.model, cfg.im_encoder, cfg.im_hid_dim,
+                cfg.num_test_adapt_steps, device))
 
+
+def _eval_raw_from_logits(logits: torch.Tensor, episode) -> Dict:
+    """Eval-raw dict from post-adaptation query logits (fused kernel)."""
+    loss = fewshot.cross_entropy(logits, episode.query_y)
+    preds = torch.argmax(logits, dim=-1).to(torch.int32)
+    acc = (preds == episode.query_y).to(torch.float32).mean()
+    return {"loss": loss, "acc": acc, "preds": preds,
+            "targets": episode.query_y}
+
+
+def _eval_raw_from_loss(loss, aux, episode) -> Dict:
+    return {"loss": loss, "acc": aux["acc"], "preds": aux["preds"],
+            "targets": episode.query_y}
+
+
+def _check_slice(cfg: Config) -> None:
+    """Reject the configs whose episode losses are not ported yet, naming
+    the ROADMAP item that will port each."""
+    if cfg.im_encoder in RAW_IMAGE_ENCODERS:
+        item = (f"--im_encoder {cfg.im_encoder}: Queue 1, item 7 "
+                "(raw-image backbones)")
+    elif cfg.meta_grad != "explicit" or cfg.adapt_params != "all":
+        item = (f"--tpu_meta_grad {cfg.meta_grad} / --tpu_adapt_params "
+                f"{cfg.adapt_params}: Queue 1, item 6 (iMAML, Reptile, ANIL)")
+    elif cfg.compute_dtype != "float32":
+        item = (f"--tpu_compute_dtype {cfg.compute_dtype}: Queue 1, item 8 "
+                "(bf16 policy)")
+    else:
+        return
+    raise NotImplementedError(
+        f"not ported to the PyTorch package yet — {item} in ROADMAP.md")
+
+
+# ---------------------------------------------------------------------------
+# Family builders
+# ---------------------------------------------------------------------------
 
 def build_maml_family(cfg: Config, gen: torch.Generator) -> Family:
-    """PureImageNetwork over precomputed embeddings."""
-    _no_raw_images(cfg)
+    """PureImageNetwork over precomputed embeddings + the MAML engine."""
+    _check_slice(cfg)
     params = mlp.init(gen, cfg.im_emb_dim, cfg.num_ways, cfg.im_hid_dim)
-    return Family(name="maml", params=params)
+
+    def loss_for(n_steps, differentiable):
+        def loss_fn(p, episode, gen):
+            return maml_episode_loss(
+                mlp.apply, p, episode, n_steps=n_steps,
+                step_size=cfg.step_size, first_order=cfg.first_order,
+                differentiable=differentiable)
+        return loss_fn
+
+    eval_loss = loss_for(cfg.num_test_adapt_steps, False)
+
+    def eval_raw(p, episode, gen):
+        if _use_fused_eval(cfg, episode.support_im.device):
+            with torch.no_grad():
+                logits = kernels.fused_maml_adapt(
+                    p, episode.support_im, episode.support_y,
+                    episode.query_im, cfg.num_test_adapt_steps,
+                    cfg.step_size)
+            return _eval_raw_from_logits(logits, episode)
+        return _eval_raw_from_loss(*eval_loss(p, episode, gen), episode)
+
+    return Family(name="maml", params=params,
+                  train_loss=loss_for(cfg.num_train_adapt_steps, True),
+                  eval_raw=eval_raw, eval_finalize=lambda raw: raw,
+                  eval_reduce=dict(EVAL_REDUCE))
 
 
 def build_fumi_family(cfg: Config, gen: torch.Generator) -> Family:
-    """FuMI hypernet + headless image MLP."""
-    _no_raw_images(cfg)
+    """FuMI hypernet + headless image MLP + the joint inner loop."""
+    _check_slice(cfg)
     enc = text_encoders.make_text_encoder(cfg.text_encoder, gen,
                                           cfg.text_emb_dim, cfg.fine_tune)
     model = fumi_mod.FUMI(
@@ -62,7 +164,33 @@ def build_fumi_family(cfg: Config, gen: torch.Generator) -> Family:
         dropout_rate=cfg.dropout, norm_hypernet=cfg.norm_hypernet,
         fine_tune=cfg.fine_tune, init_bias=cfg.hypernet_bias_init,
         init_all_layers=cfg.init_all_layers)
-    return Family(name="fumi", params=model.init_params(gen), model=model)
+    params = model.init_params(gen)
+
+    def loss_for(n_steps, train, differentiable):
+        def loss_fn(p, episode, gen):
+            return fumi_episode_loss(
+                model, p, episode, n_steps=n_steps, step_size=cfg.step_size,
+                gen=gen, train=train, differentiable=differentiable)
+        return loss_fn
+
+    eval_loss = loss_for(cfg.num_test_adapt_steps, False, False)
+
+    def eval_raw(p, episode, gen):
+        if _use_fused_eval(cfg, episode.support_im.device):
+            with torch.no_grad():
+                hyper0 = model.get_hyper_params(p, episode.support_text,
+                                                episode.support_y, gen)
+                logits = kernels.fused_fumi_adapt(
+                    p, hyper0, episode.support_im, episode.support_y,
+                    episode.query_im, cfg.num_test_adapt_steps,
+                    cfg.step_size)
+            return _eval_raw_from_logits(logits, episode)
+        return _eval_raw_from_loss(*eval_loss(p, episode, gen), episode)
+
+    return Family(name="fumi", params=params,
+                  train_loss=loss_for(cfg.num_train_adapt_steps, True, True),
+                  eval_raw=eval_raw, eval_finalize=lambda raw: raw,
+                  eval_reduce=dict(EVAL_REDUCE), model=model)
 
 
 def build_family(cfg: Config, gen: torch.Generator) -> Family:
@@ -73,3 +201,177 @@ def build_family(cfg: Config, gen: torch.Generator) -> Family:
     raise NotImplementedError(
         f"model {cfg.model!r} is not ported yet (ROADMAP.md Queue 1, "
         "item 5: the other families)")
+
+
+# ---------------------------------------------------------------------------
+# Optimizer and steps
+# ---------------------------------------------------------------------------
+
+def frozen_text_encoder(cfg: Config) -> bool:
+    """True when the model's ``text_encoder`` params can never receive a
+    gradient: ``--fine_tune`` off for token encoders, or the ``rand``
+    encoder whose Linear is created but never used."""
+    if cfg.model not in ("am3", "fumi"):
+        return False
+    if cfg.text_encoder == "rand":
+        return True
+    return cfg.text_encoder in TOKEN_TEXT_ENCODERS and not cfg.fine_tune
+
+
+def make_opt(cfg: Config) -> optim.Optimizer:
+    """The reference's optimizer for this config. Only AM3 steps the lr
+    schedule; MAML/FuMI unpack it but never step it."""
+    opt = optim.init_optim(cfg.optim, cfg.lr, cfg.weight_decay, cfg.momentum,
+                           cfg.num_warmup_steps, cfg.epochs,
+                           schedule_active=(cfg.model == "am3"))
+    if frozen_text_encoder(cfg):
+        # torch skips params whose grad is None: coupled L2 must not
+        # drift the frozen encoder
+        opt = optim.zero_updates_for_key(opt, "text_encoder")
+    if cfg.ema > 0:
+        opt = optim.params_ema(cfg.ema)
+    if cfg.skip_nonfinite > 0:
+        opt = optim.apply_if_finite(opt, cfg.skip_nonfinite)
+    return opt
+
+
+def value_and_grad(family: Family, params, episode, gen):
+    """``((loss, aux), grads)`` of ``family.train_loss`` w.r.t. every
+    param; a param the loss does not read gets a zero gradient."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        loss, aux = family.train_loss(leaves, episode, gen)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(leaves.items(), grads)}
+    return (loss.detach(), aux), grads
+
+
+def _train_step(family: Family, opt: optim.Optimizer, params, opt_state,
+                episode, gen):
+    (loss, aux), grads = value_and_grad(family, params, episode, gen)
+    with torch.no_grad():
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = optim.apply_updates(params, updates)
+        metrics = _train_metrics(family, loss, aux, episode, grads)
+    return params, opt_state, metrics
+
+
+def steps_from_family(family: Family, opt: optim.Optimizer) -> FamilySteps:
+    """Wrap a Family into train/eval steps."""
+    def train_step(params, opt_state, episode, gen):
+        return _train_step(family, opt, params, opt_state, episode, gen)
+
+    def eval_step(params, episode, gen):
+        with torch.no_grad():
+            return family.eval_finalize(family.eval_raw(params, episode, gen))
+
+    return FamilySteps(params=family.params, opt=opt, train_step=train_step,
+                       eval_step=eval_step, family=family)
+
+
+def component_partition(tree: Dict[str, torch.Tensor], family: str
+                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's top-level components of a flat state dict: MAML's
+    layer tuple is ``layer0``, ``layer1``, ...; FuMI's dict is
+    ``text_encoder`` / ``hyper_net`` / ``im_net``, the first part of each
+    name (an empty component has no entries, so it is absent)."""
+    if family == "maml":
+        return {f"layer{i}": {name + ".weight": tree[name + ".weight"],
+                              name + ".bias": tree[name + ".bias"]}
+                for i, name in enumerate(mlp.layer_names(tree))}
+    parts: Dict[str, Dict[str, torch.Tensor]] = {}
+    for k, v in tree.items():
+        parts.setdefault(k.split(".", 1)[0], {})[k] = v
+    return parts
+
+
+def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(g * g) for g in tree.values()))
+
+
+def per_layer_grad_norms(grads, family: str) -> Dict[str, torch.Tensor]:
+    """``grad_norm/<component>`` for every top-level component."""
+    return {f"grad_norm/{k}": global_norm(g)
+            for k, g in component_partition(grads, family).items()}
+
+
+def _train_metrics(family: Family, loss, aux, episode, grads=None) -> Dict:
+    """Per-train-step metrics: loss, acc, and the global and per-component
+    gradient norms when grads are supplied."""
+    extra = {}
+    if grads is not None:
+        per_layer = per_layer_grad_norms(grads, family.name)
+        # the components partition the grads: the global norm follows
+        extra["grad_norm"] = torch.sqrt(sum(v * v for v in per_layer.values()))
+        extra.update(per_layer)
+    return {"loss": loss, "acc": aux["acc"], **extra}
+
+
+def make_steps(cfg: Config, gen: torch.Generator,
+               device: DeviceLike = None) -> FamilySteps:
+    """The family's steps with its params on ``device`` (default the
+    current CUDA device; ``"cpu"`` for the CPU)."""
+    dev = resolve_device(device)
+    family = build_family(cfg, gen)
+    family = family._replace(params={k: v.to(dev)
+                                     for k, v in family.params.items()})
+    return steps_from_family(family, make_opt(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Chunked drivers
+# ---------------------------------------------------------------------------
+
+def _stack(per_step) -> Dict[str, torch.Tensor]:
+    """A list of per-step metric dicts -> one dict of (n, ...) tensors."""
+    if not per_step:
+        return {}
+    return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+
+def make_chunked_train(family: Family, opt: optim.Optimizer, sampler,
+                       chunk: int, accum: int = 1,
+                       watch: bool = False) -> Callable:
+    """``(params, opt_state, gen, n=chunk) -> (params, opt_state, gen,
+    metrics)`` running ``n`` device-sampled train steps; each metric is
+    ``(n,)`` on the device (no host sync inside the chunk)."""
+    if accum > 1 or watch:
+        raise NotImplementedError(
+            "--tpu_grad_accum > 1 and --tpu_watch are not ported yet "
+            "(ROADMAP.md Queue 1, item 9: scale-out extensions)")
+
+    def run(params, opt_state, gen, n=chunk):
+        per_step = []
+        for _ in range(n):
+            episode = sampler.sample(gen)
+            params, opt_state, m = _train_step(family, opt, params,
+                                               opt_state, episode, gen)
+            per_step.append(m)
+        return params, opt_state, gen, _stack(per_step)
+    return run
+
+
+def make_chunked_eval(family: Family, sampler, collect: bool = False
+                      ) -> Callable:
+    """``(params, gen, n) -> (gen, metrics)`` over ``n`` device-sampled eval
+    meta-batches; scalar metrics stack to ``(n,)``. With ``collect``,
+    per-query predictions/targets and the episode's image ids ride
+    along."""
+    def run(params, gen, n):
+        per_step = []
+        with torch.no_grad():
+            for _ in range(n):
+                episode = sampler.sample(gen)
+                out = family.eval_finalize(family.eval_raw(params, episode,
+                                                           gen))
+                m = {k: v for k, v in out.items() if v.dim() == 0}
+                if collect:
+                    for k in ("preds", "targets"):
+                        m[k] = out[k]
+                    m["query_idx"] = episode.query_ids
+                    m["support_idx"] = episode.support_ids
+                per_step.append(m)
+        return gen, _stack(per_step)
+    return run

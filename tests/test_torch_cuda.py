@@ -10,6 +10,7 @@ at full width.
 """
 
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -21,9 +22,12 @@ if __name__ == "__main__":  # run as a script: import the port from this checkou
         os.path.abspath(__file__))))
 
 from fumi_tpu_torch.core.config import Config
+from fumi_tpu_torch.core.episode import Episode, EpisodeSpec
+from fumi_tpu_torch.data import sampler, synthetic
 from fumi_tpu_torch.models import mlp
 from fumi_tpu_torch.ops import kernels
 from fumi_tpu_torch.serve import FewShotClassifier
+from fumi_tpu_torch.train import steps
 
 pytestmark = pytest.mark.cuda
 
@@ -115,6 +119,96 @@ def test_served_kernel_matches_autograd_engine(cuda_device, model):
     want = engine.episode_logits_batch(s_im, s_y, q_im, support_text=s_tx)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+# (dtype, rows, width, M): fp32 rows of 16-byte multiples take the vector
+# path, bf16 at width 100 (200-byte rows) the 4-byte one, uint8 at odd
+# widths the byte one; M=0 and M > the block count's cap are edges too
+GATHER_CASES = [(torch.float32, 4096, 2048, 640), (torch.float32, 300, 768, 100),
+                (torch.float32, 50, 100, 37), (torch.float32, 9, 3, 5),
+                (torch.bfloat16, 4096, 2048, 640), (torch.bfloat16, 70, 100, 33),
+                (torch.uint8, 4096, 2048, 640), (torch.uint8, 80, 99, 41),
+                (torch.uint8, 20, 1, 7), (torch.float32, 16, 8, 0)]
+
+
+@pytest.mark.parametrize("case", GATHER_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_gather_rows_bitwise(cuda_device, case):
+    dtype, rows, width, M = case
+    gen = torch.Generator().manual_seed(rows + width + M)
+    if dtype == torch.uint8:
+        table = torch.randint(0, 256, (rows, width), generator=gen,
+                              dtype=torch.uint8)
+    else:
+        table = torch.randn((rows, width), generator=gen).to(dtype)
+    idx = torch.randint(0, rows, (M,), generator=gen, dtype=torch.int32)
+    table, idx = table.to(cuda_device), idx.to(cuda_device)
+    before = kernels.gather_rows.launches
+    got = kernels.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert kernels.gather_rows.launches == before + (M > 0)
+    assert got.dtype == dtype and got.shape == (M, width)
+    assert torch.equal(got, kernels.gather_rows_reference(table, idx))
+    # a table that starts one row in: the pointer alignment changes
+    assert torch.equal(kernels.gather_rows(table[1:], idx.clamp(max=rows - 2)),
+                       table[1:][idx.clamp(max=rows - 2).long()])
+
+
+def test_gather_rows_out_of_range_raises_at_synchronize(cuda_device):
+    """A device-side assert spoils the CUDA context of its process, so the
+    bad launch runs in a child process."""
+    code = (
+        "import torch\n"
+        "from fumi_tpu_torch.ops import kernels\n"
+        "table = torch.zeros(8, 64, device='cuda')\n"
+        "idx = torch.tensor([0, 8], dtype=torch.int32, device='cuda')\n"
+        "kernels.gather_rows(table, idx)\n"
+        "try:\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n"
+        "    raise SystemExit(0)\n"
+        "raise SystemExit('no error at synchronize')\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "raised:" in out.stdout
+
+
+@pytest.mark.parametrize("model", ["fumi", "maml"])
+def test_train_step_on_card_matches_cpu(cuda_device, model):
+    """One second-order train step from the same weights on the same
+    episode, dropout 0: fp32 on both, summed in other orders, 1e-4. The
+    SGD step keeps the gradient's own differences visible in the params."""
+    cfg = Config(model=model, dataset="synthetic", im_emb_dim=64,
+                 text_emb_dim=16, im_hid_dim=(32, 16), text_hid_dim=16,
+                 num_ways=3, num_shots=2, num_shots_test=4, batch_size=2,
+                 num_train_adapt_steps=3, step_size=0.1, dropout=0.0,
+                 optim="SGD", lr=0.1, text_encoder="precomputed", seed=0)
+    cs, table, ids = synthetic.synthetic_class_set(
+        num_classes=10, images_per_class=12, im_dim=64, text_dim=16)
+    smp = sampler.DeviceEpisodeSampler(
+        table, ids, cs, EpisodeSpec(2, 3, 2, 4, 64, 16),
+        use_pallas_gather=True, device=cuda_device)
+    episode = smp.sample(smp.generator(0))
+    card = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                            device=cuda_device)
+    host = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    p_card, _, m_card = card.train_step(
+        card.params, card.opt.init(card.params), episode, None)
+    p_host, _, m_host = host.train_step(
+        host.params, host.opt.init(host.params),
+        Episode(*(None if t is None else t.cpu() for t in episode)), None)
+    assert set(m_card) == set(m_host)
+    for k in m_host:
+        np.testing.assert_allclose(float(m_card[k]), float(m_host[k]),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+    for k in p_host:
+        np.testing.assert_allclose(p_card[k].cpu().numpy(),
+                                   p_host[k].numpy(), rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
 
 
 if __name__ == "__main__":

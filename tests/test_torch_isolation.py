@@ -17,8 +17,12 @@ import fumi_tpu.core.config as jax_config
 import fumi_tpu_torch
 from fumi_tpu_torch import bridge
 from fumi_tpu_torch.core import config as port_config
+from fumi_tpu_torch.core.episode import EpisodeSpec
 from fumi_tpu_torch.core.runtime import resolve_device
+from fumi_tpu_torch.data import synthetic
+from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler
 from fumi_tpu_torch.serve import FewShotClassifier
+from fumi_tpu_torch.train import steps
 
 PKG_DIR = os.path.dirname(fumi_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
@@ -114,3 +118,40 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert FewShotClassifier(cfg, device="cpu").device.type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def _sampler(**kw):
+    cs, table, ids = synthetic.synthetic_class_set(
+        num_classes=4, images_per_class=6, im_dim=8, text_dim=4)
+    return DeviceEpisodeSampler(table, ids, cs, EpisodeSpec(1, 2, 1, 1, 8, 4),
+                                **kw)
+
+
+def _steps(**kw):
+    cfg = port_config.Config(model="fumi", dataset="synthetic", im_emb_dim=8,
+                             text_emb_dim=4, im_hid_dim=(4, 4),
+                             text_hid_dim=4, num_ways=2,
+                             text_encoder="precomputed")
+    return steps.make_steps(cfg, torch.Generator().manual_seed(0), **kw)
+
+
+def _episode(**kw):
+    return bridge.episode_from_numpy(
+        bridge.episode_to_numpy(EpisodeSpec(1, 2, 1, 1, 8, 4).zeros("cpu")),
+        **kw)
+
+
+@pytest.mark.parametrize("entry", [_sampler, _steps, _episode],
+                         ids=["DeviceEpisodeSampler", "make_steps",
+                              "episode_from_numpy"])
+def test_training_entry_points_default_to_cuda(monkeypatch, entry):
+    """The sampler, the steps and the episode bridge ask for CUDA unless
+    given device='cpu', and then hold every tensor on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+    out = entry(device="cpu")
+    tensors = (list(out.tables) if isinstance(out, DeviceEpisodeSampler)
+               else list(out.params.values()) if hasattr(out, "params")
+               else [t for t in out if t is not None])
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
