@@ -10,28 +10,36 @@ fails:
 2. build every CUDA kernel of the port from ``fumi_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the flagship paths give it, with TF32 off: ``fused_adapt`` to a
-   stated tolerance, ``gather_rows`` bitwise (fp32, bf16 and uint8 tables,
-   several widths);
+   shapes the flagship paths give it, with TF32 off: ``fused_adapt`` and
+   ``fused_maml_adapt_batched`` to a stated tolerance, ``gather_rows`` and
+   ``augment_embeddings`` bitwise (several tables, widths and seeds), and
+   the sampler's ``--augment`` jitter (support only, queries clean);
 4. drive the serving path (``FewShotClassifier``) at the flagship width
    (FuMI, BERT text 768, image 2048, im_hid (256, 64), 5-way 5-shot,
    100-step adaptation) with seeded random weights, then MAML; check the
    answers against the same classifier's autograd engine;
 5. drive the meta-training path (``make_chunked_train`` on the device
    sampler with the kernel gather; B=4, 32 queries per class, 5
-   second-order inner steps, Adam) for FuMI, then MAML, and hold one
-   train step on the card against the same step on the CPU;
-6. drive the eval path (``make_chunked_eval`` with the fused adaptation
-   kernel, 100 steps, 20 queries per class) and hold it against the same
+   second-order inner steps, Adam) for FuMI, then MAML, without and with
+   the ``--augment`` jitter, and hold one train step on the card against
+   the same step on the CPU;
+6. drive the eval path (``make_chunked_eval`` with the fused kernels, 100
+   steps, 20 queries per class: FuMI through ``fused_adapt``, MAML
+   through ``fused_maml_adapt_batched``) and hold it against the same
    episodes through the autograd engine;
-7. time each kernel, its plain version and (where one exists) the one
+7. drive the experiment driver, ``fumi_tpu_torch.cli.main``, for FuMI and
+   MAML at the flagship width on ``--dataset synthetic --augment
+   --tpu_pallas_gather --tpu_pallas_fused_eval`` (21 train steps, evals at
+   batches 10 and 20, a 9-meta-batch test pass), then FuMI ``--evaluate
+   --checkpoint`` on the run it wrote;
+8. time each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, and each path;
-8. print the ``kernels`` JSON line, the card's name and power limit, and
+9. print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Every path of phases 4-6 sets the kernels' launch counts to 0 just before
+Every path of phases 4-7 sets the kernels' launch counts to 0 just before
 it runs and reads them just after; it fails if it did not launch each
-kernel it runs.
+kernel it runs, as many times as the path runs it.
 
 It imports no JAX. Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -65,6 +73,18 @@ S = WAYS * SHOTS
 TRAIN_Q, EVAL_Q, INNER_STEPS, LR = 32, 20, 5, 3e-5
 TRAIN_CHUNK, EVAL_BATCHES = 50, 8
 TABLE_CLASSES, TABLE_IMAGES = 64, 64
+AUG_SCALE = 0.1  # the driver's --augment scale
+KERNEL_NAMES = ("fused_adapt", "gather_rows", "augment_embeddings",
+                "fused_maml_adapt_batched")
+SOURCES = ("fused_adapt", "gather_rows", "augment_embeddings",
+           "fused_adapt_batched")
+# the driver phase: --epochs 20 --eval_freq 10 --num_ep_test 32 at B=4 runs
+# 21 train steps, 3 validation passes of 8 // 2 + 1 meta-batches (before
+# training, at batches 10 and 20) and a test pass of 8 + 1
+DRIVER_EPOCHS, DRIVER_EVAL_FREQ, DRIVER_EP_TEST = 20, 10, 32
+DRIVER_TRAIN_STEPS = DRIVER_EPOCHS + 1
+DRIVER_TEST_BATCHES = DRIVER_EP_TEST // B + 1
+DRIVER_EVAL_BATCHES = 3 * (DRIVER_EP_TEST // B // 2 + 1) + DRIVER_TEST_BATCHES
 
 
 def fail(msg: str) -> None:
@@ -183,6 +203,111 @@ def gather_bytes(m: int, row_bytes: int) -> int:
     return 2 * m * row_bytes + 4 * m
 
 
+def augment_cost(m: int, d: int):
+    """(fp32 flops, bytes) of the jitter: x read once, the int64 seed read
+    once, out written once; 4 fp32 operations an element (u - 1.5, the
+    scale, 1 +, x *). Philox's integer operations have no peak in the
+    table of published rates, so they are not counted."""
+    return 4 * m * d, 2 * 4 * m * d + 8
+
+
+def check_augment(dev) -> float:
+    """``augment_embeddings`` against its plain version, bitwise, at the
+    flagship support set (B*N*K rows), the flagship query count and an odd
+    shape, for two seeds, which must give different jitters."""
+    import torch
+    from fumi_tpu_torch.ops import kernels
+    gen = torch.Generator(device=dev).manual_seed(4)
+    shapes = [(B * S, D), (B * WAYS * TRAIN_Q, D), (37, 99)]
+    for rows, width in shapes:
+        x = torch.randn((rows, width), generator=gen, device=dev)
+        outs = []
+        for seed in (1, 2 ** 62 - 3):
+            s = torch.tensor([seed], dtype=torch.int64, device=dev)
+            got = kernels.augment_embeddings(x, s, AUG_SCALE)
+            want = kernels.augment_embeddings_reference(x, s, AUG_SCALE)
+            torch.cuda.synchronize()
+            ratio = (got / x).double()
+            if not torch.equal(got, want):
+                err = float((got - want).abs().max())
+                fail(f"augment_embeddings differs from its plain version "
+                     f"({rows}x{width}, seed {seed}): max|diff| {err:.3e}")
+            # 1 + jitter and x times it round to fp32: 1e-6 of slack
+            if not (float(ratio.min()) >= 1 - AUG_SCALE - 1e-6
+                    and float(ratio.max()) <= 1 + AUG_SCALE + 1e-6):
+                fail(f"augment_embeddings out of bounds ({rows}x{width})")
+            outs.append(got)
+        if torch.equal(outs[0], outs[1]):
+            fail(f"augment_embeddings: two seeds gave one jitter "
+                 f"({rows}x{width})")
+    print(f"kernel augment_embeddings vs plain: bitwise equal at "
+          f"{', '.join(f'{r}x{w}' for r, w in shapes)} for two seeds, which "
+          f"differ; out/x within [{1 - AUG_SCALE:g}, {1 + AUG_SCALE:g}] to "
+          f"fp32 rounding")
+    return 0.0
+
+
+def check_sampler_augment(table, ids_np, cset, dev) -> None:
+    """The sampler's --augment jitter: the same episode identity and query
+    embeddings as without it, the support embeddings jittered within the
+    scale."""
+    import torch
+    from fumi_tpu_torch.core.episode import EpisodeSpec
+    from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler
+    spec = EpisodeSpec(B, WAYS, SHOTS, TRAIN_Q, D, E)
+    eps = [DeviceEpisodeSampler(table, ids_np, cset, spec,
+                                use_pallas_gather=True, augment_scale=scale,
+                                device=dev)
+           for scale in (0.0, AUG_SCALE)]
+    plain, aug = (smp.sample(smp.generator(7)) for smp in eps)
+    ratio = (aug.support_im / plain.support_im).double()
+    ok = (torch.equal(plain.support_ids, aug.support_ids)
+          and torch.equal(plain.query_im, aug.query_im)
+          and not torch.equal(plain.support_im, aug.support_im)
+          and float((ratio - 1).abs().max()) <= AUG_SCALE + 1e-6)
+    print(f"sampler --augment: support jittered (|out/x - 1| <= "
+          f"{float((ratio - 1).abs().max()):.4f}), queries and ids as "
+          f"without it: {ok}")
+    if not ok:
+        fail("the sampler's augmentation touched the queries or missed the "
+             "support set")
+
+
+def check_batched(maml_p, sx, sy, qx, per_task) -> float:
+    """``fused_maml_adapt_batched`` against its plain version at B=4
+    flagship, 100 steps. Tolerance 1e-3 and the same argmax: the two sum
+    in other orders, and 100 fp32 SGD steps carry the difference forward
+    (up to 3.1e-4 for fused_adapt, PERF.md); both distances to the
+    same loop in fp64 are printed, and the distance to ``fused_adapt``
+    (``per_task``) on the same inputs."""
+    import torch
+    from fumi_tpu_torch.ops import kernels
+    args = (sx, sy, qx, STEPS, STEP_SIZE)
+    got = kernels.fused_maml_adapt_batched(maml_p, *args)
+    want = kernels.fused_maml_adapt_batched_reference(maml_p, *args)
+    exact = kernels.fused_maml_adapt_batched_reference(
+        {k: v.double() for k, v in maml_p.items()}, sx.double(), sy,
+        qx.double(), STEPS, STEP_SIZE)
+    torch.cuda.synchronize()
+    T, smem, priv = kernels.batched_plan(
+        sx.device.index, (B, S, QN, D, H1, H2, WAYS))
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+    same_argmax = torch.equal(got.argmax(-1), want.argmax(-1))
+    finite = bool(torch.isfinite(got).all())
+    print(f"kernel fused_maml_adapt_batched [maml head, B={B}, {T} blocks "
+          f"per task, {smem} B of shared memory, private copies in "
+          f"{'shared' if priv else 'device'} memory] vs plain: max|diff| "
+          f"{err:.3e} (tolerance 1e-3), argmax equal {same_argmax}, finite "
+          f"{finite}; vs the fp64 loop: kernel "
+          f"{float((got.double() - exact).abs().max()):.3e}, plain "
+          f"{float((want.double() - exact).abs().max()):.3e}; vs "
+          f"fused_adapt {float((got - per_task).abs().max()):.3e}")
+    if not (ok and same_argmax and finite):
+        fail("fused_maml_adapt_batched disagrees with its plain version")
+    return err
+
+
 def check_gather(table, dev) -> float:
     """``gather_rows`` against its plain version, bitwise, on the flagship
     table (and bf16 and uint8 tables, and narrower and odd widths) at the
@@ -291,6 +416,73 @@ def train_step_card_vs_cpu(cfg, smp, dev):
         fail(f"train step {cfg.model}: card and CPU disagree")
 
 
+def driver_runs(root: str, reset_counts, read_counts, by_path) -> dict:
+    """Phase 7: ``fumi_tpu_torch.cli.main`` on the card at the flagship
+    width (the parser's defaults) for FuMI and MAML, each in its own
+    ``--log_dir`` under ``root``, then FuMI ``--evaluate --checkpoint``.
+    Returns the wall seconds of each run."""
+    import glob
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    walls = {}
+    test = {}
+    for model in ("fumi", "maml"):
+        log_dir = os.path.join(root, model)
+        args = ["--model", model, "--dataset", "synthetic", "--augment",
+                "--tpu_pallas_gather", "--tpu_pallas_fused_eval",
+                "--epochs", str(DRIVER_EPOCHS), "--eval_freq",
+                str(DRIVER_EVAL_FREQ), "--num_ep_test", str(DRIVER_EP_TEST),
+                "--seed", "0", "--wandb_offline", "--log_dir", log_dir]
+        reset_counts()
+        t0 = time.perf_counter()
+        out = test[model] = cli_main.cli(args)
+        torch.cuda.synchronize()
+        walls[model] = time.perf_counter() - t0
+        by_path[f"driver {model}"] = counts = read_counts()
+        (run,) = glob.glob(os.path.join(log_dir, "runs", "*"))
+        csvs = glob.glob(os.path.join(log_dir, "results", "run_*.csv"))
+        with open(csvs[0]) as f:
+            rows = len(f.read().splitlines()) - 1
+        files = all(os.path.exists(os.path.join(run, n))
+                    for n in ("ckpt", "best", "ckpt.meta.json"))
+        finite = all(np.isfinite(out[f"test/{k}"])
+                     for k in ("loss", "acc", "acc_ci95", "loss_ci95"))
+        expect = {"augment_embeddings": DRIVER_TRAIN_STEPS,
+                  "gather_rows": 2 * (DRIVER_TRAIN_STEPS
+                                      + DRIVER_EVAL_BATCHES),
+                  "fused_adapt": DRIVER_EVAL_BATCHES if model == "fumi"
+                  else 0,
+                  "fused_maml_adapt_batched": DRIVER_EVAL_BATCHES
+                  if model == "maml" else 0}
+        print(f"main path, driver {model}: TEST {out}; {rows} CSV rows, "
+              f"ckpt/ and best/ {files}; {walls[model]:.3f} s of wall time; "
+              f"launches {counts}")
+        if not (finite and files and rows == DRIVER_TEST_BATCHES * B):
+            fail(f"driver {model}: non-finite test metrics or missing "
+                 "artifacts")
+        if counts != expect:
+            fail(f"driver {model}: launches {counts}, expected {expect}")
+        if model == "fumi":
+            reset_counts()
+            t0 = time.perf_counter()
+            again = cli_main.cli(args[:-1] + [log_dir + "_evaluate",
+                                              "--evaluate", "--checkpoint",
+                                              run])
+            walls["fumi --evaluate"] = time.perf_counter() - t0
+            by_path["driver fumi --evaluate"] = counts = read_counts()
+            diff = max(abs(again[k] - out[k]) for k in out)
+            print(f"main path, driver fumi --evaluate --checkpoint: TEST "
+                  f"{again}; max|diff| to the training run's test "
+                  f"{diff:.3e} (tolerance 1e-6); launches {counts}")
+            if set(again) != set(out) or diff > 1e-6:
+                fail("driver fumi --evaluate does not reproduce the test")
+            if counts["fused_adapt"] != DRIVER_TEST_BATCHES or \
+                    counts["augment_embeddings"] != 0:
+                fail(f"driver fumi --evaluate: launches {counts}")
+    return walls
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -320,7 +512,7 @@ def main() -> int:
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
-    _build.build_all(["fused_adapt", "gather_rows"])
+    _build.build_all(SOURCES)
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -345,15 +537,13 @@ def main() -> int:
     def on_card(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    kernel_names = ("fused_adapt", "gather_rows")
-
     def reset_counts():
-        for name in kernel_names:
+        for name in KERNEL_NAMES:
             getattr(kernels, name).launches = 0
 
     def read_counts():
         return {name: getattr(kernels, name).launches
-                for name in kernel_names}
+                for name in KERNEL_NAMES}
 
     sx = on_card(rng.randn(B, S, D).astype(np.float32))
     st = on_card(rng.randn(B, S, E).astype(np.float32))
@@ -407,12 +597,23 @@ def main() -> int:
         if not (ok and same_argmax and torch.isfinite(got).all()):
             fail(f"fused_adapt disagrees with its plain version ({label})")
         max_err = max(max_err, err)
+        if label == "maml head":
+            maml_per_task = got
+
+    # the MAML form on the same weights: the shared head, zero bias
+    maml_p = {"net.lin_0.weight": w[0], "net.lin_0.bias": w[1],
+              "net.lin_1.weight": w[2], "net.lin_1.bias": w[3],
+              "net.lin_final.weight": maml_head,
+              "net.lin_final.bias": torch.zeros(WAYS, device=dev)}
+    batched_err = check_batched(maml_p, sx, sy, qx, maml_per_task)
+    aug_err = check_augment(dev)
 
     cset, table_np, ids_np = synthetic_class_set(
         num_classes=TABLE_CLASSES, images_per_class=TABLE_IMAGES, im_dim=D,
         text_dim=E, seed=0)
     table = on_card(table_np)
     gather_err = check_gather(table, dev)
+    check_sampler_augment(table, ids_np, cset, dev)
 
     # ---- 4. the serving path at full width ------------------------------
     srng = np.random.RandomState(1)
@@ -470,9 +671,12 @@ def main() -> int:
             fail(f"serving {model}: kernel and autograd engine disagree")
 
     # ---- 5. meta-training at full width ---------------------------------
-    train_smp = DeviceEpisodeSampler(
-        table, ids_np, cset, EpisodeSpec(B, WAYS, SHOTS, TRAIN_Q, D, E),
-        use_pallas_gather=True, device=dev)
+    train_spec = EpisodeSpec(B, WAYS, SHOTS, TRAIN_Q, D, E)
+    train_smp = DeviceEpisodeSampler(table, ids_np, cset, train_spec,
+                                     use_pallas_gather=True, device=dev)
+    aug_smp = DeviceEpisodeSampler(table, ids_np, cset, train_spec,
+                                   use_pallas_gather=True,
+                                   augment_scale=AUG_SCALE, device=dev)
     trained, train_eps, train_state = {}, {}, {}
     for model in ("fumi", "maml"):
         cfg = train_cfg(Config, model)
@@ -503,6 +707,26 @@ def main() -> int:
                  f"{counts['gather_rows']} times, not 2 per step")
         trained[model] = p
         train_state[model] = (run, p, s, gen, seconds / TRAIN_CHUNK)
+
+        # the same, one chunk on from here, with the --augment jitter
+        aug_run = steps.make_chunked_train(st.family, st.opt, aug_smp,
+                                           TRAIN_CHUNK)
+        aug_run(p, s, aug_smp.generator(2), 2)  # warm
+        reset_counts()
+        seconds = synced_s(lambda: box.update(
+            out=aug_run(p, s, aug_smp.generator(3))))
+        by_path[f"train {model} --augment"] = counts = read_counts()
+        ms = box["out"][3]
+        train_eps[f"{model} --augment"] = TRAIN_CHUNK * B / seconds
+        print(f"main path, train {model} --augment: {TRAIN_CHUNK} steps, "
+              f"loss {float(ms['loss'][-1]):.4f}; {seconds:.3f} s = "
+              f"{train_eps[f'{model} --augment']:.1f} episodes/s; launches "
+              f"{counts}")
+        if not bool(torch.isfinite(ms["loss"]).all()) or \
+                counts["augment_embeddings"] != TRAIN_CHUNK or \
+                counts["gather_rows"] != 2 * TRAIN_CHUNK:
+            fail(f"training {model} --augment: non-finite losses or "
+                 f"launches {counts}")
         train_step_card_vs_cpu(cfg, train_smp, dev)
 
     # ---- 6. eval at full width, fused kernel against the engine ----------
@@ -534,10 +758,17 @@ def main() -> int:
                   f"{float(out[path]['acc'].mean()):.4f}; {seconds:.3f} s = "
                   f"{eval_eps[(model, path)]:.1f} episodes/s; launches "
                   f"{counts}")
-            expect = EVAL_BATCHES if fused else 0
-            if counts["fused_adapt"] != expect or \
-                    counts["gather_rows"] != 2 * EVAL_BATCHES:
-                fail(f"eval {model} through the {path}: launches {counts}")
+            # fused: FuMI's per-task heads through fused_adapt, MAML's
+            # shared head through the batched kernel
+            kernel = "fused_adapt" if model == "fumi" else \
+                "fused_maml_adapt_batched"
+            expect = {"fused_adapt": 0, "fused_maml_adapt_batched": 0,
+                      "gather_rows": 2 * EVAL_BATCHES,
+                      "augment_embeddings": 0}
+            expect[kernel] = EVAL_BATCHES if fused else 0
+            if counts != expect:
+                fail(f"eval {model} through the {path}: launches {counts}, "
+                     f"expected {expect}")
         k, e = out["fused kernel"], out["autograd engine"]
         loss_diff = float((k["loss"] - e["loss"]).abs().max())
         acc_diff = float((k["acc"] - e["acc"]).abs().max())
@@ -549,7 +780,17 @@ def main() -> int:
                 and acc_diff <= per_query + 1e-6):
             fail(f"eval {model}: fused kernel and autograd engine disagree")
 
-    # ---- 7. times ------------------------------------------------------
+    # ---- 7. the experiment driver at full width -------------------------
+    import tempfile
+    import shutil
+    driver_root = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    try:
+        driver_walls = driver_runs(driver_root, reset_counts, read_counts,
+                                   by_path)
+    finally:
+        shutil.rmtree(driver_root, ignore_errors=True)
+
+    # ---- 8. times ------------------------------------------------------
     head_w, head_b = forms["fumi"]
     args = w + (head_w, head_b, sx, sy, qx, STEPS, STEP_SIZE)
     kernel_ms = cuda_ms(lambda: kernels.fused_adapt(*args), 2, 10)
@@ -610,6 +851,65 @@ def main() -> int:
           f"{g_bound_ms * 1e3:.2f} us (bytes: {g_bytes / 1e6:.2f} MB at "
           f"3.35 TB/s); one call from the host with its launch, CUDA "
           f"events: {g_host_ms * 1e3:.2f} us")
+
+    # fused_maml_adapt_batched at B=4 flagship on the MAML inputs of phase
+    # 3, CUDA events; fused_adapt on the same inputs in turns beside it
+    b_args = (sx, sy, qx, STEPS, STEP_SIZE)
+    b_times = {}
+    for turn in ("kernel", "fused_adapt", "kernel", "fused_adapt"):
+        fn = (lambda: kernels.fused_maml_adapt_batched(maml_p, *b_args)) \
+            if turn == "kernel" else \
+            (lambda: kernels.fused_maml_adapt(maml_p, *b_args))
+        b_times.setdefault(turn, []).append(cuda_ms(fn, 1, 5))
+    b_ms = statistics.median(b_times["kernel"])
+    b_plain_ms = cuda_ms(lambda: kernels.fused_maml_adapt_batched_reference(
+        maml_p, *b_args), 1, 5)
+    b_bound_ms = bound_ms  # the same function and shapes as fused_adapt
+    print(f"fused_maml_adapt_batched B={B} S={S} Qn={QN} D={D} H=({H1},"
+          f"{H2}) N={WAYS} steps={STEPS}: kernel {b_ms:.3f} ms (turns "
+          f"{', '.join(f'{t:.3f}' for t in b_times['kernel'])}), plain "
+          f"{b_plain_ms:.3f} ms, bound {b_bound_ms:.4f} ms ({bound_by}); "
+          f"fused_adapt on the same inputs "
+          f"{', '.join(f'{t:.3f}' for t in b_times['fused_adapt'])} ms; no "
+          "single PyTorch call computes this function, so library_ms is "
+          "null")
+
+    # augment_embeddings at the flagship support set: 100 seeds (as 100
+    # episodes draw them) in one CUDA graph
+    m_s = B * S
+    agen = torch.Generator(device=dev).manual_seed(6)
+    ax = torch.randn((m_s, D), generator=agen, device=dev)
+    seeds = [torch.randint(0, 2 ** 62, (1,), generator=agen,
+                           dtype=torch.int64, device=dev) for _ in range(100)]
+    a_calls = {
+        "kernel": [lambda s_=s_: kernels.augment_embeddings(ax, s_, AUG_SCALE)
+                   for s_ in seeds],
+        "plain": [lambda s_=s_: kernels.augment_embeddings_reference(
+            ax, s_, AUG_SCALE) for s_ in seeds]}
+    a_times = {}
+    for turn in ("kernel", "plain", "kernel", "plain"):
+        a_times.setdefault(turn, []).append(graph_ms(a_calls[turn]))
+    a_ms = statistics.median(a_times["kernel"])
+    a_plain_ms = statistics.median(a_times["plain"])
+    a_flops, a_bytes = augment_cost(m_s, D)
+    a_t_ops, a_t_bytes = (a_flops / PEAK_FP32_FLOPS,
+                          a_bytes / PEAK_BYTES_PER_S)
+    a_bound_ms = 1e3 * max(a_t_ops, a_t_bytes)
+    a_bound_by = "operations" if a_t_ops >= a_t_bytes else "bytes"
+    a_host_ms = cuda_ms(lambda: kernels.augment_embeddings(ax, seeds[0],
+                                                           AUG_SCALE), 10, 50)
+    rand_mul_ms = cuda_ms(lambda: ax * (1.0 + (torch.rand_like(ax) - 0.5)
+                                        * (2 * AUG_SCALE)), 10, 50)
+    print(f"for comparison: torch.rand + multiply on the same {m_s}x{D} "
+          f"fp32, one call from the host, CUDA events: {rand_mul_ms * 1e3:.2f}"
+          f" us (other random bits; not a library call of this function)")
+    print(f"augment_embeddings M={m_s} D={D} fp32 (device time, CUDA graph "
+          f"of 100 calls): kernel {a_ms * 1e3:.2f} us (turns "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in a_times['kernel'])}), plain "
+          f"{a_plain_ms * 1e3:.2f} us, bound {a_bound_ms * 1e3:.3f} us "
+          f"({a_bound_by}: {a_bytes / 1e6:.2f} MB at 3.35 TB/s); one call "
+          f"from the host with its launch, CUDA events: "
+          f"{a_host_ms * 1e3:.2f} us; library_ms null")
     # how busy the card is in a train step: device time from a profiler
     # trace of 5 steps against the wall time of a step in the timed chunk
     prof_steps = 5
@@ -627,15 +927,20 @@ def main() -> int:
               f"busy {100 * dev_ms / prof_steps / (step_s * 1e3):.1f}% of "
               "the step")
     for model in trained:
-        print(f"train {model}: {train_eps[model]:.1f} episodes/s; eval "
-              f"through the fused kernel "
+        fused = "fused_adapt" if model == "fumi" else \
+            "fused_maml_adapt_batched"
+        print(f"train {model}: {train_eps[model]:.1f} episodes/s, with "
+              f"--augment {train_eps[f'{model} --augment']:.1f}; eval "
+              f"through {fused} "
               f"{eval_eps[(model, 'fused kernel')]:.1f} episodes/s, through "
               f"the autograd engine "
               f"{eval_eps[(model, 'autograd engine')]:.1f} episodes/s")
+    print("driver wall time per run (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in driver_walls.items()))
 
-    # ---- 8. result ------------------------------------------------------
+    # ---- 9. result ------------------------------------------------------
     launches = {name: sum(c[name] for c in by_path.values())
-                for name in kernel_names}
+                for name in KERNEL_NAMES}
     print(json.dumps({"kernels": [{
         "name": "fused_adapt", "route": "cuda",
         "source": "fumi_tpu_torch/csrc/fused_adapt.cu",
@@ -652,6 +957,24 @@ def main() -> int:
         "ms": g_ms, "plain_ms": g_plain_ms, "bound_ms": g_bound_ms,
         "bound_by": "bytes", "library_ms": g_lib_ms,
         "launches_by_path": {p: c["gather_rows"] for p, c in by_path.items()},
+    }, {
+        "name": "augment_embeddings", "route": "cuda",
+        "source": "fumi_tpu_torch/csrc/augment_embeddings.cu",
+        "replaces": "fumi_tpu/ops/pallas_kernels.py:53",
+        "launches": launches["augment_embeddings"], "max_abs_err": aug_err,
+        "ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound_ms,
+        "bound_by": a_bound_by, "library_ms": None,
+        "launches_by_path": {p: c["augment_embeddings"]
+                             for p, c in by_path.items()},
+    }, {
+        "name": "fused_maml_adapt_batched", "route": "cuda",
+        "source": "fumi_tpu_torch/csrc/fused_adapt_batched.cu",
+        "replaces": "fumi_tpu/ops/pallas_kernels.py:353",
+        "launches": launches["fused_maml_adapt_batched"],
+        "max_abs_err": batched_err, "ms": b_ms, "plain_ms": b_plain_ms,
+        "bound_ms": b_bound_ms, "bound_by": bound_by, "library_ms": None,
+        "launches_by_path": {p: c["fused_maml_adapt_batched"]
+                             for p, c in by_path.items()},
     }]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,10 @@ kernel the JAX package wrote in Pallas for the TPU is a kernel written by
 hand for Hopper (``csrc/``), built with ``nvcc`` at first use. Module names
 follow the JAX package's. It imports neither JAX nor ``fumi_tpu``.
 
-Ported so far: few-shot serving of MAML and FuMI on precomputed embeddings
-(:class:`fumi_tpu_torch.serve.FewShotClassifier`) with the fused
-test-time adaptation kernel (:mod:`fumi_tpu_torch.ops.kernels`).
+Ported so far, for MAML and FuMI on precomputed embeddings: few-shot
+serving (:class:`fumi_tpu_torch.serve.FewShotClassifier`), meta-training
+and eval on the device sampler (:mod:`fumi_tpu_torch.train.steps`), and
+the experiment driver (``python -m fumi_tpu_torch.cli.main``), with every
+kernel of the JAX package's ``ops/pallas_kernels.py`` written by hand for
+the card (:mod:`fumi_tpu_torch.ops.kernels`).
 """

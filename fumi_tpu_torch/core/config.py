@@ -1,21 +1,24 @@
-"""Typed experiment configuration (no argparse builder).
+"""Typed experiment configuration and its argparse adapter.
 
-A copy of ``fumi_tpu/core/config.py``'s ``Config``: the same fields with
-the same defaults, the same ``validate()`` checks and ``replace``. The port
-keeps its own copy because importing anything under ``fumi_tpu`` pulls in
-JAX. ``tests/test_torch_isolation.py`` holds the defaults equal to the JAX
-package's. The argparse builder and ``config_from_json`` are not copied:
-the port has no CLI yet (ROADMAP.md, Queue 1).
+A copy of ``fumi_tpu/core/config.py``: ``Config`` with the same fields,
+defaults, ``validate()`` checks and ``replace``; ``build_parser`` with the
+same flags and defaults; ``config_from_args`` and ``config_from_json``.
+The port keeps its own copy because importing anything under ``fumi_tpu``
+pulls in JAX. ``tests/test_torch_isolation.py`` and
+``tests/test_torch_cli.py`` hold the copy equal to the JAX package's.
 
 Fields that only the JAX package's TPU engines read (mesh, chunking,
 remat, PRNG implementation, ...) are kept so that a config means the same
 thing on both sides; the port's entry points reject the values they do
-not implement.
+not implement, naming the ROADMAP.md item that will port each.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+import typing
 from typing import Optional, Tuple
 
 TEXT_ENCODERS = ("glove", "w2v", "RNN", "RNNhid", "BERT", "rand", "precomputed")
@@ -24,6 +27,10 @@ TOKEN_TEXT_ENCODERS = ("glove", "w2v", "RNN", "RNNhid")
 TEXT_TYPES = ("label", "description", "common_name")
 MODELS = ("maml", "fumi", "am3", "clip")
 OPTIMIZERS = ("adam", "SGD", "adamw", "adamw_lin_schedule")
+# families the JAX package registers beside MODELS (its train/steps.py
+# register_family); the port accepts their names and its entry points
+# reject them until they are ported (ROADMAP.md Queue 1, item 5)
+REGISTERED_FAMILIES = ("protonet", "matchingnet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,7 +155,8 @@ class Config:
         """The JAX package's argument validation, check for check.
 
         The one difference: the port has no family registry, so a model
-        outside ``MODELS`` is always rejected."""
+        outside ``MODELS`` and the JAX package's ``REGISTERED_FAMILIES``
+        is rejected."""
         if "inat" in self.dataset and \
                 self.im_encoder not in ("conv4", "resnet12"):
             if self.image_embedding_model not in ("resnet-152", "resnet-34"):
@@ -165,8 +173,9 @@ class Config:
                 raise ValueError(
                     "Resnet-34 outputs 512-dimensional embeddings, hence "
                     "--im_emb_dim should be set to 512")
-        if self.model not in MODELS:
-            raise ValueError(f"unknown model {self.model!r}; one of {MODELS}")
+        if self.model not in MODELS + REGISTERED_FAMILIES:
+            raise ValueError(f"unknown model {self.model!r}; one of "
+                             f"{MODELS + REGISTERED_FAMILIES}")
         if self.text_encoder not in TEXT_ENCODERS:
             raise NameError(
                 f"{self.text_encoder} not allowed as text encoder")
@@ -285,3 +294,196 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX package's parser: the reference's flags with their names
+    and defaults, plus the ``--tpu_*`` extensions. Every flag parses; the
+    port's entry points reject the values they do not run yet."""
+    p = argparse.ArgumentParser(description="Multimodal image classification")
+    a = p.add_argument
+
+    # data config
+    a("--wandb_entity", type=str, default="multimodal-image-cls")
+    a("--wandb_project", type=str, default="fumi")
+    a("--dataset", type=str, default="inat-anim",
+      help="Dataset to use (inat-anim, supervised-inat-anim)")
+    a("--data_dir", type=str, default="./data")
+    a("--checkpoint", type=str, default=None)
+    a("--log_dir", type=str, default="./results")
+    a("--remove_stop_words", action="store_true")
+    a("--colab", action="store_true")
+
+    # optimizer config
+    a("--epochs", type=int, default=50000,
+      help="Number of meta-learning batches to train for")
+    a("--optim", type=str, default="adam")
+    a("--lr", type=float, default=3e-5)
+    a("--momentum", type=float, default=0.9)
+    a("--batch_size", type=int, default=4,
+      help="Number of tasks in mini-batch")
+    a("--weight_decay", type=float, default=5e-4)
+    a("--num_warmup_steps", type=int, default=10)
+
+    # dataloader config
+    a("--num_shots", type=int, default=5)
+    a("--num_ways", type=int, default=5)
+    a("--num_shots_test", type=int, default=32,
+      help="Number of examples per class in query set")
+    a("--augment", action="store_true")
+    a("--num_workers", type=int, default=0)
+    a("--image_embedding_model", type=str, default="resnet-152")
+
+    # model config
+    a("--model", type=str, default="fumi")
+    a("--prototype_dim", type=int, default=64)
+    a("--im_encoder", type=str, default="precomputed")
+    a("--im_emb_dim", type=int, default=2048)
+    a("--im_hid_dim", type=int, nargs="+", default=[256, 64])
+    a("--text_encoder", type=str, default="BERT", choices=list(TEXT_ENCODERS))
+    a("--pooling_strat", type=str, default="mean")
+    a("--fine_tune", action="store_true")
+    a("--text_type", type=str, nargs="+", default=["description"])
+    a("--text_emb_dim", type=int, default=768)
+    a("--text_hid_dim", type=int, default=256)
+    a("--dropout", type=float, default=0.25)
+    a("--step_size", type=float, default=0.01)
+    a("--first_order", action="store_true")
+    a("--num_train_adapt_steps", type=int, default=5)
+    a("--num_test_adapt_steps", type=int, default=100)
+    a("--init_all_layers", action="store_true")
+    a("--norm_hypernet", action="store_true")
+    a("--hypernet_bias_init", action="store_true")
+    a("--lamda_fixed", default=None, type=int)
+
+    # clip config
+    a("--clip_latent_dim", type=int, default=512)
+
+    # run config
+    a("--seed", type=int, default=123)
+    a("--patience", type=int, default=10000)
+    a("--eval_freq", type=int, default=2500)
+    a("--wandb_experiment", type=str, default="debug")
+    a("--evaluate", action="store_true")
+    a("--num_ep_test", type=int, default=1000)
+    a("--disable_cuda", action="store_true",
+      help="run on the CPU (the port runs on the GPU otherwise)")
+    a("--wandb_offline", action="store_true")
+
+    # extensions of the JAX package
+    a("--tpu_mesh_dp", type=int, default=0,
+      help="episode-parallel mesh axis size (0 = all devices)")
+    a("--tpu_mesh_mp", type=int, default=1, help="model mesh axis size")
+    a("--tpu_host_sampler", action="store_true",
+      help="host-side episodic sampler instead of the device sampler")
+    a("--tpu_sampler_backend", type=str, default="auto",
+      choices=["auto", "native", "numpy"], help="host-sampler index backend")
+    a("--tpu_loader_mp_context", type=str, default="fork",
+      choices=["fork", "spawn"],
+      help="start method for --num_workers loader processes")
+    a("--tpu_chunk", type=int, default=0,
+      help="train steps per driver call (0 = 1000)")
+    a("--tpu_train_unroll", type=int, default=0,
+      help="outer-scan unroll of the JAX package's chunked train drivers")
+    a("--tpu_grad_accum", type=int, default=1,
+      help="compute each meta-gradient in this many micro-batches")
+    a("--tpu_allow_replacement", action="store_true",
+      help="sample with replacement from classes with fewer than K+Q "
+           "images instead of failing fast")
+    a("--tpu_pallas_gather", action="store_true",
+      help="gather episode rows with the hand-written kernel")
+    a("--tpu_pallas_fused_eval", action="store_true",
+      help="run eval adaptation through the fused kernels")
+    a("--tpu_compute_dtype", type=str, default="float32",
+      choices=["float32", "bfloat16"])
+    a("--tpu_prng_impl", type=str, default="rbg",
+      choices=["rbg", "threefry2x32", "unsafe_rbg"])
+    a("--tpu_skip_nonfinite", type=int, default=0,
+      help="skip non-finite meta-updates; abort after N in a row (0 = off)")
+    a("--tpu_im_size", type=int, default=84)
+    a("--tpu_im_channels", type=int, default=3)
+    a("--tpu_resnet12_channels", type=int, nargs="+",
+      default=[64, 160, 320, 640])
+    a("--tpu_meta_grad", type=str, default="explicit",
+      choices=["explicit", "imaml", "reptile"])
+    a("--tpu_imaml_lambda", type=float, default=2.0)
+    a("--tpu_imaml_cg_iters", type=int, default=5)
+    a("--tpu_adapt_params", type=str, default="all", choices=["all", "head"])
+    a("--tpu_remat", type=str, default="auto", choices=["auto", "on", "off"])
+    a("--tpu_ema", type=float, default=0.0)
+    a("--tpu_watch", action="store_true")
+    a("--tpu_debug_nans", action="store_true")
+    a("--tpu_profile_dir", type=str, default=None)
+    a("--tpu_auto_resume", action="store_true",
+      help="resume the newest checkpointed run in log_dir (params, "
+           "optimizer state, batch counter)")
+    a("--tpu_seed_sweep", type=int, default=0)
+    a("--tpu_seed_accum", type=int, default=1)
+    a("--tpu_import", type=str, nargs="+", default=[])
+    a("--tpu_dist_coordinator", type=str, default=None)
+    a("--tpu_dist_num_processes", type=int, default=0)
+    a("--tpu_dist_process_id", type=int, default=-1)
+    return p
+
+
+# Config fields whose flag is not the field's name
+_FLAG_OF = {"mesh_dp": "tpu_mesh_dp", "mesh_mp": "tpu_mesh_mp",
+            "sampler_backend": "tpu_sampler_backend",
+            "loader_mp_context": "tpu_loader_mp_context",
+            "chunk": "tpu_chunk", "train_unroll": "tpu_train_unroll",
+            "grad_accum": "tpu_grad_accum",
+            "allow_replacement": "tpu_allow_replacement",
+            "pallas_gather": "tpu_pallas_gather",
+            "pallas_fused_eval": "tpu_pallas_fused_eval",
+            "compute_dtype": "tpu_compute_dtype",
+            "prng_impl": "tpu_prng_impl",
+            "skip_nonfinite": "tpu_skip_nonfinite", "im_size": "tpu_im_size",
+            "im_channels": "tpu_im_channels",
+            "resnet12_channels": "tpu_resnet12_channels",
+            "meta_grad": "tpu_meta_grad", "imaml_lambda": "tpu_imaml_lambda",
+            "imaml_cg_iters": "tpu_imaml_cg_iters",
+            "adapt_params": "tpu_adapt_params", "remat": "tpu_remat",
+            "ema": "tpu_ema", "watch": "tpu_watch",
+            "debug_nans": "tpu_debug_nans", "profile_dir": "tpu_profile_dir",
+            "auto_resume": "tpu_auto_resume", "seed_sweep": "tpu_seed_sweep",
+            "seed_accum": "tpu_seed_accum", "import_modules": "tpu_import",
+            "dist_coordinator": "tpu_dist_coordinator",
+            "dist_num_processes": "tpu_dist_num_processes",
+            "dist_process_id": "tpu_dist_process_id"}
+
+
+def _is_tuple_field(field: dataclasses.Field) -> bool:
+    return (typing.get_origin(field.type) is tuple
+            if not isinstance(field.type, str) else "Tuple" in field.type)
+
+
+def config_from_args(argv=None) -> Config:
+    """Parse ``argv`` into a validated Config. Unlike the JAX package, it
+    imports nothing for ``--tpu_import`` (the port has no family registry
+    to extend; its driver rejects the flag)."""
+    args = vars(build_parser().parse_args(argv))
+    kwargs = {}
+    for field in dataclasses.fields(Config):
+        if field.name == "device_sampler":
+            kwargs[field.name] = not args["tpu_host_sampler"]
+            continue
+        val = args[_FLAG_OF.get(field.name, field.name)]
+        kwargs[field.name] = tuple(val) if _is_tuple_field(field) else val
+    return Config(**kwargs).validate()
+
+
+def config_from_json(path: str) -> Config:
+    """Rebuild a Config from a run dir's ``config.json`` (the driver writes
+    ``dataclasses.asdict(cfg)`` there): JSON lists back to the tuple
+    fields, unknown keys ignored, validated."""
+    with open(path) as f:
+        raw = json.load(f)
+    kwargs = {}
+    for field in dataclasses.fields(Config):
+        if field.name not in raw:
+            continue
+        val = raw[field.name]
+        if isinstance(val, list) and _is_tuple_field(field):
+            val = tuple(val)
+        kwargs[field.name] = val
+    return Config(**kwargs).validate()

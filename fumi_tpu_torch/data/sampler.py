@@ -13,7 +13,12 @@ XLA's gather when the flag is off.
 
 :func:`sample_episode` draws its noise from a ``torch.Generator`` on the
 table's device, then calls :func:`episode_from_noise`, a pure function of
-the noise, so the tests can feed it the JAX package's own noise.
+the noise, so the tests can feed it the JAX package's own noise. With
+``augment_scale > 0`` (``--augment``) the support embeddings are jittered
+by ``ops/kernels.py:augment_embeddings`` (the hand-written CUDA kernel on
+the card) from a one-element seed the generator draws on the device, so
+no value crosses to the host; ``episode_from_noise(aug_noise=...)`` takes
+the jitter as noise instead, the form the tests feed JAX's noise through.
 
 Raw-image tables and their flip-and-crop augmentation wait for the
 raw-image backbones (ROADMAP.md Queue 1, item 7); the host samplers wait
@@ -66,13 +71,19 @@ def _gather_image_rows(table: torch.Tensor, rows: torch.Tensor,
 def episode_from_noise(tables: SamplerTables, spec: EpisodeSpec,
                        cls_noise: torch.Tensor, img_noise: torch.Tensor,
                        aug_noise: Optional[torch.Tensor] = None,
-                       use_pallas_gather: bool = False) -> Episode:
+                       use_pallas_gather: bool = False,
+                       aug_seed: Optional[torch.Tensor] = None,
+                       augment_scale: float = 0.0) -> Episode:
     """One meta-batch from the tables and the noise that picks it.
 
     ``cls_noise`` (B, C) and ``img_noise`` (B, N, max_count) are uniform in
-    [0, 1); ``aug_noise`` (B, N*K, D), uniform in [-s, s), is the
-    multiplicative jitter ``x * (1 + aug_noise)`` of the SUPPORT embeddings
-    (train-time augmentation; queries stay clean), or None for none."""
+    [0, 1). The SUPPORT embeddings are jittered (train-time augmentation;
+    queries stay clean) either by ``aug_noise`` (B, N*K, D), uniform in
+    [-s, s), as ``x * (1 + aug_noise)``, or by ``augment_embeddings`` keyed
+    by ``aug_seed`` (a one-element int64 tensor) at ``augment_scale``; or
+    not at all when both are None."""
+    if aug_noise is not None and aug_seed is not None:
+        raise ValueError("episode_from_noise: aug_noise or aug_seed, not both")
     B, N, K, Q = (spec.batch_size, spec.num_ways, spec.num_shots,
                   spec.num_query)
     max_count = tables.class_rows.shape[1]
@@ -98,12 +109,18 @@ def episode_from_noise(tables: SamplerTables, spec: EpisodeSpec,
         tables.image_table, s_rows, use_pallas_gather))
     query_im = pixels_to_float(_gather_image_rows(
         tables.image_table, q_rows, use_pallas_gather))
+    jitter = aug_noise is not None or (aug_seed is not None
+                                       and augment_scale > 0.0)
+    if jitter and support_im.dim() != 3:
+        raise NotImplementedError(
+            "raw-image augmentation is not ported yet (ROADMAP.md "
+            "Queue 1, item 7: raw-image backbones)")
     if aug_noise is not None:
-        if support_im.dim() != 3:
-            raise NotImplementedError(
-                "raw-image augmentation is not ported yet (ROADMAP.md "
-                "Queue 1, item 7: raw-image backbones)")
         support_im = support_im * (1.0 + aug_noise)
+    elif jitter:
+        flat = kernels.augment_embeddings(
+            support_im.reshape(B * N * K, -1), aug_seed, augment_scale)
+        support_im = flat.reshape(support_im.shape)
 
     # per-class text repeated per shot, class-major like the targets
     text_cls = tables.text_features[class_idx]  # (B, N, E)
@@ -124,19 +141,19 @@ def sample_episode(tables: SamplerTables, spec: EpisodeSpec,
                    augment_scale: float = 0.0) -> Episode:
     """Draw one meta-batch on the tables' device: the noise comes from
     ``gen`` (a generator on that device), in the JAX package's order
-    (classes, images, augmentation)."""
-    B, N, K = spec.batch_size, spec.num_ways, spec.num_shots
+    (classes, images, then the augmentation's seed)."""
+    B, N = spec.batch_size, spec.num_ways
     C, max_count = tables.class_rows.shape
     dev = tables.class_rows.device
     cls_noise = torch.rand((B, C), generator=gen, device=dev)
     img_noise = torch.rand((B, N, max_count), generator=gen, device=dev)
-    aug_noise = None
+    aug_seed = None
     if augment_scale > 0.0:
-        feat = tuple(tables.image_table.shape[1:])
-        aug_noise = (torch.rand((B, N * K) + feat, generator=gen, device=dev)
-                     * (2.0 * augment_scale) - augment_scale)
-    return episode_from_noise(tables, spec, cls_noise, img_noise, aug_noise,
-                              use_pallas_gather)
+        aug_seed = torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                 dtype=torch.int64, device=dev)
+    return episode_from_noise(tables, spec, cls_noise, img_noise,
+                              use_pallas_gather=use_pallas_gather,
+                              aug_seed=aug_seed, augment_scale=augment_scale)
 
 
 class DeviceEpisodeSampler:

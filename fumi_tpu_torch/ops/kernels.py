@@ -9,9 +9,19 @@ The counterparts of ``fumi_tpu/ops/pallas_kernels.py``:
   the query forward (one thread block per task). Plain version:
   :func:`fused_adapt_reference`, the same hand-derived loop written with
   ``torch.matmul``.
+- :func:`fused_maml_adapt_batched`: the same function for MAML's B tasks
+  that share one head, with each task spread over many thread blocks of
+  one cooperative launch (``csrc/fused_adapt_batched.cu``). Plain version:
+  :func:`fused_maml_adapt_batched_reference`.
 - :func:`gather_rows`: the row gather ``table[idx]`` that assembles each
   episode from the device-resident embedding table
   (``csrc/gather_rows.cu``). Plain version: :func:`gather_rows_reference`.
+- :func:`augment_embeddings`: the ``--augment`` jitter ``x * (1 +
+  U[-scale, scale))`` of the support embeddings, Philox4x32-10 bits keyed
+  by a seed on the device and counted by position
+  (``csrc/augment_embeddings.cu``). Plain version:
+  :func:`augment_embeddings_reference`, the same bits in int64 arithmetic,
+  bitwise equal.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version. The design and bound of each kernel are in its
@@ -23,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -220,22 +230,132 @@ def fused_adapt_applicable(model: str, im_encoder: str,
             and fused_adapt_supported(im_hid_dim, n_steps, device))
 
 
+def _maml_tensors(params: Dict[str, torch.Tensor], B: int):
+    """MAML's state dict as (w1, b1, w2, b2, head_w, head_b) with the
+    shared head broadcast over B tasks (expanded views)."""
+    if len(mlp.layer_names(params)) != 3:
+        raise ValueError("fused kernel supports exactly 2 hidden layers")
+    w3, b3 = params["net.lin_final.weight"], params["net.lin_final.bias"]
+    N = w3.shape[0]
+    return (params["net.lin_0.weight"], params["net.lin_0.bias"],
+            params["net.lin_1.weight"], params["net.lin_1.bias"],
+            w3.expand((B,) + tuple(w3.shape)),
+            b3.reshape(1, 1, N).expand(B, 1, N))
+
+
 def fused_maml_adapt(params: Dict[str, torch.Tensor], support_x, support_y,
                      query_x, n_steps: int, step_size: float) -> torch.Tensor:
     """MAML form of :func:`fused_adapt`: ``params`` is the MLP state dict
     (2 hidden layers); its head broadcasts across tasks."""
-    names = mlp.layer_names(params)
-    if len(names) != 3:
-        raise ValueError("fused kernel supports exactly 2 hidden layers")
-    B = support_x.shape[0]
+    w = _maml_tensors(params, support_x.shape[0])
+    return fused_adapt(*w[:4], w[4].contiguous(), w[5].contiguous(),
+                       support_x, support_y, query_x, n_steps, step_size)
+
+
+# ---------------------------------------------------------------------------
+# Fused adaptation of tasks that share one head, spread over the card
+# ---------------------------------------------------------------------------
+
+def fused_maml_adapt_batched_reference(params: Dict[str, torch.Tensor],
+                                       support_x, support_y, query_x,
+                                       n_steps: int, step_size: float
+                                       ) -> torch.Tensor:
+    """Plain version: :func:`fused_adapt_reference` with MAML's head
+    broadcast over the tasks."""
+    return fused_adapt_reference(*_maml_tensors(params, support_x.shape[0]),
+                                 support_x, support_y, query_x, n_steps,
+                                 step_size)
+
+
+@functools.lru_cache(maxsize=None)
+def _batched_library():
+    from fumi_tpu_torch.ops import _build
+    lib = _build.load("fused_adapt_batched")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_adapt_batched_launch.argtypes = (
+        [ptr] * 13 + [i32] * 10 + [ctypes.c_float, ptr])
+    lib.fused_adapt_batched_launch.restype = i32
+    lib.fused_adapt_batched_plan.argtypes = [i32] * 7 + [ptr]
+    lib.fused_adapt_batched_plan.restype = i32
+    lib.fused_adapt_batched_smem_bytes.argtypes = [i32] * 8
+    lib.fused_adapt_batched_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_adapt_batched_priv_floats.argtypes = [i32] * 5
+    lib.fused_adapt_batched_priv_floats.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def batched_plan(device_index: int, dims: Tuple[int, ...]
+                 ) -> Tuple[int, int, bool]:
+    """``(T, shared-memory bytes, private copies in shared memory)`` of the
+    batched kernel for ``dims = (B, S, Qn, D, H1, H2, N)`` on a card: the
+    most blocks per task that are all resident at once. Raises where no
+    launch fits the card."""
+    lib = _batched_library()
+    plan = (ctypes.c_int * 3)()
+    with torch.cuda.device(device_index):
+        err = lib.fused_adapt_batched_plan(*dims, plan)
+    if err != 0:
+        B, S, Qn, D, H1, H2, N = dims
+        least = lib.fused_adapt_batched_smem_bytes(S, Qn, D, H1, H2, N, H1, 0)
+        raise RuntimeError(
+            f"fused_maml_adapt_batched: no launch fits the card (CUDA error "
+            f"{err}; B={B} S={S} Qn={Qn} D={D} H1={H1} H2={H2} N={N}: the "
+            f"activations alone need {least} bytes of shared memory a "
+            f"block, and all B*T blocks must be resident at once)")
+    return plan[0], plan[1], bool(plan[2])
+
+
+def fused_maml_adapt_batched(params: Dict[str, torch.Tensor],
+                             support_x: torch.Tensor, support_y: torch.Tensor,
+                             query_x: torch.Tensor, n_steps: int,
+                             step_size: float) -> torch.Tensor:
+    """:func:`fused_maml_adapt` for B tasks in one launch of
+    ``csrc/fused_adapt_batched.cu``, each task spread over T thread blocks
+    (:func:`batched_plan`). ``params`` is MAML's state dict (2 hidden
+    layers); support_x (B, S, D) fp32, support_y (B, S) int32, query_x
+    (B, Qn, D) fp32. Returns (B, Qn, N) fp32. CPU tensors run
+    :func:`fused_maml_adapt_batched_reference`."""
+    w = _maml_tensors(params, support_x.shape[0])
+    B, S, Qn, D, H1, H2, N = _check(*w, support_x, support_y, query_x)
+    dev = support_x.device
+    if dev.type == "cpu":
+        return fused_maml_adapt_batched_reference(params, support_x,
+                                                  support_y, query_x,
+                                                  n_steps, step_size)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_maml_adapt_batched runs on cuda or cpu, "
+                         f"not {dev}")
+    w1, b1, w2, b2 = w[:4]
     w3, b3 = params["net.lin_final.weight"], params["net.lin_final.bias"]
-    N = w3.shape[0]
-    head_w = w3.expand((B,) + tuple(w3.shape)).contiguous()
-    head_b = b3.reshape(1, 1, N).expand(B, 1, N).contiguous()
-    return fused_adapt(params["net.lin_0.weight"], params["net.lin_0.bias"],
-                       params["net.lin_1.weight"], params["net.lin_1.bias"],
-                       head_w, head_b, support_x, support_y, query_x,
-                       n_steps, step_size)
+    tensors = (support_x, support_y, query_x, w1, b1, w2, b2, w3, b3)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fused_maml_adapt_batched takes contiguous tensors")
+    lib = _batched_library()
+    T, _, priv_smem = batched_plan(dev.index, (B, S, Qn, D, H1, H2, N))
+    out = torch.empty((B, Qn, N), dtype=torch.float32, device=dev)
+    rbuf = torch.empty((2 * B * max(S, Qn) * H1,), dtype=torch.float32,
+                       device=dev)
+    priv = torch.empty(
+        (1 if priv_smem else
+         B * T * lib.fused_adapt_batched_priv_floats(D, H1, H2, N, T),),
+        dtype=torch.float32, device=dev)
+    bar = torch.zeros((2 * B,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in tensors + (out, rbuf, priv, bar)]
+    err = lib.fused_adapt_batched_launch(
+        *ptrs, B, S, Qn, D, H1, H2, N, T, int(priv_smem), int(n_steps),
+        float(step_size), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_maml_adapt_batched kernel launch failed with CUDA error "
+            f"{err} (B={B} S={S} Qn={Qn} D={D} H1={H1} H2={H2} N={N}, "
+            f"{T} blocks per task)")
+    fused_maml_adapt_batched.launches += 1
+    return out
+
+
+fused_maml_adapt_batched.launches = 0
 
 
 def fused_fumi_adapt(im_params: Dict[str, torch.Tensor],
@@ -318,3 +438,127 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 gather_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Embedding jitter (--augment)
+# ---------------------------------------------------------------------------
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # multipliers
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # Weyl key increments
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit halves of the 64-bit product of the constant ``a``
+    and the uint32 values in the int64 tensor ``b``, in int64 arithmetic
+    that never overflows (16-bit halves of ``b``)."""
+    p0 = a * (b & 0xFFFF)  # < 2**48
+    mid = (p0 >> 16) + a * (b >> 16)  # < 2**49
+    return mid >> 16, ((mid & 0xFFFF) << 16) | (p0 & 0xFFFF)
+
+
+def philox4x32_10(counter: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Philox4x32-10 of int64 tensors holding uint32 words: ``counter``
+    (..., 4) and ``key`` (2,) -> (..., 4), the kernel's generator."""
+    c0, c1, c2, c3 = counter.unbind(-1)
+    k0, k1 = key[0], key[1]
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _U32
+            k1 = (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def _check_augment(x: torch.Tensor, seed: torch.Tensor) -> None:
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise TypeError(f"augment_embeddings takes 2-D float32 x, got "
+                        f"{x.dtype} of shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"augment_embeddings takes a contiguous x, got "
+                         f"strides {x.stride()} for shape {tuple(x.shape)}")
+    if seed.dtype != torch.int64 or seed.numel() != 1:
+        raise TypeError(f"augment_embeddings takes a one-element int64 seed "
+                        f"tensor, got {seed.dtype} of shape "
+                        f"{tuple(seed.shape)}")
+    if seed.device != x.device:
+        raise ValueError(f"augment_embeddings: x on {x.device}, seed on "
+                         f"{seed.device}")
+
+
+def augment_embeddings_reference(x: torch.Tensor, seed: torch.Tensor,
+                                 scale: float = 0.1,
+                                 row_offset: int = 0) -> torch.Tensor:
+    """Plain version of the kernel, bitwise. Element (r, j) takes word
+    ``j % 4`` of Philox4x32-10 at counter ``(j // 4, R mod 2**32, R >> 32,
+    0)``, ``R = row_offset + r``, keyed by the 64-bit seed; its low 23 bits
+    make u in [1, 2), and ``out = x * (1 + (u - 1.5) * 2·scale)``, rounded
+    step by step in fp32. Runs on the tensors' device without reading the
+    seed on the host."""
+    _check_augment(x, seed)
+    M, D = x.shape
+    G = (D + 3) // 4
+    dev = x.device
+    rows = torch.arange(M, dtype=torch.int64, device=dev) + int(row_offset)
+    cols = torch.arange(G, dtype=torch.int64, device=dev)
+    rr, cc = rows[:, None].expand(M, G), cols[None, :].expand(M, G)
+    counter = torch.stack([cc, rr & _U32, rr >> 32, torch.zeros_like(rr)],
+                          dim=-1)
+    s = seed.reshape(1)
+    key = torch.cat([s & _U32, (s >> 32) & _U32])
+    bits = philox4x32_10(counter, key).reshape(M, 4 * G)[:, :D]
+    u = ((bits & 0x7FFFFF) | 0x3F800000).to(torch.int32).view(torch.float32)
+    # a Python scalar enters a float32 op rounded to float32, as the
+    # kernel's float argument is
+    factor = 1.0 + (u - 1.5) * (2.0 * scale)
+    return x * factor
+
+
+@functools.lru_cache(maxsize=None)
+def _augment_library():
+    from fumi_tpu_torch.ops import _build
+    lib = _build.load("augment_embeddings")
+    ptr = ctypes.c_void_p
+    i64 = ctypes.c_longlong
+    lib.augment_embeddings_launch.argtypes = [ptr, ptr, ptr, i64, ctypes.c_int,
+                                              i64, ctypes.c_float, ptr]
+    lib.augment_embeddings_launch.restype = ctypes.c_int
+    return lib
+
+
+def augment_embeddings(x: torch.Tensor, seed: torch.Tensor,
+                       scale: float = 0.1, row_offset: int = 0
+                       ) -> torch.Tensor:
+    """Multiplicative uniform jitter ``x * (1 + U[-scale, scale))`` of a
+    contiguous (M, D) fp32 tensor, any M and D, from a one-element int64
+    ``seed`` tensor on x's device. The result depends on the seed and each
+    element's position only: x's row r counts as row ``row_offset + r``,
+    so a row slice of a larger tensor, given its offset, jitters as the
+    whole does. A CUDA x launches ``csrc/augment_embeddings.cu``; a CPU x
+    runs :func:`augment_embeddings_reference`."""
+    _check_augment(x, seed)
+    if row_offset < 0:
+        raise ValueError(f"augment_embeddings: row_offset {row_offset} < 0")
+    dev = x.device
+    if dev.type == "cpu":
+        return augment_embeddings_reference(x, seed, scale, row_offset)
+    if dev.type != "cuda":
+        raise ValueError(f"augment_embeddings runs on cuda or cpu, not {dev}")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _augment_library().augment_embeddings_launch(
+        x.data_ptr(), seed.data_ptr(), out.data_ptr(), x.shape[0],
+        x.shape[1], int(row_offset), 2.0 * scale, stream)
+    if err != 0:
+        raise RuntimeError(f"augment_embeddings kernel launch failed with "
+                           f"CUDA error {err} (shape {tuple(x.shape)})")
+    augment_embeddings.launches += 1
+    return out
+
+
+augment_embeddings.launches = 0

@@ -8,7 +8,9 @@ precomputed embeddings, fp32, ``--tpu_meta_grad explicit``,
 - ``train_loss(params, episode, gen) -> (loss, aux)``, differentiable;
 - ``eval_raw(params, episode, gen) -> dict``, the test-time adaptation
   with no outer graph (or, with ``--tpu_pallas_fused_eval`` on a CUDA
-  device, one launch of the fused kernel, ``ops/kernels.py``);
+  device, one launch of a fused kernel, ``ops/kernels.py``: FuMI's
+  per-task heads through ``fused_fumi_adapt``, MAML's shared head through
+  ``fused_maml_adapt_batched``);
 - ``eval_finalize(raw) -> metrics`` and ``eval_reduce``.
 
 :func:`make_steps` wraps a family into train/eval steps;
@@ -138,8 +140,10 @@ def build_maml_family(cfg: Config, gen: torch.Generator) -> Family:
 
     def eval_raw(p, episode, gen):
         if _use_fused_eval(cfg, episode.support_im.device):
+            # the B tasks share one head: one launch spreads them over
+            # the whole card
             with torch.no_grad():
-                logits = kernels.fused_maml_adapt(
+                logits = kernels.fused_maml_adapt_batched(
                     p, episode.support_im, episode.support_y,
                     episode.query_im, cfg.num_test_adapt_steps,
                     cfg.step_size)

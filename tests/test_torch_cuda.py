@@ -176,6 +176,121 @@ def test_gather_rows_out_of_range_raises_at_synchronize(cuda_device):
     assert "raised:" in out.stdout
 
 
+# (B, S, Qn, D, H1, H2, N, steps): B=1 and B=3 spread one and three tasks
+# over the card; odd sizes give ragged row slices; B=16 at the flagship
+# widths keeps the private weight copies in device memory (they do not fit
+# shared memory at the few blocks per task that are left)
+BATCHED_SHAPES = [(1, 6, 3, 16, 8, 8, 3, 0), (3, 37, 50, 64, 32, 16, 5, 20),
+                  (2, 25, 100, 300, 264, 20, 7, 10),
+                  (4, 25, 100, 2048, 256, 64, 5, 10),
+                  (16, 25, 100, 2048, 256, 64, 5, 3)]
+
+
+@pytest.mark.parametrize("shape", BATCHED_SHAPES)
+def test_batched_kernel_matches_reference(cuda_device, shape):
+    """fp32 on both sides in other summation orders, as for fused_adapt:
+    1e-4, the same argmax; and the per-task kernel agrees too."""
+    B, S, Qn, D, H1, H2, N, steps = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    p = {k: v.to(cuda_device)
+         for k, v in mlp.init(gen, D, N, (H1, H2)).items()}
+    rng = np.random.RandomState(1)
+
+    def dev(a):
+        return torch.from_numpy(a).to(cuda_device)
+    sx = dev(rng.randn(B, S, D).astype(np.float32))
+    qx = dev(rng.randn(B, Qn, D).astype(np.float32))
+    sy = dev(rng.randint(0, N, (B, S)).astype(np.int32))
+    before = kernels.fused_maml_adapt_batched.launches
+    got = kernels.fused_maml_adapt_batched(p, sx, sy, qx, steps, 0.05)
+    torch.cuda.synchronize()
+    assert kernels.fused_maml_adapt_batched.launches == before + 1
+    want = kernels.fused_maml_adapt_batched_reference(p, sx, sy, qx, steps,
+                                                      0.05)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    per_task = kernels.fused_maml_adapt(p, sx, sy, qx, steps, 0.05)
+    np.testing.assert_allclose(got.cpu().numpy(), per_task.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_batched_kernel_raises_where_shared_memory_does_not_fit(cuda_device):
+    """S x H1 activations of 32 x 2048 fp32 (256 KB) exceed a block's
+    227 KB of shared memory at any number of blocks per task."""
+    gen = torch.Generator().manual_seed(0)
+    p = {k: v.to(cuda_device)
+         for k, v in mlp.init(gen, 64, 3, (2048, 16)).items()}
+    sx = torch.randn(1, 32, 64, device=cuda_device)
+    sy = torch.zeros(1, 32, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        kernels.fused_maml_adapt_batched(p, sx, sy, sx, 1, 0.05)
+
+
+# (rows, width, seed): the flagship support set, the flagship query count,
+# odd widths (scalar path), one element, a row count over the grid cap
+AUGMENT_CASES = [(100, 2048, 1), (640, 2048, 2), (37, 99, 3), (1, 1, 4),
+                 (3, 5, 2 ** 62 - 1), (70000, 4, 6)]
+
+
+@pytest.mark.parametrize("case", AUGMENT_CASES)
+def test_augment_bitwise(cuda_device, case):
+    rows, width, seed = case
+    x = torch.randn(rows, width, generator=torch.Generator().manual_seed(
+        rows)).to(cuda_device)
+    s = torch.tensor([seed], dtype=torch.int64, device=cuda_device)
+    before = kernels.augment_embeddings.launches
+    got = kernels.augment_embeddings(x, s, 0.1)
+    torch.cuda.synchronize()
+    assert kernels.augment_embeddings.launches == before + 1
+    assert torch.equal(got, kernels.augment_embeddings_reference(x, s, 0.1))
+    # a row slice at its offset, and a start 4 bytes past 16-byte
+    # alignment (the scalar path), jitter as the whole
+    assert torch.equal(kernels.augment_embeddings(x[1:].contiguous(), s, 0.1,
+                                                  row_offset=1), got[1:])
+    buf = torch.empty(rows * width + 1, device=cuda_device)
+    buf[1:] = x.reshape(-1)
+    assert torch.equal(kernels.augment_embeddings(
+        buf[1:].view(rows, width), s, 0.1), got)
+    # 1 + jitter rounds to fp32, and so does x times it: 1e-6 of slack
+    ratio = (got / x).double()
+    assert float(ratio.min()) >= 0.9 - 1e-6
+    assert float(ratio.max()) <= 1.1 + 1e-6
+
+
+def test_augment_rejects_strided_input_and_other_seeds(cuda_device):
+    x = torch.randn(64, 32, device=cuda_device)
+    s = torch.tensor([1], dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.augment_embeddings(x.t(), s)
+    with pytest.raises(TypeError, match="int64"):
+        kernels.augment_embeddings(x, s.int())
+    with pytest.raises(ValueError, match="seed on cpu"):
+        kernels.augment_embeddings(x, s.cpu())
+
+
+def test_maml_fused_eval_runs_the_batched_kernel(cuda_device):
+    cfg = Config(model="maml", dataset="synthetic", im_emb_dim=64,
+                 text_emb_dim=16, im_hid_dim=(32, 16), num_ways=3,
+                 num_shots=2, num_test_adapt_steps=10, batch_size=2,
+                 step_size=0.1, dropout=0.0, text_encoder="precomputed",
+                 pallas_fused_eval=True, seed=0)
+    cs, table, ids = synthetic.synthetic_class_set(
+        num_classes=10, images_per_class=40, im_dim=64, text_dim=16)
+    smp = sampler.DeviceEpisodeSampler(
+        table, ids, cs, EpisodeSpec(2, 3, 2, 33, 64, 16), device=cuda_device)
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                          device=cuda_device)
+    counts = (kernels.fused_adapt.launches,
+              kernels.fused_maml_adapt_batched.launches)
+    _, m = steps.make_chunked_eval(st.family, smp)(st.params,
+                                                  smp.generator(0), 3)
+    assert (kernels.fused_adapt.launches,
+            kernels.fused_maml_adapt_batched.launches) == (counts[0],
+                                                          counts[1] + 3)
+    assert torch.isfinite(m["loss"]).all()
+
+
 @pytest.mark.parametrize("model", ["fumi", "maml"])
 def test_train_step_on_card_matches_cpu(cuda_device, model):
     """One second-order train step from the same weights on the same

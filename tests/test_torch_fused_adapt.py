@@ -196,3 +196,63 @@ def test_gate():
                                               (256, 64), 100, cuda)
     assert not kernels.fused_adapt_applicable("maml", "conv4", (256, 64),
                                               100, cuda)
+
+
+# ---------------------------------------------------------------------------
+# fused_maml_adapt_batched: all tasks sharing one head in one launch
+# ---------------------------------------------------------------------------
+
+def batched_episodes(b, seed):
+    rng = np.random.RandomState(seed)
+    sx = rng.randn(b, N * K, D).astype(np.float32)
+    qx = rng.randn(b, N * QN, D).astype(np.float32)
+    sy = np.tile(np.repeat(np.arange(N), K), (b, 1)).astype(np.int32)
+    return sx, sy, qx
+
+
+@pytest.mark.parametrize("b", [1, 2, 3])
+def test_batched_reference_matches_jax_batched_kernel(b):
+    """The plain version against the JAX package's batched Pallas kernel
+    in interpret mode, 10 steps, to the 2e-5 of tests/test_pallas.py; and
+    equal to the port's per-task MAML form to 1e-6 (the JAX package holds
+    its two kernels to that)."""
+    params = jax_mlp.init(jax.random.PRNGKey(b), D, N, H)
+    sx, sy, qx = batched_episodes(b, 10 + b)
+    want = pk.fused_maml_adapt_batched(params, jnp.asarray(sx),
+                                       jnp.asarray(sy), jnp.asarray(qx),
+                                       STEPS, STEP, interpret=True)
+    p = bridge.params_from_jax(np_tree(params), "maml", device="cpu")
+    got = kernels.fused_maml_adapt_batched_reference(p, t(sx), t(sy), t(qx),
+                                                     STEPS, STEP)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    per_task = kernels.fused_maml_adapt(p, t(sx), t(sy), t(qx), STEPS, STEP)
+    np.testing.assert_allclose(got.numpy(), per_task.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    before = kernels.fused_maml_adapt_batched.launches
+    wrapped = kernels.fused_maml_adapt_batched(p, t(sx), t(sy), t(qx), STEPS,
+                                               STEP)
+    assert torch.equal(wrapped, got)  # the CPU wrapper is the plain version
+    assert kernels.fused_maml_adapt_batched.launches == before
+
+
+def test_batched_rejects_wrong_depth():
+    """As tests/test_pallas.py:133-140 holds the JAX kernels."""
+    gen = torch.Generator().manual_seed(0)
+    sx, sy, qx = (t(a) for a in batched_episodes(1, 0))
+    shallow = mlp.init(gen, D, N, (8,))
+    for fn in (kernels.fused_maml_adapt_batched,
+               kernels.fused_maml_adapt_batched_reference):
+        with pytest.raises(ValueError, match="2 hidden layers"):
+            fn(shallow, sx, sy, qx, 1, STEP)
+
+
+def test_batched_rejects_wrong_dtype_and_shape():
+    gen = torch.Generator().manual_seed(0)
+    p = mlp.init(gen, D, N, H)
+    sx, sy, qx = (t(a) for a in batched_episodes(2, 1))
+    with pytest.raises(TypeError):
+        kernels.fused_maml_adapt_batched(p, sx.double(), sy, qx, 1, STEP)
+    with pytest.raises(TypeError):
+        kernels.fused_maml_adapt_batched(p, sx, sy.long(), qx, 1, STEP)
+    with pytest.raises(ValueError):
+        kernels.fused_maml_adapt_batched(p, sx, sy, qx[:, :, :-1], 1, STEP)

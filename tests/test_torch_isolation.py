@@ -155,3 +155,25 @@ def test_training_entry_points_default_to_cuda(monkeypatch, entry):
                else list(out.params.values()) if hasattr(out, "params")
                else [t for t in out if t is not None])
     assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+def test_the_driver_modules_are_among_those_checked():
+    """The modules of the experiment driver are walked by the import
+    checks above."""
+    assert {"fumi_tpu_torch.cli.main", "fumi_tpu_torch.train.loop",
+            "fumi_tpu_torch.train.checkpoint", "fumi_tpu_torch.train.logging",
+            "fumi_tpu_torch.utils.profiling"} <= set(port_modules())
+
+
+def test_the_driver_defaults_to_cuda(monkeypatch, tmp_path):
+    """``python -m fumi_tpu_torch.cli.main`` asks for CUDA and raises
+    where it is missing, unless ``--disable_cuda`` asks for the CPU."""
+    from fumi_tpu_torch.cli import main as cli_main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--model", "maml", "--dataset", "synthetic", "--im_emb_dim",
+            "8", "--im_hid_dim", "4", "4", "--num_ways", "2",
+            "--log_dir", str(tmp_path), "--wandb_offline"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_main.cli(args)
+    assert port_config.config_from_args(args + ["--disable_cuda"]) \
+        .disable_cuda

@@ -327,3 +327,29 @@ def test_augmentation_bounds_and_clean_queries():
     ratio = aug.support_im / plain.support_im
     assert float(ratio.min()) >= 1 - s - 1e-6
     assert float(ratio.max()) <= 1 + s + 1e-6
+
+
+def test_episode_from_noise_jitters_by_noise_or_by_seed():
+    """The support jitter comes from ``aug_noise`` or from ``aug_seed``
+    through ``augment_embeddings`` (never both); queries stay clean, and
+    a seed at scale 0 leaves the episode as it is."""
+    j_tables, t_tables = _tables("float32", COUNTS["even"])
+    spec = EpisodeSpec(B, N, K, Q, D, E)
+    cls_noise, img_noise, aug = _jax_noise(jax.random.PRNGKey(0), 7, 9, 0.1)
+    plain = sampler.episode_from_noise(t_tables, spec, cls_noise, img_noise)
+    seed = torch.tensor([99], dtype=torch.int64)
+    by_seed = sampler.episode_from_noise(t_tables, spec, cls_noise,
+                                         img_noise, aug_seed=seed,
+                                         augment_scale=0.1)
+    want = kernels.augment_embeddings(plain.support_im.reshape(B * N * K, D),
+                                      seed, 0.1).reshape(B, N * K, D)
+    assert torch.equal(by_seed.support_im, want)
+    assert torch.equal(by_seed.query_im, plain.query_im)
+    unjittered = sampler.episode_from_noise(t_tables, spec, cls_noise,
+                                            img_noise, aug_seed=seed,
+                                            augment_scale=0.0)
+    assert torch.equal(unjittered.support_im, plain.support_im)
+    with pytest.raises(ValueError, match="not both"):
+        sampler.episode_from_noise(t_tables, spec, cls_noise, img_noise,
+                                   aug_noise=aug, aug_seed=seed,
+                                   augment_scale=0.1)
