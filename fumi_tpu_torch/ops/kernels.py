@@ -6,13 +6,12 @@ The counterparts of ``fumi_tpu/ops/pallas_kernels.py``:
   eval protocol runs 100 SGD adaptation steps per task, a long chain of
   small dependent products. One launch of ``csrc/fused_adapt.cu`` runs the
   whole adaptation of the 2-hidden-layer MLP plus its per-task head, and
-  the query forward (one thread block per task). Plain version:
-  :func:`fused_adapt_reference`, the same hand-derived loop written with
-  ``torch.matmul``.
+  the query forward, each task on one thread-block cluster
+  (:func:`fused_adapt_plan`). Plain version: :func:`fused_adapt_reference`,
+  the same hand-derived loop written with ``torch.matmul``.
 - :func:`fused_maml_adapt_batched`: the same function for MAML's B tasks
-  that share one head, with each task spread over many thread blocks of
-  one cooperative launch (``csrc/fused_adapt_batched.cu``). Plain version:
-  :func:`fused_maml_adapt_batched_reference`.
+  that share one head, through the same kernel with the head at a task
+  stride of 0. Plain version: :func:`fused_maml_adapt_batched_reference`.
 - :func:`gather_rows`: the row gather ``table[idx]`` that assembles each
   episode from the device-resident embedding table
   (``csrc/gather_rows.cu``). Plain version: :func:`gather_rows_reference`.
@@ -33,17 +32,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
 from fumi_tpu_torch.models import mlp
 from fumi_tpu_torch.models.fumi import im_net_depth
 
-# The fused kernel wins from this horizon on. 8 is the crossover measured
-# on a TPU against the scan engine; it stays until an H100 measurement
-# replaces it (PERF.md, open questions).
-MIN_FUSED_STEPS = 8
+# The fused kernel wins from this horizon on: on an NVIDIA H100 80GB HBM3
+# (700 W) a FuMI request (R=1, 100 queries) took 1.17 ms through the kernel
+# at 1 adaptation step against 3.33 ms through the autograd engine, and the
+# kernel stayed ahead at 2, 4, 8 and 16 steps (chip_smoke.py, PERF.md).
+MIN_FUSED_STEPS = 1
 
 
 def _check(w1, b1, w2, b2, head_w, head_b, support_x, support_y, query_x,
@@ -143,25 +143,70 @@ def fused_adapt_reference(w1, b1, w2, b2, head_w, head_b,
     return forward(query_x)[-1]
 
 
-def _launch(lib, w1, b1, w2, b2, head_w, head_b, support_x, support_y,
-            query_x, dims, n_steps, step_size):
+# The launch plan of csrc/fused_adapt.cu. The tile constants and
+# _smem_bytes follow the source's kRows, kCols, kUpdK, kMaxCluster and
+# layout(); its launch function recomputes the layout and refuses a plan
+# that does not match it.
+_ROWS, _COLS, _UPD_K = 4, 8, 8
+MAX_CLUSTER = 16
+# below this many D columns a block, its SM would mostly wait at the
+# cluster barriers: the plan takes a smaller cluster instead
+MIN_BLOCK_COLS = 32
+
+
+class FusedAdaptPlan(NamedTuple):
+    """How the kernel spreads a task: ``C`` blocks (one cluster) of
+    ``cols`` columns of D each, the W1 slice in ``"shared"`` or
+    ``"device"`` memory, ``smem_bytes`` of shared memory a block."""
+    C: int
+    cols: int
+    w1: str
+    smem_bytes: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _w1_slice_floats(D: int, H1: int, C: int) -> int:
+    """One block's k-major W1 slice: its rows padded to whole update
+    tiles, its row stride to whole column tiles plus 4."""
+    return _round_up(-(-D // C), _UPD_K) * (_round_up(H1, _COLS) + 4)
+
+
+def _smem_bytes(S, D, H1, H2, N, C, w1_smem: bool) -> int:
+    SP, DP = _round_up(S, _ROWS), _round_up(-(-D // C), _UPD_K)
+    LH, H2P = _round_up(H1, _COLS) + 4, _round_up(H2, 4)
+    HC, JC = _round_up(-(-H1 // C), 4), _round_up(-(-H2 // C), 4)
+    sizes = (DP * SP, C * SP * HC, SP * LH, SP * HC, SP * HC, C * SP * JC,
+             SP * H2P, SP * N, HC * (H2P + 4), HC, H2P, N * H2P, N, SP,
+             _w1_slice_floats(D, H1, C) if w1_smem else 0)
+    return 4 * sum(_round_up(n, 4) for n in sizes)
+
+
+def fused_adapt_plan(dims: Tuple[int, ...], smem_optin: int,
+                     max_cluster: int) -> FusedAdaptPlan:
+    """The plan for ``dims = (B, S, Qn, D, H1, H2, N)`` on a card whose
+    blocks may opt in to ``smem_optin`` bytes of shared memory and which
+    schedules clusters of up to ``max_cluster`` blocks of the kernel.
+
+    C is the largest cluster the card schedules (16 at most) that leaves
+    each block ``MIN_BLOCK_COLS`` columns of D; a block owns ``cols =
+    ceil(D / C)`` of them (the last one fewer where C does not divide D).
+    The W1 slice lives in shared memory where it fits beside the
+    activations, else in device memory. Raises where not even the
+    activations fit."""
     B, S, Qn, D, H1, H2, N = dims
-    out = torch.empty((B, Qn, N), dtype=torch.float32, device=support_x.device)
-    scratch = torch.empty(
-        (B * lib.fused_adapt_scratch_floats(D, H1, H2, N),),
-        dtype=torch.float32, device=support_x.device)
-    stream = torch.cuda.current_stream(support_x.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (support_x, support_y, query_x, w1, b1, w2,
-                                   b2, head_w, head_b, out, scratch)]
-    err = lib.fused_adapt_launch(*ptrs, B, S, Qn, D, H1, H2, N,
-                                 int(n_steps), float(step_size), stream)
-    if err != 0:
-        smem = lib.fused_adapt_smem_bytes(S, H1, H2, N)
-        raise RuntimeError(
-            f"fused_adapt kernel launch failed with CUDA error {err} "
-            f"(B={B} S={S} Qn={Qn} D={D} H1={H1} H2={H2} N={N}; needs "
-            f"{smem} bytes of shared memory)")
-    return out
+    C = max(1, min(MAX_CLUSTER, max_cluster, D // MIN_BLOCK_COLS))
+    for w1 in ("shared", "device"):
+        nbytes = _smem_bytes(S, D, H1, H2, N, C, w1 == "shared")
+        if nbytes <= smem_optin:
+            return FusedAdaptPlan(C, -(-D // C), w1, nbytes)
+    raise RuntimeError(
+        f"fused_adapt: no launch fits the card (B={B} S={S} Qn={Qn} D={D} "
+        f"H1={H1} H2={H2} N={N}): the activations alone need {nbytes} "
+        f"bytes of shared memory a block at {C} blocks per task, the card "
+        f"gives a block {smem_optin}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,15 +214,83 @@ def _library():
     """The built kernel library with its C signatures declared."""
     from fumi_tpu_torch.ops import _build
     lib = _build.load("fused_adapt")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fused_adapt_launch.argtypes = (
-        [ptr] * 11 + [i32] * 8 + [ctypes.c_float, ptr])
+        [ptr] * 11 + [i64] * 2 + [i32] * 10 + [i64, i32, ctypes.c_float, ptr])
     lib.fused_adapt_launch.restype = i32
-    lib.fused_adapt_smem_bytes.argtypes = [i32] * 4
-    lib.fused_adapt_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_adapt_scratch_floats.argtypes = [i32] * 4
-    lib.fused_adapt_scratch_floats.restype = ctypes.c_longlong
+    lib.fused_adapt_smem_bytes.argtypes = [i32] * 7
+    lib.fused_adapt_smem_bytes.restype = i64
+    lib.fused_adapt_card_limits.argtypes = [ptr, ptr]
+    lib.fused_adapt_card_limits.restype = i32
+    lib.fused_adapt_active_clusters.argtypes = [i32, i32, ptr]
+    lib.fused_adapt_active_clusters.restype = i32
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def card_limits(device_index: int) -> Tuple[int, int]:
+    """``(smem_optin, max_cluster)`` of a card for the kernel: the shared
+    memory a block may opt in to, and the largest cluster of the kernel
+    the card schedules at that much shared memory a block."""
+    optin, cluster = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        err = _library().fused_adapt_card_limits(ctypes.byref(optin),
+                                                 ctypes.byref(cluster))
+    if err != 0:
+        raise RuntimeError(f"fused_adapt: reading the card's limits failed "
+                           f"with CUDA error {err}")
+    return optin.value, cluster.value
+
+
+@functools.lru_cache(maxsize=None)
+def active_clusters(device_index: int, C: int, smem_bytes: int) -> int:
+    """How many clusters of C blocks with ``smem_bytes`` each the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int()
+    with torch.cuda.device(device_index):
+        err = _library().fused_adapt_active_clusters(C, smem_bytes,
+                                                     ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"fused_adapt: cluster occupancy query failed "
+                           f"with CUDA error {err} (C={C}, {smem_bytes} B)")
+    return n.value
+
+
+def device_plan(device_index: int, dims: Tuple[int, ...]) -> FusedAdaptPlan:
+    """:func:`fused_adapt_plan` for a card; raises where the card cannot
+    schedule even one such cluster."""
+    plan = fused_adapt_plan(dims, *card_limits(device_index))
+    if active_clusters(device_index, plan.C, plan.smem_bytes) < 1:
+        raise RuntimeError(f"fused_adapt: the card schedules no cluster of "
+                           f"{plan} (dims {dims})")
+    return plan
+
+
+def _launch(who, w1, b1, w2, b2, head_w, head_b, head_strides, support_x,
+            support_y, query_x, dims, n_steps, step_size):
+    """One launch of ``csrc/fused_adapt.cu``; head_w / head_b hold the
+    tasks' heads at ``head_strides`` floats apart (0: one shared head)."""
+    tensors = (support_x, support_y, query_x, w1, b1, w2, b2, head_w, head_b)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{who} takes contiguous tensors")
+    B, S, Qn, D, H1, H2, N = dims
+    dev = support_x.device
+    plan = device_plan(dev.index, dims)
+    out = torch.empty((B, Qn, N), dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        (B * plan.C * _w1_slice_floats(D, H1, plan.C)
+         if plan.w1 == "device" else 1,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in tensors + (out, scratch)]
+    err = _library().fused_adapt_launch(
+        *ptrs, *head_strides, B, S, Qn, D, H1, H2, N, plan.C, plan.cols,
+        int(plan.w1 == "shared"), plan.smem_bytes, int(n_steps),
+        float(step_size), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{who} kernel launch failed with CUDA error {err} (B={B} S={S} "
+            f"Qn={Qn} D={D} H1={H1} H2={H2} N={N}; {plan})")
+    return out
 
 
 def fused_adapt(w1, b1, w2, b2, head_w, head_b,
@@ -191,7 +304,8 @@ def fused_adapt(w1, b1, w2, b2, head_w, head_b,
     (B, N, H2) / head_b (B, 1, N) are PER TASK (FuMI's hypernet-generated
     head, or MAML's shared head broadcast over tasks). support_x (B, S, D)
     fp32, support_y (B, S) int32, query_x (B, Qn, D) fp32. Returns
-    (B, Qn, N) fp32. CUDA tensors launch the kernel; CPU tensors run
+    (B, Qn, N) fp32. CUDA tensors launch the kernel, one cluster of
+    thread blocks per task (:func:`fused_adapt_plan`); CPU tensors run
     :func:`fused_adapt_reference`."""
     tensors = (w1, b1, w2, b2, head_w, head_b, support_x, support_y, query_x)
     dims = _check(*tensors)
@@ -200,9 +314,9 @@ def fused_adapt(w1, b1, w2, b2, head_w, head_b,
         return fused_adapt_reference(*tensors, n_steps, step_size)
     if dev.type != "cuda":
         raise ValueError(f"fused_adapt runs on cuda or cpu, not {dev}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_adapt takes contiguous tensors")
-    out = _launch(_library(), *tensors, dims, n_steps, step_size)
+    H2, N = dims[5:]
+    out = _launch("fused_adapt", *tensors[:6], (N * H2, N), *tensors[6:],
+                  dims, n_steps, step_size)
     fused_adapt.launches += 1
     return out
 
@@ -267,57 +381,18 @@ def fused_maml_adapt_batched_reference(params: Dict[str, torch.Tensor],
                                  step_size)
 
 
-@functools.lru_cache(maxsize=None)
-def _batched_library():
-    from fumi_tpu_torch.ops import _build
-    lib = _build.load("fused_adapt_batched")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_adapt_batched_launch.argtypes = (
-        [ptr] * 13 + [i32] * 10 + [ctypes.c_float, ptr])
-    lib.fused_adapt_batched_launch.restype = i32
-    lib.fused_adapt_batched_plan.argtypes = [i32] * 7 + [ptr]
-    lib.fused_adapt_batched_plan.restype = i32
-    lib.fused_adapt_batched_smem_bytes.argtypes = [i32] * 8
-    lib.fused_adapt_batched_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_adapt_batched_priv_floats.argtypes = [i32] * 5
-    lib.fused_adapt_batched_priv_floats.restype = ctypes.c_longlong
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def batched_plan(device_index: int, dims: Tuple[int, ...]
-                 ) -> Tuple[int, int, bool]:
-    """``(T, shared-memory bytes, private copies in shared memory)`` of the
-    batched kernel for ``dims = (B, S, Qn, D, H1, H2, N)`` on a card: the
-    most blocks per task that are all resident at once. Raises where no
-    launch fits the card."""
-    lib = _batched_library()
-    plan = (ctypes.c_int * 3)()
-    with torch.cuda.device(device_index):
-        err = lib.fused_adapt_batched_plan(*dims, plan)
-    if err != 0:
-        B, S, Qn, D, H1, H2, N = dims
-        least = lib.fused_adapt_batched_smem_bytes(S, Qn, D, H1, H2, N, H1, 0)
-        raise RuntimeError(
-            f"fused_maml_adapt_batched: no launch fits the card (CUDA error "
-            f"{err}; B={B} S={S} Qn={Qn} D={D} H1={H1} H2={H2} N={N}: the "
-            f"activations alone need {least} bytes of shared memory a "
-            f"block, and all B*T blocks must be resident at once)")
-    return plan[0], plan[1], bool(plan[2])
-
-
 def fused_maml_adapt_batched(params: Dict[str, torch.Tensor],
                              support_x: torch.Tensor, support_y: torch.Tensor,
                              query_x: torch.Tensor, n_steps: int,
                              step_size: float) -> torch.Tensor:
-    """:func:`fused_maml_adapt` for B tasks in one launch of
-    ``csrc/fused_adapt_batched.cu``, each task spread over T thread blocks
-    (:func:`batched_plan`). ``params`` is MAML's state dict (2 hidden
-    layers); support_x (B, S, D) fp32, support_y (B, S) int32, query_x
-    (B, Qn, D) fp32. Returns (B, Qn, N) fp32. CPU tensors run
-    :func:`fused_maml_adapt_batched_reference`."""
+    """:func:`fused_maml_adapt` for MAML's B tasks in one launch of the
+    same kernel, ``csrc/fused_adapt.cu``, with the shared head read in
+    place (a task stride of 0) rather than copied per task. ``params`` is
+    MAML's state dict (2 hidden layers); support_x (B, S, D) fp32,
+    support_y (B, S) int32, query_x (B, Qn, D) fp32. Returns (B, Qn, N)
+    fp32. CPU tensors run :func:`fused_maml_adapt_batched_reference`."""
     w = _maml_tensors(params, support_x.shape[0])
-    B, S, Qn, D, H1, H2, N = _check(*w, support_x, support_y, query_x)
+    dims = _check(*w, support_x, support_y, query_x)
     dev = support_x.device
     if dev.type == "cpu":
         return fused_maml_adapt_batched_reference(params, support_x,
@@ -326,31 +401,10 @@ def fused_maml_adapt_batched(params: Dict[str, torch.Tensor],
     if dev.type != "cuda":
         raise ValueError(f"fused_maml_adapt_batched runs on cuda or cpu, "
                          f"not {dev}")
-    w1, b1, w2, b2 = w[:4]
-    w3, b3 = params["net.lin_final.weight"], params["net.lin_final.bias"]
-    tensors = (support_x, support_y, query_x, w1, b1, w2, b2, w3, b3)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_maml_adapt_batched takes contiguous tensors")
-    lib = _batched_library()
-    T, _, priv_smem = batched_plan(dev.index, (B, S, Qn, D, H1, H2, N))
-    out = torch.empty((B, Qn, N), dtype=torch.float32, device=dev)
-    rbuf = torch.empty((2 * B * max(S, Qn) * H1,), dtype=torch.float32,
-                       device=dev)
-    priv = torch.empty(
-        (1 if priv_smem else
-         B * T * lib.fused_adapt_batched_priv_floats(D, H1, H2, N, T),),
-        dtype=torch.float32, device=dev)
-    bar = torch.zeros((2 * B,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [t.data_ptr() for t in tensors + (out, rbuf, priv, bar)]
-    err = lib.fused_adapt_batched_launch(
-        *ptrs, B, S, Qn, D, H1, H2, N, T, int(priv_smem), int(n_steps),
-        float(step_size), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_maml_adapt_batched kernel launch failed with CUDA error "
-            f"{err} (B={B} S={S} Qn={Qn} D={D} H1={H1} H2={H2} N={N}, "
-            f"{T} blocks per task)")
+    out = _launch("fused_maml_adapt_batched", *w[:4],
+                  params["net.lin_final.weight"],
+                  params["net.lin_final.bias"], (0, 0), support_x,
+                  support_y, query_x, dims, n_steps, step_size)
     fused_maml_adapt_batched.launches += 1
     return out
 

@@ -6,7 +6,8 @@ test-time adaptation):
 
 - ``episode_logits`` / ``episode_logits_batch``: adapt AND classify in one
   call. Where the fused kernel applies (a CUDA device, fp32, plain full
-  GD, 2 hidden layers, ``n_steps >= 8``) the whole adaptation runs in one
+  GD, 2 hidden layers, ``n_steps >= ops/kernels.py:MIN_FUSED_STEPS``) the
+  whole adaptation runs in one
   launch of ``ops/kernels.py:fused_adapt``; otherwise the autograd engine
   (a loop of ``torch.autograd.grad`` SGD steps with no outer graph) runs.
 - ``adapt`` then ``logits`` / ``classify``: the stateful pair, adapted by

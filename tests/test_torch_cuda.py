@@ -43,21 +43,29 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (B, S, Qn, D, H1, H2, N, steps): odd sizes cover the ragged tile edges,
-# S > 32 the chunked W1 update, H1 > 256 two layer-1 column tiles
+# (B, S, Qn, D, H1, H2, N, steps): odd sizes cover the ragged tile edges
+# (S, H1, H2 not multiples of the tiles), D=300 a cluster of 9 blocks whose
+# last owns fewer columns, S > 32 more rows than one query chunk; B = 1, 4,
+# 8 and 16 at the flagship widths run in one and in several waves of
+# 16-block clusters; D=4096 puts the W1 slices in device memory; 0 steps
+# is the forward alone
 SHAPES = [(3, 37, 50, 64, 32, 16, 5, 20),
           (2, 25, 100, 300, 264, 20, 7, 10),
-          (1, 6, 3, 16, 8, 8, 3, 0)]
+          (1, 6, 3, 16, 8, 8, 3, 0),
+          (1, 25, 128, 2048, 256, 64, 5, 10),
+          (4, 25, 100, 2048, 256, 64, 5, 10),
+          (8, 25, 100, 2048, 256, 64, 5, 5),
+          (16, 25, 100, 2048, 256, 64, 5, 3),
+          (2, 25, 50, 4096, 256, 64, 5, 5),
+          (4, 25, 100, 2048, 256, 64, 5, 0)]
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_kernel_matches_reference(cuda_device, shape):
-    """fp32 on both sides; the summation order differs, hence 1e-4."""
+def _inputs(cuda_device, shape, seed):
     B, S, Qn, D, H1, H2, N, steps = shape
     gen = torch.Generator().manual_seed(sum(shape))
     p = {k: v.to(cuda_device)
          for k, v in mlp.init(gen, D, N, (H1, H2)).items()}
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
 
     def dev(a):
         return torch.from_numpy(a).to(cuda_device)
@@ -66,6 +74,16 @@ def test_kernel_matches_reference(cuda_device, shape):
     sy = dev(rng.randint(0, N, (B, S)).astype(np.int32))
     head_w = dev(rng.randn(B, N, H2).astype(np.float32) * 0.3)
     head_b = dev(rng.randn(B, 1, N).astype(np.float32) * 0.3)
+    return p, sx, sy, qx, head_w, head_b
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernel_matches_reference(cuda_device, shape):
+    """Per-task heads. fp32 on both sides; the kernel sums the D-deep
+    products in C partial sums and the plain version in cuBLAS's order,
+    and the steps carry the difference forward, hence 1e-4."""
+    steps = shape[-1]
+    p, sx, sy, qx, head_w, head_b = _inputs(cuda_device, shape, 0)
     args = (p["net.lin_0.weight"], p["net.lin_0.bias"],
             p["net.lin_1.weight"], p["net.lin_1.bias"], head_w, head_b,
             sx, sy, qx, steps, 0.05)
@@ -76,11 +94,56 @@ def test_kernel_matches_reference(cuda_device, shape):
     want = kernels.fused_adapt_reference(*args)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_plan_on_the_card(cuda_device):
+    """The card schedules the flagship's 16-block cluster with the W1
+    slice in shared memory; the source's layout gives the plan's bytes;
+    D=4096 moves the W1 slices to device memory."""
+    optin, max_cluster = kernels.card_limits(torch.cuda.current_device())
+    flagship = (4, 25, 100, 2048, 256, 64, 5)
+    plan = kernels.fused_adapt_plan(flagship, optin, max_cluster)
+    assert (plan.C, plan.cols, plan.w1) == (16, 128, "shared")
+    assert kernels.active_clusters(torch.cuda.current_device(), plan.C,
+                                   plan.smem_bytes) >= 4
+    lib = kernels._library()
+    for dims in (flagship, (3, 37, 50, 64, 32, 16, 5),
+                 (2, 25, 100, 300, 264, 20, 7), (2, 25, 50, 4096, 256, 64, 5)):
+        plan = kernels.fused_adapt_plan(dims, optin, max_cluster)
+        B, S, Qn, D, H1, H2, N = dims
+        assert lib.fused_adapt_smem_bytes(S, D, H1, H2, N, plan.C,
+                                          int(plan.w1 == "shared")) \
+            == plan.smem_bytes
+    assert kernels.fused_adapt_plan((2, 25, 50, 4096, 256, 64, 5), optin,
+                                    max_cluster).w1 == "device"
+
+
+def test_kernel_refuses_a_plan_that_does_not_match(cuda_device):
+    """The C side recomputes the layout and returns cudaErrorInvalidValue
+    (1) for a plan whose bytes or columns are not its own."""
+    p, sx, sy, qx, head_w, head_b = _inputs(cuda_device,
+                                            (1, 6, 3, 16, 8, 8, 3, 1), 0)
+    out = torch.empty(1, 3, 3, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (sx, sy, qx, p["net.lin_0.weight"],
+                                   p["net.lin_0.bias"], p["net.lin_1.weight"],
+                                   p["net.lin_1.bias"], head_w, head_b, out,
+                                   out)]
+    plan = kernels.fused_adapt_plan((1, 6, 3, 16, 8, 8, 3),
+                                    *kernels.card_limits(
+                                        torch.cuda.current_device()))
+    lib = kernels._library()
+    for C, cols, nbytes in ((plan.C, plan.cols, plan.smem_bytes + 16),
+                            (plan.C, plan.cols + 1, plan.smem_bytes),
+                            (17, 1, plan.smem_bytes)):
+        assert lib.fused_adapt_launch(*ptrs, 24, 3, 1, 6, 3, 16, 8, 8, 3, C,
+                                      cols, 1, nbytes, 1, 0.05, stream) == 1
 
 
 def test_kernel_result_per_task_independent_of_batch(cuda_device):
-    """One block per task: a task's logits are bitwise the same whatever
-    else is in the batch."""
+    """One cluster per task, and the plan does not depend on B: a task's
+    logits are bitwise the same whatever else is in the batch."""
     gen = torch.Generator().manual_seed(2)
     p = {k: v.to(cuda_device)
          for k, v in mlp.init(gen, 96, 4, (48, 16)).items()}
@@ -176,55 +239,41 @@ def test_gather_rows_out_of_range_raises_at_synchronize(cuda_device):
     assert "raised:" in out.stdout
 
 
-# (B, S, Qn, D, H1, H2, N, steps): B=1 and B=3 spread one and three tasks
-# over the card; odd sizes give ragged row slices; B=16 at the flagship
-# widths keeps the private weight copies in device memory (they do not fit
-# shared memory at the few blocks per task that are left)
-BATCHED_SHAPES = [(1, 6, 3, 16, 8, 8, 3, 0), (3, 37, 50, 64, 32, 16, 5, 20),
-                  (2, 25, 100, 300, 264, 20, 7, 10),
-                  (4, 25, 100, 2048, 256, 64, 5, 10),
-                  (16, 25, 100, 2048, 256, 64, 5, 3)]
-
-
-@pytest.mark.parametrize("shape", BATCHED_SHAPES)
+# (B, S, Qn, D, H1, H2, N, steps): the shapes of SHAPES with MAML's shared
+# head (read at a task stride of 0)
+@pytest.mark.parametrize("shape", SHAPES)
 def test_batched_kernel_matches_reference(cuda_device, shape):
     """fp32 on both sides in other summation orders, as for fused_adapt:
-    1e-4, the same argmax; and the per-task kernel agrees too."""
-    B, S, Qn, D, H1, H2, N, steps = shape
-    gen = torch.Generator().manual_seed(sum(shape))
-    p = {k: v.to(cuda_device)
-         for k, v in mlp.init(gen, D, N, (H1, H2)).items()}
-    rng = np.random.RandomState(1)
-
-    def dev(a):
-        return torch.from_numpy(a).to(cuda_device)
-    sx = dev(rng.randn(B, S, D).astype(np.float32))
-    qx = dev(rng.randn(B, Qn, D).astype(np.float32))
-    sy = dev(rng.randint(0, N, (B, S)).astype(np.int32))
-    before = kernels.fused_maml_adapt_batched.launches
+    1e-4, the same argmax. The per-task form on the broadcast head runs
+    the same kernel on the same values: bitwise the same logits."""
+    steps = shape[-1]
+    p, sx, sy, qx, _, _ = _inputs(cuda_device, shape, 1)
+    before = (kernels.fused_maml_adapt_batched.launches,
+              kernels.fused_adapt.launches)
     got = kernels.fused_maml_adapt_batched(p, sx, sy, qx, steps, 0.05)
     torch.cuda.synchronize()
-    assert kernels.fused_maml_adapt_batched.launches == before + 1
+    assert (kernels.fused_maml_adapt_batched.launches,
+            kernels.fused_adapt.launches) == (before[0] + 1, before[1])
     want = kernels.fused_maml_adapt_batched_reference(p, sx, sy, qx, steps,
                                                       0.05)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
     per_task = kernels.fused_maml_adapt(p, sx, sy, qx, steps, 0.05)
-    np.testing.assert_allclose(got.cpu().numpy(), per_task.cpu().numpy(),
-                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, per_task)
 
 
 def test_batched_kernel_raises_where_shared_memory_does_not_fit(cuda_device):
     """S x H1 activations of 32 x 2048 fp32 (256 KB) exceed a block's
-    227 KB of shared memory at any number of blocks per task."""
+    227 KB of shared memory at any cluster size."""
     gen = torch.Generator().manual_seed(0)
     p = {k: v.to(cuda_device)
          for k, v in mlp.init(gen, 64, 3, (2048, 16)).items()}
     sx = torch.randn(1, 32, 64, device=cuda_device)
     sy = torch.zeros(1, 32, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(RuntimeError, match="shared memory"):
-        kernels.fused_maml_adapt_batched(p, sx, sy, sx, 1, 0.05)
+    for fn in (kernels.fused_maml_adapt_batched, kernels.fused_maml_adapt):
+        with pytest.raises(RuntimeError, match="shared memory"):
+            fn(p, sx, sy, sx, 1, 0.05)
 
 
 # (rows, width, seed): the flagship support set, the flagship query count,

@@ -186,16 +186,75 @@ def test_rejects_wrong_shape():
 
 def test_gate():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    least = kernels.MIN_FUSED_STEPS  # the crossover measured on the card
     assert kernels.fused_adapt_supported((256, 64), 100, cuda)
     assert not kernels.fused_adapt_supported((256, 64), 100, cpu)
     assert not kernels.fused_adapt_supported((256,), 100, cuda)
-    assert not kernels.fused_adapt_supported((256, 64), 7, cuda)
+    assert kernels.fused_adapt_supported((256, 64), least, cuda)
+    assert not kernels.fused_adapt_supported((256, 64), least - 1, cuda)
     assert kernels.fused_adapt_applicable("fumi", "precomputed", (256, 64),
-                                          8, cuda)
+                                          least, cuda)
     assert not kernels.fused_adapt_applicable("am3", "precomputed",
                                               (256, 64), 100, cuda)
     assert not kernels.fused_adapt_applicable("maml", "conv4", (256, 64),
                                               100, cuda)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's launch plan (pure Python; the card checks it against the
+# source's layout in tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+H100_SMEM, H100_CLUSTER = 232_448, 16  # what an H100 reports
+
+
+def test_plan_flagship():
+    """A 16-block cluster a task, 128 columns of D a block, the W1 slice in
+    shared memory: B does not change the plan."""
+    for b in (1, 4, 16):
+        plan = kernels.fused_adapt_plan((b, 25, 100, 2048, 256, 64, 5),
+                                        H100_SMEM, H100_CLUSTER)
+        assert (plan.C, plan.cols, plan.w1) == (16, 128, "shared")
+        assert plan.smem_bytes <= H100_SMEM
+    # the served bucket of 128 queries takes the same plan
+    assert kernels.fused_adapt_plan((1, 25, 128, 2048, 256, 64, 5),
+                                    H100_SMEM, H100_CLUSTER) == plan
+
+
+@pytest.mark.parametrize("D, C, cols", [(16, 1, 16), (64, 2, 32),
+                                        (300, 9, 34), (2049, 16, 129)])
+def test_plan_small_and_ragged_D(D, C, cols):
+    """Small D takes a smaller cluster (at least 32 columns a block);
+    where C does not divide D the last block owns fewer columns."""
+    plan = kernels.fused_adapt_plan((2, 25, 50, D, 64, 16, 5), H100_SMEM,
+                                    H100_CLUSTER)
+    assert (plan.C, plan.cols, plan.w1) == (C, cols, "shared")
+    assert 0 < D - (C - 1) * cols <= cols
+
+
+def test_plan_follows_the_card():
+    """A card that schedules clusters of 8 at most gets C=8; one with less
+    shared memory keeps the W1 slices in device memory, whose shared bytes
+    are those of the plan in shared memory less the slice."""
+    dims = (4, 25, 100, 2048, 256, 64, 5)
+    assert kernels.fused_adapt_plan(dims, H100_SMEM, 8).C == 8
+    shared = kernels.fused_adapt_plan(dims, H100_SMEM, H100_CLUSTER)
+    small = kernels.fused_adapt_plan(dims, 100_000, H100_CLUSTER)
+    assert (small.C, small.cols, small.w1) == (16, 128, "device")
+    assert small.smem_bytes <= 100_000
+    assert shared.smem_bytes - small.smem_bytes == \
+        4 * kernels._w1_slice_floats(2048, 256, 16)
+    # D=4096 on an H100: a 256-column slice does not fit beside the rest
+    assert kernels.fused_adapt_plan((2, 25, 50, 4096, 256, 64, 5), H100_SMEM,
+                                    H100_CLUSTER).w1 == "device"
+
+
+def test_plan_raises_where_nothing_fits():
+    """32 support rows of 2048 hidden units need 256 KB of activations."""
+    with pytest.raises(RuntimeError,
+                       match=r"S=32 Qn=32 D=64 H1=2048 H2=16 N=3.*shared memory"):
+        kernels.fused_adapt_plan((1, 32, 32, 64, 2048, 16, 3), H100_SMEM,
+                                 H100_CLUSTER)
 
 
 # ---------------------------------------------------------------------------
