@@ -17,9 +17,10 @@ fails:
    ``fused_adapt`` (both head forms, B=4, served R=4 and R=1) and
    ``fused_maml_adapt_batched`` within 1e-3 with the same argmax and no
    more than twice as far from the same loop in fp64 as the plain version,
-   ``gather_rows`` and ``augment_embeddings`` bitwise (several tables,
-   widths and seeds), and the sampler's ``--augment`` jitter (support only,
-   queries clean);
+   ``gather_rows``, ``augment_embeddings`` and ``gather_augment_rows``
+   bitwise (fp32, bf16 and uint8 tables, several widths, seeds and row
+   offsets), and the sampler's ``--augment`` jitter through the fused
+   support gather (support only, queries clean);
 4. drive the serving path (``FewShotClassifier``) at the flagship width
    (FuMI, BERT text 768, image 2048, im_hid (256, 64), 5-way 5-shot,
    100-step adaptation) with seeded random weights, then MAML; check the
@@ -27,8 +28,10 @@ fails:
 5. drive the meta-training path (``make_chunked_train`` on the device
    sampler with the kernel gather; B=4, 32 queries per class, 5
    second-order inner steps, Adam) for FuMI, then MAML, without and with
-   the ``--augment`` jitter, and hold one train step on the card against
-   the same step on the CPU;
+   the ``--augment`` jitter (one ``gather_rows`` and one
+   ``gather_augment_rows`` launch a step), FuMI ``--augment`` also on the
+   library gather (the standalone ``augment_embeddings`` kernel), and hold
+   one train step on the card against the same step on the CPU;
 6. drive the eval path (``make_chunked_eval`` with the fused kernels, 100
    steps, 20 queries per class: FuMI through ``fused_adapt``, MAML
    through ``fused_maml_adapt_batched``) and hold it against the same
@@ -42,7 +45,12 @@ fails:
    PyTorch call that computes the same function, and each path; time a
    FuMI R=1 request through ``fused_adapt`` and through the autograd
    engine at 1, 2, 4, 8 and 16 adaptation steps (the crossover that
-   ``ops/kernels.py:MIN_FUSED_STEPS`` holds);
+   ``ops/kernels.py:MIN_FUSED_STEPS`` holds); at the support set's shape
+   time ``gather_rows``, ``augment_embeddings``, the two in sequence and
+   ``gather_augment_rows``, each beside its bound; and profile an
+   augmented train step through the fused kernel and through the
+   two-launch composition it replaced, on the same episodes (device time
+   and operations a step);
 9. print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
@@ -84,9 +92,10 @@ TRAIN_CHUNK, EVAL_BATCHES = 50, 8
 TABLE_CLASSES, TABLE_IMAGES = 64, 64
 AUG_SCALE = 0.1  # the driver's --augment scale
 KERNEL_NAMES = ("fused_adapt", "gather_rows", "augment_embeddings",
-                "fused_maml_adapt_batched")
+                "gather_augment_rows", "fused_maml_adapt_batched")
 # fused_adapt and fused_maml_adapt_batched launch the one kernel of
-# csrc/fused_adapt.cu
+# csrc/fused_adapt.cu; augment_embeddings and gather_augment_rows are the
+# two entry points of csrc/augment_embeddings.cu
 SOURCES = ("fused_adapt", "gather_rows", "augment_embeddings")
 CROSSOVER_STEPS = (1, 2, 4, 8, 16)
 # the driver phase: --epochs 20 --eval_freq 10 --num_ep_test 32 at B=4 runs
@@ -166,10 +175,12 @@ def synced_s(fn) -> float:
     return time.perf_counter() - t0
 
 
-def device_profile(fn):
-    """(device ms, device operations) of ``fn()`` summed over the CUDA
-    entries of a ``torch.profiler`` trace (kernels, copies, sets), or None
-    where the trace holds no device time."""
+def device_profile(fn, names=()):
+    """(device ms, device operations, {name: (device us, count)}) of
+    ``fn()`` summed over the CUDA entries of a ``torch.profiler`` trace
+    (kernels, copies, sets), the last over the entries whose key holds
+    each of ``names`` (the first name that matches takes an entry); or
+    None where the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -181,7 +192,14 @@ def device_profile(fn):
     device_us = sum(getattr(e, "device_time_total", 0) for e in rows)
     if not device_us:
         return None
-    return device_us / 1e3, sum(e.count for e in rows)
+    by_name = {n: [0.0, 0] for n in names}
+    for e in rows:
+        n = next((n for n in names if n in e.key), None)
+        if n is not None:
+            by_name[n][0] += getattr(e, "device_time_total", 0)
+            by_name[n][1] += e.count
+    return (device_us / 1e3, sum(e.count for e in rows),
+            {n: tuple(v) for n, v in by_name.items()})
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -222,6 +240,56 @@ def augment_cost(m: int, d: int):
     return 4 * m * d, 2 * 4 * m * d + 8
 
 
+def gather_augment_cost(m: int, d: int, elem_bytes: int):
+    """(fp32 flops, bytes) of the fused support pass: M table rows and M
+    int32 indices and the seed read once, M fp32 rows written once; the
+    jitter's 4 fp32 operations an element (uint8's 1/255 adds one more,
+    not counted)."""
+    return 4 * m * d, m * d * elem_bytes + 4 * m + 8 + 4 * m * d
+
+
+def check_gather_augment(table, dev) -> float:
+    """``gather_augment_rows`` against its plain version, bitwise, on the
+    flagship table and bf16 and uint8 tables of its shape (and an odd
+    width of each), at the flagship support gather (B*S rows), for two
+    seeds (the second at a row offset), which must give different
+    jitters. Returns the largest |diff|."""
+    import torch
+    from fumi_tpu_torch.ops import kernels
+    gen = torch.Generator(device=dev).manual_seed(8)
+    u8 = torch.randint(0, 256, tuple(table.shape), generator=gen,
+                       dtype=torch.uint8, device=dev)
+    tables = {"fp32 D=2048": table, "bf16 D=2048": table.to(torch.bfloat16),
+              "uint8 D=2048": u8, "fp32 D=99": table[:, :99].contiguous(),
+              "bf16 D=99": table[:, :99].to(torch.bfloat16).contiguous(),
+              "uint8 D=99": u8[:, :99].contiguous()}
+    m = B * S
+    max_err = 0.0
+    for label, t in tables.items():
+        idx = torch.randint(0, t.shape[0], (m,), generator=gen,
+                            dtype=torch.int32, device=dev)
+        outs = []
+        for seed, offset in ((1, 0), (2 ** 62 - 3, 7)):
+            s = torch.tensor([seed], dtype=torch.int64, device=dev)
+            got = kernels.gather_augment_rows(t, idx, s, AUG_SCALE, offset)
+            want = kernels.gather_augment_rows_reference(t, idx, s,
+                                                         AUG_SCALE, offset)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not torch.equal(got, want):
+                fail(f"gather_augment_rows differs from its plain version "
+                     f"({label}, M={m}, seed {seed}, row offset {offset}): "
+                     f"max|diff| {err:.3e}")
+            max_err = max(max_err, err)
+            outs.append(got)
+        if torch.equal(outs[0], outs[1]):
+            fail(f"gather_augment_rows: two seeds gave one jitter ({label})")
+    print(f"kernel gather_augment_rows [{', '.join(tables)}; "
+          f"{table.shape[0]} rows] vs plain: bitwise equal at M={m} for two "
+          f"seeds (row offsets 0 and 7), which differ")
+    return max_err
+
+
 def check_augment(dev) -> float:
     """``augment_embeddings`` against its plain version, bitwise, at the
     flagship support set (B*N*K rows), the flagship query count and an odd
@@ -259,26 +327,35 @@ def check_augment(dev) -> float:
 
 
 def check_sampler_augment(table, ids_np, cset, dev) -> None:
-    """The sampler's --augment jitter: the same episode identity and query
-    embeddings as without it, the support embeddings jittered within the
-    scale."""
+    """The sampler's --augment jitter, through the fused support gather
+    (one ``gather_augment_rows`` launch, no standalone jitter): the same
+    episode identity and query embeddings as without it, the support
+    embeddings jittered within the scale."""
     import torch
     from fumi_tpu_torch.core.episode import EpisodeSpec
     from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler
+    from fumi_tpu_torch.ops import kernels
     spec = EpisodeSpec(B, WAYS, SHOTS, TRAIN_Q, D, E)
     eps = [DeviceEpisodeSampler(table, ids_np, cset, spec,
                                 use_pallas_gather=True, augment_scale=scale,
                                 device=dev)
            for scale in (0.0, AUG_SCALE)]
-    plain, aug = (smp.sample(smp.generator(7)) for smp in eps)
+    plain = eps[0].sample(eps[0].generator(7))
+    before = (kernels.gather_augment_rows.launches,
+              kernels.augment_embeddings.launches)
+    aug = eps[1].sample(eps[1].generator(7))
+    route = (kernels.gather_augment_rows.launches - before[0],
+             kernels.augment_embeddings.launches - before[1])
     ratio = (aug.support_im / plain.support_im).double()
     ok = (torch.equal(plain.support_ids, aug.support_ids)
           and torch.equal(plain.query_im, aug.query_im)
           and not torch.equal(plain.support_im, aug.support_im)
-          and float((ratio - 1).abs().max()) <= AUG_SCALE + 1e-6)
+          and float((ratio - 1).abs().max()) <= AUG_SCALE + 1e-6
+          and route == (1, 0))
     print(f"sampler --augment: support jittered (|out/x - 1| <= "
-          f"{float((ratio - 1).abs().max()):.4f}), queries and ids as "
-          f"without it: {ok}")
+          f"{float((ratio - 1).abs().max()):.4f}) by {route[0]} "
+          f"gather_augment_rows and {route[1]} augment_embeddings launches, "
+          f"queries and ids as without it: {ok}")
     if not ok:
         fail("the sampler's augmentation touched the queries or missed the "
              "support set")
@@ -531,9 +608,11 @@ def driver_runs(root: str, reset_counts, read_counts, by_path) -> dict:
                     for n in ("ckpt", "best", "ckpt.meta.json"))
         finite = all(np.isfinite(out[f"test/{k}"])
                      for k in ("loss", "acc", "acc_ci95", "loss_ci95"))
-        expect = {"augment_embeddings": DRIVER_TRAIN_STEPS,
-                  "gather_rows": 2 * (DRIVER_TRAIN_STEPS
-                                      + DRIVER_EVAL_BATCHES),
+        # an augmented train step: the query gather and the fused support
+        # pass; an eval meta-batch: both gathers
+        expect = {"augment_embeddings": 0,
+                  "gather_augment_rows": DRIVER_TRAIN_STEPS,
+                  "gather_rows": DRIVER_TRAIN_STEPS + 2 * DRIVER_EVAL_BATCHES,
                   "fused_adapt": DRIVER_EVAL_BATCHES if model == "fumi"
                   else 0,
                   "fused_maml_adapt_batched": DRIVER_EVAL_BATCHES
@@ -561,7 +640,8 @@ def driver_runs(root: str, reset_counts, read_counts, by_path) -> dict:
             if set(again) != set(out) or diff > 1e-6:
                 fail("driver fumi --evaluate does not reproduce the test")
             if counts["fused_adapt"] != DRIVER_TEST_BATCHES or \
-                    counts["augment_embeddings"] != 0:
+                    counts["augment_embeddings"] != 0 or \
+                    counts["gather_augment_rows"] != 0:
                 fail(f"driver fumi --evaluate: launches {counts}")
     return walls
 
@@ -681,6 +761,7 @@ def main() -> int:
         text_dim=E, seed=0)
     table = on_card(table_np)
     gather_err = check_gather(table, dev)
+    fused_aug_err = check_gather_augment(table, dev)
     check_sampler_augment(table, ids_np, cset, dev)
 
     # ---- 4. the serving path at full width ------------------------------
@@ -754,7 +835,11 @@ def main() -> int:
     aug_smp = DeviceEpisodeSampler(table, ids_np, cset, train_spec,
                                    use_pallas_gather=True,
                                    augment_scale=AUG_SCALE, device=dev)
-    trained, train_eps, train_state = {}, {}, {}
+    # --augment without --tpu_pallas_gather: the library gather, then the
+    # standalone jitter kernel
+    lib_aug_smp = DeviceEpisodeSampler(table, ids_np, cset, train_spec,
+                                       augment_scale=AUG_SCALE, device=dev)
+    trained, train_eps, train_state, aug_state = {}, {}, {}, {}
     for model in ("fumi", "maml"):
         cfg = train_cfg(Config, model)
         st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
@@ -799,11 +884,38 @@ def main() -> int:
               f"loss {float(ms['loss'][-1]):.4f}; {seconds:.3f} s = "
               f"{train_eps[f'{model} --augment']:.1f} episodes/s; launches "
               f"{counts}")
-        if not bool(torch.isfinite(ms["loss"]).all()) or \
-                counts["augment_embeddings"] != TRAIN_CHUNK or \
-                counts["gather_rows"] != 2 * TRAIN_CHUNK:
+        # a step: the query gather and the fused support pass
+        expect = {name: 0 for name in KERNEL_NAMES}
+        expect.update(gather_rows=TRAIN_CHUNK,
+                      gather_augment_rows=TRAIN_CHUNK)
+        if not bool(torch.isfinite(ms["loss"]).all()) or counts != expect:
             fail(f"training {model} --augment: non-finite losses or "
-                 f"launches {counts}")
+                 f"launches {counts}, expected {expect}")
+        aug_state[model] = (aug_run, p, s)
+        if model == "fumi":
+            lib_run = steps.make_chunked_train(st.family, st.opt,
+                                               lib_aug_smp, TRAIN_CHUNK)
+            lib_run(p, s, lib_aug_smp.generator(2), 2)  # warm
+            reset_counts()
+            seconds = synced_s(lambda: box.update(
+                out=lib_run(p, s, lib_aug_smp.generator(3))))
+            by_path["train fumi --augment, library gather"] = counts = \
+                read_counts()
+            ms = box["out"][3]
+            train_eps["fumi --augment, library gather"] = \
+                TRAIN_CHUNK * B / seconds
+            print(f"main path, train fumi --augment without "
+                  f"--tpu_pallas_gather: {TRAIN_CHUNK} steps, loss "
+                  f"{float(ms['loss'][-1]):.4f}; {seconds:.3f} s = "
+                  f"{TRAIN_CHUNK * B / seconds:.1f} episodes/s; launches "
+                  f"{counts}")
+            expect = {name: 0 for name in KERNEL_NAMES}
+            expect["augment_embeddings"] = TRAIN_CHUNK
+            if not bool(torch.isfinite(ms["loss"]).all()) or \
+                    counts != expect:
+                fail(f"training fumi --augment on the library gather: "
+                     f"non-finite losses or launches {counts}, expected "
+                     f"{expect}")
         train_step_card_vs_cpu(cfg, train_smp, dev)
 
     # ---- 6. eval at full width, fused kernel against the engine ----------
@@ -839,9 +951,8 @@ def main() -> int:
             # shared head through the batched kernel
             kernel = "fused_adapt" if model == "fumi" else \
                 "fused_maml_adapt_batched"
-            expect = {"fused_adapt": 0, "fused_maml_adapt_batched": 0,
-                      "gather_rows": 2 * EVAL_BATCHES,
-                      "augment_embeddings": 0}
+            expect = {name: 0 for name in KERNEL_NAMES}
+            expect["gather_rows"] = 2 * EVAL_BATCHES
             expect[kernel] = EVAL_BATCHES if fused else 0
             if counts != expect:
                 fail(f"eval {model} through the {path}: launches {counts}, "
@@ -1006,42 +1117,91 @@ def main() -> int:
           f"{b_bound_ms:.4f} ms ({bound_by}); no single PyTorch call "
           "computes this function, so library_ms is null")
 
-    # augment_embeddings at the flagship support set: 100 seeds (as 100
-    # episodes draw them) in one CUDA graph
+    # the support set of a training step (B*S = 100 rows of the 2048-wide
+    # fp32 table): 100 index sets and seeds (as 100 episodes draw them),
+    # each route in one CUDA graph of 100 calls, in turns (forward, then
+    # backward): the gather alone, the standalone jitter on a gathered
+    # block, the two in sequence as the sampler ran them before, and the
+    # fused pass that replaces them
     m_s = B * S
-    agen = torch.Generator(device=dev).manual_seed(6)
-    ax = torch.randn((m_s, D), generator=agen, device=dev)
-    seeds = [torch.randint(0, 2 ** 62, (1,), generator=agen,
+    sgen = torch.Generator(device=dev).manual_seed(6)
+    s_idx = [torch.randint(0, table.shape[0], (m_s,), generator=sgen,
+                           dtype=torch.int32, device=dev)
+             for _ in range(100)]
+    s_idx_long = [i.long() for i in s_idx]
+    seeds = [torch.randint(0, 2 ** 62, (1,), generator=sgen,
                            dtype=torch.int64, device=dev) for _ in range(100)]
-    a_calls = {
-        "kernel": [lambda s_=s_: kernels.augment_embeddings(ax, s_, AUG_SCALE)
-                   for s_ in seeds],
-        "plain": [lambda s_=s_: kernels.augment_embeddings_reference(
-            ax, s_, AUG_SCALE) for s_ in seeds]}
-    a_times = {}
-    for turn in ("kernel", "plain", "kernel", "plain"):
-        a_times.setdefault(turn, []).append(graph_ms(a_calls[turn]))
-    a_ms = statistics.median(a_times["kernel"])
-    a_plain_ms = statistics.median(a_times["plain"])
+    ax = torch.randn((m_s, D), generator=sgen, device=dev)
+    pairs = list(zip(s_idx, seeds))
+    s_calls = {
+        "gather_rows": [lambda i=i: kernels.gather_rows(table, i)
+                        for i in s_idx],
+        "gather_rows plain": [
+            lambda i=i: kernels.gather_rows_reference(table, i)
+            for i in s_idx],
+        "index_select": [lambda i=i: torch.index_select(table, 0, i)
+                         for i in s_idx_long],
+        "augment_embeddings": [
+            lambda s_=s_: kernels.augment_embeddings(ax, s_, AUG_SCALE)
+            for s_ in seeds],
+        "augment_embeddings plain": [
+            lambda s_=s_: kernels.augment_embeddings_reference(
+                ax, s_, AUG_SCALE) for s_ in seeds],
+        "gather_rows + augment_embeddings": [
+            lambda i=i, s_=s_: kernels.augment_embeddings(
+                kernels.gather_rows(table, i), s_, AUG_SCALE)
+            for i, s_ in pairs],
+        "gather_augment_rows": [
+            lambda i=i, s_=s_: kernels.gather_augment_rows(table, i, s_,
+                                                           AUG_SCALE)
+            for i, s_ in pairs],
+        "gather_augment_rows plain": [
+            lambda i=i, s_=s_: kernels.gather_augment_rows_reference(
+                table, i, s_, AUG_SCALE) for i, s_ in pairs]}
+    s_times = {}
+    for turn in list(s_calls) + list(reversed(s_calls)):
+        s_times.setdefault(turn, []).append(graph_ms(s_calls[turn]))
+    s_ms = {k: statistics.median(v) for k, v in s_times.items()}
+    gs_bytes = gather_bytes(m_s, D * table.element_size())
+    gs_bound_ms = 1e3 * gs_bytes / PEAK_BYTES_PER_S
     a_flops, a_bytes = augment_cost(m_s, D)
     a_t_ops, a_t_bytes = (a_flops / PEAK_FP32_FLOPS,
                           a_bytes / PEAK_BYTES_PER_S)
     a_bound_ms = 1e3 * max(a_t_ops, a_t_bytes)
     a_bound_by = "operations" if a_t_ops >= a_t_bytes else "bytes"
-    a_host_ms = cuda_ms(lambda: kernels.augment_embeddings(ax, seeds[0],
-                                                           AUG_SCALE), 10, 50)
+    ga_flops, ga_bytes = gather_augment_cost(m_s, D, table.element_size())
+    ga_t_ops, ga_t_bytes = (ga_flops / PEAK_FP32_FLOPS,
+                            ga_bytes / PEAK_BYTES_PER_S)
+    ga_bound_ms = 1e3 * max(ga_t_ops, ga_t_bytes)
+    ga_bound_by = "operations" if ga_t_ops >= ga_t_bytes else "bytes"
+    bounds = {"gather_rows": (gs_bound_ms, "bytes", gs_bytes),
+              "augment_embeddings": (a_bound_ms, a_bound_by, a_bytes),
+              "gather_rows + augment_embeddings": (
+                  gs_bound_ms + a_bound_ms, "bytes", gs_bytes + a_bytes),
+              "gather_augment_rows": (ga_bound_ms, ga_bound_by, ga_bytes)}
+    for name, turns in s_times.items():
+        bound = (f", bound {bounds[name][0] * 1e3:.3f} us ({bounds[name][1]}"
+                 f": {bounds[name][2] / 1e6:.3f} MB at 3.35 TB/s)"
+                 if name in bounds else "")
+        print(f"support set M={m_s} D={D} fp32, {name} (device time, CUDA "
+              f"graph of 100 calls): {s_ms[name] * 1e3:.2f} us (turns "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in turns)}){bound}")
+    a_ms, a_plain_ms = (s_ms["augment_embeddings"],
+                        s_ms["augment_embeddings plain"])
+    ga_ms, ga_plain_ms = (s_ms["gather_augment_rows"],
+                          s_ms["gather_augment_rows plain"])
+    for name, fn in (("augment_embeddings", lambda: kernels.augment_embeddings(
+            ax, seeds[0], AUG_SCALE)),
+                     ("gather_augment_rows", lambda: kernels.
+                      gather_augment_rows(table, s_idx[0], seeds[0],
+                                          AUG_SCALE))):
+        print(f"{name} M={m_s} D={D}: one call from the host with its "
+              f"launch, CUDA events: {cuda_ms(fn, 10, 50) * 1e3:.2f} us")
     rand_mul_ms = cuda_ms(lambda: ax * (1.0 + (torch.rand_like(ax) - 0.5)
                                         * (2 * AUG_SCALE)), 10, 50)
     print(f"for comparison: torch.rand + multiply on the same {m_s}x{D} "
           f"fp32, one call from the host, CUDA events: {rand_mul_ms * 1e3:.2f}"
           f" us (other random bits; not a library call of this function)")
-    print(f"augment_embeddings M={m_s} D={D} fp32 (device time, CUDA graph "
-          f"of 100 calls): kernel {a_ms * 1e3:.2f} us (turns "
-          f"{', '.join(f'{t * 1e3:.2f}' for t in a_times['kernel'])}), plain "
-          f"{a_plain_ms * 1e3:.2f} us, bound {a_bound_ms * 1e3:.3f} us "
-          f"({a_bound_by}: {a_bytes / 1e6:.2f} MB at 3.35 TB/s); one call "
-          f"from the host with its launch, CUDA events: "
-          f"{a_host_ms * 1e3:.2f} us; library_ms null")
     # how busy the card is in a train step: device time from a profiler
     # trace of 5 steps against the wall time of a step in the timed chunk
     prof_steps = 5
@@ -1051,18 +1211,85 @@ def main() -> int:
             print(f"train {model}: device busy share not measured (the "
                   "profiler recorded no device time)")
             continue
-        dev_ms, ops = traced
+        dev_ms, ops, _ = traced
         print(f"train {model}: device time {dev_ms / prof_steps:.3f} ms a "
               f"step in {ops / prof_steps:.0f} device operations "
               f"(torch.profiler, {prof_steps} steps) against "
               f"{step_s * 1e3:.3f} ms of wall time a step: the card is "
               f"busy {100 * dev_ms / prof_steps / (step_s * 1e3):.1f}% of "
               "the step")
+
+    # an augmented train step before and after the fused pass, on the same
+    # episodes (one generator seed; both routes give bitwise the same
+    # support set): through gather_augment_rows, and with it swapped for
+    # the two launches it replaced, in turns. Per route a profile of 5
+    # steps (device time and operations), then a timed chunk (episodes/s)
+    fused_fn = kernels.gather_augment_rows
+
+    def two_launches(t, idx, seed, scale=0.1, row_offset=0):
+        return kernels.augment_embeddings(
+            kernels.pixels_to_float(kernels.gather_rows(t, idx)), seed,
+            scale, row_offset)
+
+    def through(route, fn):
+        kernels.gather_augment_rows = fused_fn if route == "fused" else \
+            two_launches
+        try:
+            return fn()
+        finally:
+            kernels.gather_augment_rows = fused_fn
+    names = ("gather_augment_kernel", "augment_kernel", "gather_rows_kernel")
+    for model, (aug_run, p, s) in aug_state.items():
+        traces, route_eps = {}, {}
+        for route in ("fused", "two launches", "two launches", "fused"):
+            reset_counts()
+            traced = through(route, lambda: device_profile(
+                lambda: aug_run(p, s, aug_smp.generator(4), prof_steps),
+                names))
+            counts = read_counts()
+            want = ({"gather_rows": prof_steps,
+                     "gather_augment_rows": prof_steps}
+                    if route == "fused" else
+                    {"gather_rows": 2 * prof_steps,
+                     "augment_embeddings": prof_steps})
+            if any(counts[k] != want.get(k, 0) for k in counts):
+                fail(f"profile of train {model} --augment ({route}): "
+                     f"launches {counts}, expected {want}")
+            if traced is not None:
+                traces.setdefault(route, []).append(traced)
+            seconds = through(route, lambda: synced_s(
+                lambda: aug_run(p, s, aug_smp.generator(5))))
+            route_eps.setdefault(route, []).append(TRAIN_CHUNK * B / seconds)
+        for route, eps in route_eps.items():
+            label = (f"train {model} --augment through the {route} "
+                     f"({'after' if route == 'fused' else 'before'})")
+            print(f"{label}: {', '.join(f'{e:.1f}' for e in eps)} "
+                  f"episodes/s (a chunk of {TRAIN_CHUNK} steps, 2 turns)")
+            runs = traces.get(route)
+            if not runs:
+                print(f"{label}: device time not measured (the profiler "
+                      "recorded no device time)")
+                continue
+            per_step = [(t[0] / prof_steps, t[1] / prof_steps) for t in runs]
+            steps_n = len(runs) * prof_steps
+            kern = ", ".join(
+                f"{k} {sum(t[2][k][0] for t in runs) / steps_n:.2f} us in "
+                f"{sum(t[2][k][1] for t in runs) / steps_n:.0f}"
+                for k in names)
+            print(f"{label}: device time a step "
+                  f"{', '.join(f'{t[0]:.4f}' for t in per_step)} ms in "
+                  f"{', '.join(f'{t[1]:.0f}' for t in per_step)} device "
+                  f"operations (torch.profiler, {prof_steps} steps, "
+                  f"{len(runs)} turns); support-assembly kernels a step: "
+                  f"{kern}")
     for model in trained:
         fused = "fused_adapt" if model == "fumi" else \
             "fused_maml_adapt_batched"
         print(f"train {model}: {train_eps[model]:.1f} episodes/s, with "
-              f"--augment {train_eps[f'{model} --augment']:.1f}; eval "
+              f"--augment {train_eps[f'{model} --augment']:.1f}"
+              + (f", --augment on the library gather "
+                 f"{train_eps['fumi --augment, library gather']:.1f}"
+                 if model == "fumi" else "") + "; eval "
               f"through {fused} "
               f"{eval_eps[(model, 'fused kernel')]:.1f} episodes/s, through "
               f"the autograd engine "
@@ -1090,6 +1317,9 @@ def main() -> int:
         "launches": launches["gather_rows"], "max_abs_err": gather_err,
         "ms": g_ms, "plain_ms": g_plain_ms, "bound_ms": g_bound_ms,
         "bound_by": "bytes", "library_ms": g_lib_ms,
+        "ms_m100": s_ms["gather_rows"],
+        "plain_ms_m100": s_ms["gather_rows plain"],
+        "bound_ms_m100": gs_bound_ms, "library_ms_m100": s_ms["index_select"],
         "launches_by_path": {p: c["gather_rows"] for p, c in by_path.items()},
     }, {
         "name": "augment_embeddings", "route": "cuda",
@@ -1099,6 +1329,16 @@ def main() -> int:
         "ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound_ms,
         "bound_by": a_bound_by, "library_ms": None,
         "launches_by_path": {p: c["augment_embeddings"]
+                             for p, c in by_path.items()},
+    }, {
+        "name": "gather_augment_rows", "route": "cuda",
+        "source": "fumi_tpu_torch/csrc/augment_embeddings.cu",
+        "replaces": "fumi_tpu/ops/pallas_kernels.py:53",
+        "launches": launches["gather_augment_rows"],
+        "max_abs_err": fused_aug_err, "ms": ga_ms, "plain_ms": ga_plain_ms,
+        "bound_ms": ga_bound_ms, "bound_by": ga_bound_by, "library_ms": None,
+        "two_launch_ms": s_ms["gather_rows + augment_embeddings"],
+        "launches_by_path": {p: c["gather_augment_rows"]
                              for p, c in by_path.items()},
     }, {
         "name": "fused_maml_adapt_batched", "route": "cuda",

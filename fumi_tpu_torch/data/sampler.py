@@ -15,10 +15,14 @@ XLA's gather when the flag is off.
 table's device, then calls :func:`episode_from_noise`, a pure function of
 the noise, so the tests can feed it the JAX package's own noise. With
 ``augment_scale > 0`` (``--augment``) the support embeddings are jittered
-by ``ops/kernels.py:augment_embeddings`` (the hand-written CUDA kernel on
-the card) from a one-element seed the generator draws on the device, so
-no value crosses to the host; ``episode_from_noise(aug_noise=...)`` takes
-the jitter as noise instead, the form the tests feed JAX's noise through.
+from a one-element seed the generator draws on the device, so no value
+crosses to the host: with the kernel gather by
+``ops/kernels.py:gather_augment_rows``, one CUDA kernel that gathers,
+widens and jitters the support rows in one pass; without it by the
+library gather followed by ``ops/kernels.py:augment_embeddings``, the
+standalone CUDA jitter. The two give bitwise the same episode.
+``episode_from_noise(aug_noise=...)`` takes the jitter as noise instead,
+the form the tests feed JAX's noise through.
 
 Raw-image tables and their flip-and-crop augmentation wait for the
 raw-image backbones (ROADMAP.md Queue 1, item 7); the host samplers wait
@@ -37,6 +41,8 @@ from fumi_tpu_torch.core.episode import Episode, EpisodeSpec, \
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.data.class_set import ClassSet
 from fumi_tpu_torch.ops import kernels
+# the widening the fused support kernel applies, kept beside it
+from fumi_tpu_torch.ops.kernels import pixels_to_float
 
 
 class SamplerTables(NamedTuple):
@@ -46,17 +52,6 @@ class SamplerTables(NamedTuple):
     class_rows: torch.Tensor  # (C, max_count) int32
     class_counts: torch.Tensor  # (C,) int32
     text_features: torch.Tensor  # (C, E)
-
-
-def pixels_to_float(im: torch.Tensor) -> torch.Tensor:
-    """Gather-time dtype policy for episode image leaves: integer tables
-    are raw pixels -> fp32 in [0, 1]; other floats (bf16 tables) -> fp32;
-    fp32 passes through."""
-    if not im.dtype.is_floating_point:
-        return im.to(torch.float32) * (1.0 / 255.0)
-    if im.dtype != torch.float32:
-        return im.to(torch.float32)
-    return im
 
 
 def _gather_image_rows(table: torch.Tensor, rows: torch.Tensor,
@@ -79,9 +74,13 @@ def episode_from_noise(tables: SamplerTables, spec: EpisodeSpec,
     ``cls_noise`` (B, C) and ``img_noise`` (B, N, max_count) are uniform in
     [0, 1). The SUPPORT embeddings are jittered (train-time augmentation;
     queries stay clean) either by ``aug_noise`` (B, N*K, D), uniform in
-    [-s, s), as ``x * (1 + aug_noise)``, or by ``augment_embeddings`` keyed
-    by ``aug_seed`` (a one-element int64 tensor) at ``augment_scale``; or
-    not at all when both are None."""
+    [-s, s), as ``x * (1 + aug_noise)``, or by the Philox jitter keyed by
+    ``aug_seed`` (a one-element int64 tensor) at ``augment_scale``; or not
+    at all when both are None. With ``use_pallas_gather`` the seeded
+    jitter is the epilogue of the support gather (``gather_augment_rows``,
+    one launch); without it the library gather is followed by the
+    standalone ``augment_embeddings`` kernel. The flag picks the route,
+    and both give bitwise the same support set."""
     if aug_noise is not None and aug_seed is not None:
         raise ValueError("episode_from_noise: aug_noise or aug_seed, not both")
     B, N, K, Q = (spec.batch_size, spec.num_ways, spec.num_shots,
@@ -105,22 +104,28 @@ def episode_from_noise(tables: SamplerTables, spec: EpisodeSpec,
     s_rows = rows[..., :K].reshape(B, N * K)
     q_rows = rows[..., K:].reshape(B, N * Q)
 
-    support_im = pixels_to_float(_gather_image_rows(
-        tables.image_table, s_rows, use_pallas_gather))
-    query_im = pixels_to_float(_gather_image_rows(
-        tables.image_table, q_rows, use_pallas_gather))
+    table = tables.image_table
     jitter = aug_noise is not None or (aug_seed is not None
                                        and augment_scale > 0.0)
-    if jitter and support_im.dim() != 3:
+    if jitter and table.dim() != 2:
         raise NotImplementedError(
             "raw-image augmentation is not ported yet (ROADMAP.md "
             "Queue 1, item 7: raw-image backbones)")
-    if aug_noise is not None:
-        support_im = support_im * (1.0 + aug_noise)
-    elif jitter:
-        flat = kernels.augment_embeddings(
-            support_im.reshape(B * N * K, -1), aug_seed, augment_scale)
-        support_im = flat.reshape(support_im.shape)
+    if jitter and aug_noise is None and use_pallas_gather:
+        support_im = kernels.gather_augment_rows(
+            table, s_rows.reshape(-1).contiguous(), aug_seed,
+            augment_scale).reshape(B, N * K, table.shape[1])
+    else:
+        support_im = pixels_to_float(_gather_image_rows(
+            table, s_rows, use_pallas_gather))
+        if aug_noise is not None:
+            support_im = support_im * (1.0 + aug_noise)
+        elif jitter:
+            flat = kernels.augment_embeddings(
+                support_im.reshape(B * N * K, -1), aug_seed, augment_scale)
+            support_im = flat.reshape(support_im.shape)
+    query_im = pixels_to_float(_gather_image_rows(table, q_rows,
+                                                  use_pallas_gather))
 
     # per-class text repeated per shot, class-major like the targets
     text_cls = tables.text_features[class_idx]  # (B, N, E)

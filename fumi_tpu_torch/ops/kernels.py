@@ -21,6 +21,12 @@ The counterparts of ``fumi_tpu/ops/pallas_kernels.py``:
   (``csrc/augment_embeddings.cu``). Plain version:
   :func:`augment_embeddings_reference`, the same bits in int64 arithmetic,
   bitwise equal.
+- :func:`gather_augment_rows`: the same jitter as the epilogue of the
+  support-row gather, widening the table's rows to fp32 on the way
+  (``csrc/augment_embeddings.cu``'s second entry point), one launch and
+  the gather's bytes. Plain version: :func:`gather_augment_rows_reference`,
+  ``augment_embeddings_reference(pixels_to_float(gather_rows_reference(
+  ...)))``, bitwise equal.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version. The design and bound of each kernel are in its
@@ -453,6 +459,21 @@ def _gather_library():
     return lib
 
 
+def _check_gather(who: str, table: torch.Tensor, idx: torch.Tensor) -> None:
+    if table.dim() != 2 or not table.is_contiguous():
+        raise ValueError(f"{who} takes a contiguous 2-D table, got "
+                         f"shape {tuple(table.shape)}"
+                         f"{'' if table.is_contiguous() else ', strided'}")
+    if idx.dtype != torch.int32 or idx.dim() != 1:
+        raise TypeError(f"{who} takes 1-D int32 indices, got "
+                        f"{idx.dtype} of shape {tuple(idx.shape)}")
+    if idx.device != table.device:
+        raise ValueError(f"{who}: table on {table.device}, indices "
+                         f"on {idx.device}")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who} runs on cuda or cpu, not {table.device}")
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row gather ``(R, D)[(M,)] -> (M, D)``, bitwise ``table[idx]``.
 
@@ -460,21 +481,10 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     bytes); ``idx`` is 1-D int32 on the same device. A CUDA table launches
     ``csrc/gather_rows.cu`` (an index outside ``[0, R)`` raises at the next
     synchronisation); a CPU table runs :func:`gather_rows_reference`."""
-    if table.dim() != 2 or not table.is_contiguous():
-        raise ValueError(f"gather_rows takes a contiguous 2-D table, got "
-                         f"shape {tuple(table.shape)}"
-                         f"{'' if table.is_contiguous() else ', strided'}")
-    if idx.dtype != torch.int32 or idx.dim() != 1:
-        raise TypeError(f"gather_rows takes 1-D int32 indices, got "
-                        f"{idx.dtype} of shape {tuple(idx.shape)}")
-    if idx.device != table.device:
-        raise ValueError(f"gather_rows: table on {table.device}, indices "
-                         f"on {idx.device}")
+    _check_gather("gather_rows", table, idx)
     dev = table.device
     if dev.type == "cpu":
         return gather_rows_reference(table, idx)
-    if dev.type != "cuda":
-        raise ValueError(f"gather_rows runs on cuda or cpu, not {dev}")
     idx = idx.contiguous()
     M, (R, D) = idx.shape[0], table.shape
     out = torch.empty((M, D), dtype=table.dtype, device=dev)
@@ -527,20 +537,27 @@ def philox4x32_10(counter: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     return torch.stack([c0, c1, c2, c3], dim=-1)
 
 
-def _check_augment(x: torch.Tensor, seed: torch.Tensor) -> None:
+def _check_seed(who: str, seed: torch.Tensor, what: str,
+                device: torch.device, row_offset: int = 0) -> None:
+    if seed.dtype != torch.int64 or seed.numel() != 1:
+        raise TypeError(f"{who} takes a one-element int64 seed "
+                        f"tensor, got {seed.dtype} of shape "
+                        f"{tuple(seed.shape)}")
+    if seed.device != device:
+        raise ValueError(f"{who}: {what} on {device}, seed on {seed.device}")
+    if row_offset < 0:
+        raise ValueError(f"{who}: row_offset {row_offset} < 0")
+
+
+def _check_augment(x: torch.Tensor, seed: torch.Tensor,
+                   row_offset: int = 0) -> None:
     if x.dtype != torch.float32 or x.dim() != 2:
         raise TypeError(f"augment_embeddings takes 2-D float32 x, got "
                         f"{x.dtype} of shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"augment_embeddings takes a contiguous x, got "
                          f"strides {x.stride()} for shape {tuple(x.shape)}")
-    if seed.dtype != torch.int64 or seed.numel() != 1:
-        raise TypeError(f"augment_embeddings takes a one-element int64 seed "
-                        f"tensor, got {seed.dtype} of shape "
-                        f"{tuple(seed.shape)}")
-    if seed.device != x.device:
-        raise ValueError(f"augment_embeddings: x on {x.device}, seed on "
-                         f"{seed.device}")
+    _check_seed("augment_embeddings", seed, "x", x.device, row_offset)
 
 
 def augment_embeddings_reference(x: torch.Tensor, seed: torch.Tensor,
@@ -552,7 +569,7 @@ def augment_embeddings_reference(x: torch.Tensor, seed: torch.Tensor,
     make u in [1, 2), and ``out = x * (1 + (u - 1.5) * 2·scale)``, rounded
     step by step in fp32. Runs on the tensors' device without reading the
     seed on the host."""
-    _check_augment(x, seed)
+    _check_augment(x, seed, row_offset)
     M, D = x.shape
     G = (D + 3) // 4
     dev = x.device
@@ -580,6 +597,10 @@ def _augment_library():
     lib.augment_embeddings_launch.argtypes = [ptr, ptr, ptr, i64, ctypes.c_int,
                                               i64, ctypes.c_float, ptr]
     lib.augment_embeddings_launch.restype = ctypes.c_int
+    lib.gather_augment_launch.argtypes = [ptr, ctypes.c_int, ptr, ptr, ptr,
+                                          i64, i64, ctypes.c_int, i64,
+                                          ctypes.c_float, ptr]
+    lib.gather_augment_launch.restype = ctypes.c_int
     return lib
 
 
@@ -593,9 +614,7 @@ def augment_embeddings(x: torch.Tensor, seed: torch.Tensor,
     so a row slice of a larger tensor, given its offset, jitters as the
     whole does. A CUDA x launches ``csrc/augment_embeddings.cu``; a CPU x
     runs :func:`augment_embeddings_reference`."""
-    _check_augment(x, seed)
-    if row_offset < 0:
-        raise ValueError(f"augment_embeddings: row_offset {row_offset} < 0")
+    _check_augment(x, seed, row_offset)
     dev = x.device
     if dev.type == "cpu":
         return augment_embeddings_reference(x, seed, scale, row_offset)
@@ -616,3 +635,80 @@ def augment_embeddings(x: torch.Tensor, seed: torch.Tensor,
 
 
 augment_embeddings.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Support-row gather with the jitter as its epilogue
+# ---------------------------------------------------------------------------
+
+def pixels_to_float(im: torch.Tensor) -> torch.Tensor:
+    """Gather-time dtype policy for episode image leaves: integer tables
+    are raw pixels -> fp32 in [0, 1]; other floats (bf16 tables) -> fp32;
+    fp32 passes through."""
+    if not im.dtype.is_floating_point:
+        return im.to(torch.float32) * (1.0 / 255.0)
+    if im.dtype != torch.float32:
+        return im.to(torch.float32)
+    return im
+
+
+# the table dtypes the kernel widens, by csrc/augment_embeddings.cu's
+# TableKind
+_TABLE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+
+
+def _check_gather_augment(table, idx, seed, row_offset) -> None:
+    who = "gather_augment_rows"
+    _check_gather(who, table, idx)
+    if table.dtype not in _TABLE_KINDS:
+        raise TypeError(f"{who} takes float32, bfloat16 or uint8 tables, "
+                        f"got {table.dtype}")
+    _check_seed(who, seed, "table", table.device, row_offset)
+
+
+def gather_augment_rows_reference(table: torch.Tensor, idx: torch.Tensor,
+                                  seed: torch.Tensor, scale: float = 0.1,
+                                  row_offset: int = 0) -> torch.Tensor:
+    """Plain version of the kernel, bitwise: the gather, the sampler's
+    widening and the jitter one after the other."""
+    _check_gather_augment(table, idx, seed, row_offset)
+    return augment_embeddings_reference(
+        pixels_to_float(gather_rows_reference(table, idx)), seed, scale,
+        row_offset)
+
+
+def gather_augment_rows(table: torch.Tensor, idx: torch.Tensor,
+                        seed: torch.Tensor, scale: float = 0.1,
+                        row_offset: int = 0) -> torch.Tensor:
+    """``augment_embeddings(pixels_to_float(gather_rows(table, idx)), seed,
+    scale, row_offset)`` in one pass: (M, D) fp32 from a contiguous (R, D)
+    float32, bfloat16 or uint8 table, 1-D int32 ``idx`` and a one-element
+    int64 ``seed``, all on one device. Output row m is jittered as row
+    ``row_offset + m``. A CUDA table launches ``csrc/augment_embeddings.cu``'s
+    ``gather_augment_launch`` (an index outside ``[0, R)`` raises at the
+    next synchronisation); a CPU table runs
+    :func:`gather_augment_rows_reference`."""
+    _check_gather_augment(table, idx, seed, row_offset)
+    dev = table.device
+    if dev.type == "cpu":
+        return gather_augment_rows_reference(table, idx, seed, scale,
+                                             row_offset)
+    idx = idx.contiguous()
+    M, (R, D) = idx.shape[0], table.shape
+    out = torch.empty((M, D), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _augment_library().gather_augment_launch(
+        table.data_ptr(), _TABLE_KINDS[table.dtype], idx.data_ptr(),
+        seed.data_ptr(), out.data_ptr(), R, M, D, int(row_offset),
+        2.0 * scale, stream)
+    if err != 0:
+        raise RuntimeError(f"gather_augment_rows kernel launch failed with "
+                           f"CUDA error {err} (R={R} D={D} M={M} "
+                           f"{table.dtype})")
+    gather_augment_rows.launches += 1
+    return out
+
+
+gather_augment_rows.launches = 0

@@ -127,6 +127,105 @@ def test_wrapper_errors_and_no_launch_on_the_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the jitter as the epilogue of the support gather
+# ---------------------------------------------------------------------------
+
+def table_of(dtype, rows, width, seed=0):
+    rng = np.random.RandomState(seed)
+    if dtype == torch.uint8:
+        return torch.from_numpy(rng.randint(0, 256, (rows, width))
+                                .astype(np.uint8))
+    return torch.from_numpy(rng.randn(rows, width).astype(np.float32)
+                            ).to(dtype)
+
+
+def widened(table: torch.Tensor) -> np.ndarray:
+    """pixels_to_float in numpy: bf16 bits shifted into fp32, uint8 times
+    1/255 rounded to fp32, in one fp32 product."""
+    if table.dtype == torch.bfloat16:
+        bits = table.view(torch.int16).numpy().astype(np.uint16)
+        return (bits.astype(np.uint32) << 16).view(np.float32)
+    if table.dtype == torch.uint8:
+        return table.numpy().astype(np.float32) * np.float32(1.0 / 255.0)
+    return table.numpy()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8], ids=str)
+@pytest.mark.parametrize("width", [5, 8, 2048])
+def test_gather_augment_rows_is_the_composition(dtype, width):
+    """Bitwise ``augment_embeddings_reference(pixels_to_float(
+    gather_rows_reference(...)))``, for several seeds and row offsets and
+    M = 0; and, computed apart in numpy, the widened rows times the
+    jitter factor (the jitter of a row of ones), one fp32 product each."""
+    table = table_of(dtype, 30, width)
+    idx = torch.from_numpy(
+        np.random.RandomState(width).randint(0, 30, 12).astype(np.int32))
+    for seed, offset in ((1, 0), (2 ** 62 - 3, 0), (7, 5), (7, 2 ** 33)):
+        s = seed_of(seed)
+        got = kernels.gather_augment_rows(table, idx, s, SCALE, offset)
+        want = kernels.augment_embeddings_reference(
+            sampler.pixels_to_float(kernels.gather_rows_reference(table,
+                                                                  idx)),
+            s, SCALE, offset)
+        assert got.dtype == torch.float32 and got.shape == (12, width)
+        assert torch.equal(got, want)
+        assert torch.equal(got, kernels.gather_augment_rows_reference(
+            table, idx, s, SCALE, offset))
+        factor = kernels.augment_embeddings_reference(
+            torch.ones(12, width), s, SCALE, offset).numpy()
+        np.testing.assert_array_equal(
+            got.numpy(), widened(table)[idx.numpy()] * factor)
+    empty = kernels.gather_augment_rows(
+        table, torch.zeros(0, dtype=torch.int32), seed_of(1), SCALE)
+    assert empty.shape == (0, width) and empty.dtype == torch.float32
+
+
+@pytest.mark.parametrize("cuts", [(1,), (4, 9)])
+def test_gather_augment_rows_split_jitter_as_the_whole(cuts):
+    table, s = table_of(torch.uint8, 20, 13), seed_of(4)
+    idx = torch.arange(19, -1, -1, dtype=torch.int32)
+    whole = kernels.gather_augment_rows(table, idx, s, SCALE)
+    bounds = (0,) + cuts + (20,)
+    pieces = [kernels.gather_augment_rows(table, idx[a:b], s, SCALE,
+                                          row_offset=a)
+              for a, b in zip(bounds[:-1], bounds[1:])]
+    assert torch.equal(torch.cat(pieces), whole)
+
+
+def test_gather_augment_rows_errors_and_no_launch_on_the_cpu():
+    table, s = table_of(torch.float32, 8, 4), seed_of(1)
+    idx = torch.zeros(3, dtype=torch.int32)
+    before = kernels.gather_augment_rows.launches
+    with pytest.raises(TypeError, match="int32"):
+        kernels.gather_augment_rows(table, idx.long(), s)
+    with pytest.raises(TypeError, match="int32"):
+        kernels.gather_augment_rows(table, idx.reshape(3, 1), s)
+    with pytest.raises(ValueError, match="strided"):
+        kernels.gather_augment_rows(table_of(torch.float32, 4, 8).t(), idx, s)
+    with pytest.raises(ValueError, match="2-D"):
+        kernels.gather_augment_rows(table.reshape(2, 4, 4), idx, s)
+    with pytest.raises(ValueError, match="indices on meta"):
+        kernels.gather_augment_rows(table, idx.to("meta"), s)
+    with pytest.raises(ValueError, match="seed on meta"):
+        kernels.gather_augment_rows(table, idx, s.to("meta"))
+    with pytest.raises(TypeError, match="int64"):
+        kernels.gather_augment_rows(table, idx, s.int())
+    with pytest.raises(TypeError, match="one-element"):
+        kernels.gather_augment_rows(table, idx,
+                                    torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(TypeError, match="uint8 tables"):
+        kernels.gather_augment_rows(table.double(), idx, s)
+    with pytest.raises(ValueError, match="row_offset"):
+        kernels.gather_augment_rows(table, idx, s, row_offset=-1)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernels.gather_augment_rows(table.to("meta"), idx.to("meta"),
+                                    s.to("meta"))
+    kernels.gather_augment_rows(table, idx, s)
+    assert kernels.gather_augment_rows.launches == before
+
+
+# ---------------------------------------------------------------------------
 # the same checks as the JAX package's (tests/test_pallas.py:61-100)
 # ---------------------------------------------------------------------------
 

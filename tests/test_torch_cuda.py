@@ -307,6 +307,99 @@ def test_augment_bitwise(cuda_device, case):
     assert float(ratio.max()) <= 1.1 + 1e-6
 
 
+# (dtype, rows, width, M, row_offset): fp32, bf16 and uint8 rows at the
+# flagship support gather take the 16-, 8- and 4-byte group loads, odd
+# widths the scalar path (2050 over three blocks of a row); M = 0 and 1; a
+# row offset past 2**32; more rows than the grid's cap
+GATHER_AUGMENT_CASES = [(torch.float32, 4096, 2048, 100, 0),
+                        (torch.bfloat16, 4096, 2048, 100, 0),
+                        (torch.uint8, 4096, 2048, 100, 0),
+                        (torch.float32, 50, 99, 37, 3),
+                        (torch.bfloat16, 70, 5, 33, 2 ** 33 + 1),
+                        (torch.uint8, 80, 99, 41, 0),
+                        (torch.uint8, 20, 6, 1, 9),
+                        (torch.bfloat16, 30, 2050, 7, 4),
+                        (torch.float32, 16, 8, 0, 0),
+                        (torch.float32, 70000, 4, 70000, 0)]
+
+
+@pytest.mark.parametrize("case", GATHER_AUGMENT_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_gather_augment_bitwise(cuda_device, case):
+    dtype, rows, width, M, offset = case
+    gen = torch.Generator().manual_seed(rows + width + M)
+    if dtype == torch.uint8:
+        table = torch.randint(0, 256, (rows, width), generator=gen,
+                              dtype=torch.uint8)
+    else:
+        table = torch.randn((rows, width), generator=gen).to(dtype)
+    idx = torch.randint(0, rows, (M,), generator=gen, dtype=torch.int32)
+    table, idx = table.to(cuda_device), idx.to(cuda_device)
+    s = torch.tensor([rows * 7919 + width], dtype=torch.int64,
+                     device=cuda_device)
+    before = kernels.gather_augment_rows.launches
+    got = kernels.gather_augment_rows(table, idx, s, 0.1, offset)
+    torch.cuda.synchronize()
+    assert kernels.gather_augment_rows.launches == before + (M > 0)
+    assert got.dtype == torch.float32 and got.shape == (M, width)
+    assert torch.equal(got, kernels.gather_augment_rows_reference(
+        table, idx, s, 0.1, offset))
+    # the two kernels it replaces give the same bits
+    assert torch.equal(got, kernels.augment_embeddings(
+        sampler.pixels_to_float(kernels.gather_rows(table, idx)), s, 0.1,
+        offset))
+    # a table that starts one element in: its groups lose their alignment
+    buf = torch.empty(rows * width + 1, dtype=dtype, device=cuda_device)
+    buf[1:] = table.reshape(-1)
+    assert torch.equal(kernels.gather_augment_rows(
+        buf[1:].view(rows, width), idx, s, 0.1, offset), got)
+
+
+def test_gather_augment_out_of_range_raises_at_synchronize(cuda_device):
+    """As for gather_rows: the bad launch runs in a child process."""
+    code = (
+        "import torch\n"
+        "from fumi_tpu_torch.ops import kernels\n"
+        "table = torch.zeros(8, 64, device='cuda')\n"
+        "idx = torch.tensor([0, 8], dtype=torch.int32, device='cuda')\n"
+        "seed = torch.ones(1, dtype=torch.int64, device='cuda')\n"
+        "kernels.gather_augment_rows(table, idx, seed)\n"
+        "try:\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n"
+        "    raise SystemExit(0)\n"
+        "raise SystemExit('no error at synchronize')\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "raised:" in out.stdout
+
+
+def test_sampler_jitter_routes_agree_on_the_card(cuda_device):
+    """--augment with the kernel gather (one gather_augment_rows launch)
+    and without it (the library gather, then augment_embeddings) draw
+    bitwise the same episode from the same generator seed."""
+    cs, table, ids = synthetic.synthetic_class_set(
+        num_classes=10, images_per_class=12, im_dim=64, text_dim=16)
+    spec = EpisodeSpec(2, 3, 2, 4, 64, 16)
+    eps = {}
+    for pallas in (True, False):
+        smp = sampler.DeviceEpisodeSampler(
+            table, ids, cs, spec, use_pallas_gather=pallas,
+            augment_scale=0.1, device=cuda_device)
+        before = (kernels.gather_augment_rows.launches,
+                  kernels.augment_embeddings.launches)
+        eps[pallas] = smp.sample(smp.generator(3))
+        assert (kernels.gather_augment_rows.launches - before[0],
+                kernels.augment_embeddings.launches - before[1]) == \
+            ((1, 0) if pallas else (0, 1))
+    for name in Episode._fields:
+        a, b = getattr(eps[True], name), getattr(eps[False], name)
+        assert (a is None and b is None) or torch.equal(a, b), name
+
+
 def test_augment_rejects_strided_input_and_other_seeds(cuda_device):
     x = torch.randn(64, 32, device=cuda_device)
     s = torch.tensor([1], dtype=torch.int64, device=cuda_device)

@@ -353,3 +353,49 @@ def test_episode_from_noise_jitters_by_noise_or_by_seed():
         sampler.episode_from_noise(t_tables, spec, cls_noise, img_noise,
                                    aug_noise=aug, aug_seed=seed,
                                    augment_scale=0.1)
+
+
+@pytest.mark.parametrize("table_dtype,counts", [
+    ("float32", "even"), ("float32", "too_small"), ("bfloat16", "ragged"),
+    ("uint8", "ragged")])
+def test_seeded_jitter_routes_give_the_same_episode(monkeypatch,
+                                                    table_dtype, counts):
+    """With the kernel gather the seeded jitter is one
+    ``gather_augment_rows`` call; without it the library gather and
+    ``augment_embeddings``. Both give bitwise the unjittered episode with
+    ``augment_embeddings_reference`` applied to its support rows: ids,
+    labels, text and queries unchanged."""
+    _, t_tables = _tables(table_dtype, COUNTS[counts])
+    spec = EpisodeSpec(B, N, K, Q, D, E)
+    cls_noise, img_noise, _ = _jax_noise(jax.random.PRNGKey(1),
+                                         len(COUNTS[counts]),
+                                         max(COUNTS[counts]), 0.0)
+    calls = {"gather_augment_rows": 0, "augment_embeddings": 0,
+             "gather_rows": 0}
+    for name in calls:
+        def spy(*a, _name=name, _fn=getattr(kernels, name), **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(kernels, name, spy)
+    plain = sampler.episode_from_noise(t_tables, spec, cls_noise, img_noise)
+    seed = torch.tensor([2 ** 40 + 3], dtype=torch.int64)
+    want = kernels.augment_embeddings_reference(
+        plain.support_im.reshape(B * N * K, D), seed, 0.1
+    ).reshape(B, N * K, D)
+    for pallas, route in ((True, {"gather_augment_rows": 1,
+                                  "augment_embeddings": 0,
+                                  "gather_rows": 1}),
+                          (False, {"gather_augment_rows": 0,
+                                   "augment_embeddings": 1,
+                                   "gather_rows": 0})):
+        calls.update({k: 0 for k in calls})
+        got = sampler.episode_from_noise(t_tables, spec, cls_noise,
+                                         img_noise, use_pallas_gather=pallas,
+                                         aug_seed=seed, augment_scale=0.1)
+        assert calls == route
+        assert got.support_im.dtype == torch.float32
+        assert torch.equal(got.support_im, want)
+        for name in Episode._fields:
+            if name != "support_im" and getattr(plain, name) is not None:
+                assert torch.equal(getattr(got, name),
+                                   getattr(plain, name)), name
