@@ -17,10 +17,11 @@ fails:
    ``fused_adapt`` (both head forms, B=4, served R=4 and R=1) and
    ``fused_maml_adapt_batched`` within 1e-3 with the same argmax and no
    more than twice as far from the same loop in fp64 as the plain version,
-   ``gather_rows``, ``augment_embeddings`` and ``gather_augment_rows``
-   bitwise (fp32, bf16 and uint8 tables, several widths, seeds and row
-   offsets), and the sampler's ``--augment`` jitter through the fused
-   support gather (support only, queries clean);
+   ``gather_rows``, ``augment_embeddings``, ``gather_augment_rows`` and
+   ``gather_episode_rows`` bitwise (fp32, bf16 and uint8 tables, several
+   widths, seeds and row offsets; the episode at the train and eval
+   shapes, with and without the jitter), and the sampler's ``--augment``
+   jitter through the episode's one launch (support only, queries clean);
 4. drive the serving path (``FewShotClassifier``) at the flagship width
    (FuMI, BERT text 768, image 2048, im_hid (256, 64), 5-way 5-shot,
    100-step adaptation) with seeded random weights, then MAML; check the
@@ -28,10 +29,10 @@ fails:
 5. drive the meta-training path (``make_chunked_train`` on the device
    sampler with the kernel gather; B=4, 32 queries per class, 5
    second-order inner steps, Adam) for FuMI, then MAML, without and with
-   the ``--augment`` jitter (one ``gather_rows`` and one
-   ``gather_augment_rows`` launch a step), FuMI ``--augment`` also on the
-   library gather (the standalone ``augment_embeddings`` kernel), and hold
-   one train step on the card against the same step on the CPU;
+   the ``--augment`` jitter (one ``gather_episode_rows`` launch a step
+   either way), FuMI ``--augment`` also on the library gather (the
+   standalone ``augment_embeddings`` kernel), and hold one train step on
+   the card against the same step on the CPU;
 6. drive the eval path (``make_chunked_eval`` with the fused kernels, 100
    steps, 20 queries per class: FuMI through ``fused_adapt``, MAML
    through ``fused_maml_adapt_batched``) and hold it against the same
@@ -47,10 +48,12 @@ fails:
    engine at 1, 2, 4, 8 and 16 adaptation steps (the crossover that
    ``ops/kernels.py:MIN_FUSED_STEPS`` holds); at the support set's shape
    time ``gather_rows``, ``augment_embeddings``, the two in sequence and
-   ``gather_augment_rows``, each beside its bound; and profile an
-   augmented train step through the fused kernel and through the
-   two-launch composition it replaced, on the same episodes (device time
-   and operations a step);
+   ``gather_augment_rows``; at the train and eval episodes, with and
+   without the jitter, time ``gather_episode_rows`` against the two
+   launches it replaced, one ``index_select`` over the same rows and two;
+   each beside its bound; and profile an augmented train step through the
+   one launch and through the two launches it replaced, on the same
+   episodes (device time and operations a step);
 9. print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
@@ -92,10 +95,12 @@ TRAIN_CHUNK, EVAL_BATCHES = 50, 8
 TABLE_CLASSES, TABLE_IMAGES = 64, 64
 AUG_SCALE = 0.1  # the driver's --augment scale
 KERNEL_NAMES = ("fused_adapt", "gather_rows", "augment_embeddings",
-                "gather_augment_rows", "fused_maml_adapt_batched")
+                "gather_augment_rows", "fused_maml_adapt_batched",
+                "gather_episode_rows")
 # fused_adapt and fused_maml_adapt_batched launch the one kernel of
-# csrc/fused_adapt.cu; augment_embeddings and gather_augment_rows are the
-# two entry points of csrc/augment_embeddings.cu
+# csrc/fused_adapt.cu; gather_rows, gather_augment_rows and
+# gather_episode_rows are the three entry points of csrc/gather_rows.cu's
+# one kernel body; augment_embeddings is csrc/augment_embeddings.cu
 SOURCES = ("fused_adapt", "gather_rows", "augment_embeddings")
 CROSSOVER_STEPS = (1, 2, 4, 8, 16)
 # the driver phase: --epochs 20 --eval_freq 10 --num_ep_test 32 at B=4 runs
@@ -290,6 +295,55 @@ def check_gather_augment(table, dev) -> float:
     return max_err
 
 
+def check_episode(table, dev) -> float:
+    """``gather_episode_rows`` against its plain version, bitwise, on the
+    flagship table and bf16 and uint8 tables of its shape, at the train
+    (5+32 a class) and eval (5+20) episodes, without and with the jitter
+    (two seeds, which must give different support rows and the same
+    queries). Returns the largest |diff|."""
+    import torch
+    from fumi_tpu_torch.ops import kernels
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tables = {"fp32": table, "bf16": table.to(torch.bfloat16),
+              "uint8": torch.randint(0, 256, tuple(table.shape),
+                                     generator=gen, dtype=torch.uint8,
+                                     device=dev)}
+    max_err = 0.0
+    for label, t in tables.items():
+        for use, q in (("train", TRAIN_Q), ("eval", EVAL_Q)):
+            rows = torch.randint(0, t.shape[0], (B, WAYS, SHOTS + q),
+                                 generator=gen, dtype=torch.int32,
+                                 device=dev)
+            outs = []
+            for seed in (None, 1, 2 ** 62 - 3):
+                s = None if seed is None else torch.tensor(
+                    [seed], dtype=torch.int64, device=dev)
+                scale = 0.0 if seed is None else AUG_SCALE
+                got = kernels.gather_episode_rows(t, rows, SHOTS, s, scale)
+                want = kernels.gather_episode_rows_reference(t, rows, SHOTS,
+                                                             s, scale)
+                torch.cuda.synchronize()
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    fail(f"gather_episode_rows differs from its plain "
+                         f"version ({label}, {use} episode, seed {seed}): "
+                         f"max|diff| {err:.3e}")
+                max_err = max(max_err, err)
+                outs.append(got)
+            if (torch.equal(outs[1][0], outs[2][0])
+                    or torch.equal(outs[0][0], outs[1][0])
+                    or not torch.equal(outs[0][1], outs[1][1])):
+                fail(f"gather_episode_rows: the jitter missed the support "
+                     f"rows or touched the queries ({label}, {use})")
+    print(f"kernel gather_episode_rows [{', '.join(tables)}; "
+          f"{table.shape[0]}x{table.shape[1]}] vs plain: bitwise equal at "
+          f"the train ({B}x{WAYS}x{SHOTS}+{TRAIN_Q}) and eval "
+          f"({B}x{WAYS}x{SHOTS}+{EVAL_Q}) episodes, without the jitter and "
+          f"for two seeds, which differ on the support rows only")
+    return max_err
+
+
 def check_augment(dev) -> float:
     """``augment_embeddings`` against its plain version, bitwise, at the
     flagship support set (B*N*K rows), the flagship query count and an odd
@@ -327,10 +381,10 @@ def check_augment(dev) -> float:
 
 
 def check_sampler_augment(table, ids_np, cset, dev) -> None:
-    """The sampler's --augment jitter, through the fused support gather
-    (one ``gather_augment_rows`` launch, no standalone jitter): the same
-    episode identity and query embeddings as without it, the support
-    embeddings jittered within the scale."""
+    """The sampler's --augment jitter, through the episode's one launch
+    (``gather_episode_rows``; no other gather and no standalone jitter):
+    the same episode identity and query embeddings as without it, the
+    support embeddings jittered within the scale."""
     import torch
     from fumi_tpu_torch.core.episode import EpisodeSpec
     from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler
@@ -341,21 +395,22 @@ def check_sampler_augment(table, ids_np, cset, dev) -> None:
                                 device=dev)
            for scale in (0.0, AUG_SCALE)]
     plain = eps[0].sample(eps[0].generator(7))
-    before = (kernels.gather_augment_rows.launches,
-              kernels.augment_embeddings.launches)
+    names = ("gather_episode_rows", "gather_rows", "gather_augment_rows",
+             "augment_embeddings")
+    before = [getattr(kernels, n).launches for n in names]
     aug = eps[1].sample(eps[1].generator(7))
-    route = (kernels.gather_augment_rows.launches - before[0],
-             kernels.augment_embeddings.launches - before[1])
+    route = tuple(getattr(kernels, n).launches - b
+                  for n, b in zip(names, before))
     ratio = (aug.support_im / plain.support_im).double()
     ok = (torch.equal(plain.support_ids, aug.support_ids)
           and torch.equal(plain.query_im, aug.query_im)
           and not torch.equal(plain.support_im, aug.support_im)
           and float((ratio - 1).abs().max()) <= AUG_SCALE + 1e-6
-          and route == (1, 0))
+          and route == (1, 0, 0, 0))
     print(f"sampler --augment: support jittered (|out/x - 1| <= "
-          f"{float((ratio - 1).abs().max()):.4f}) by {route[0]} "
-          f"gather_augment_rows and {route[1]} augment_embeddings launches, "
-          f"queries and ids as without it: {ok}")
+          f"{float((ratio - 1).abs().max()):.4f}), queries and ids as "
+          f"without it, launches "
+          f"{', '.join(f'{n} {c}' for n, c in zip(names, route))}: {ok}")
     if not ok:
         fail("the sampler's augmentation touched the queries or missed the "
              "support set")
@@ -608,11 +663,12 @@ def driver_runs(root: str, reset_counts, read_counts, by_path) -> dict:
                     for n in ("ckpt", "best", "ckpt.meta.json"))
         finite = all(np.isfinite(out[f"test/{k}"])
                      for k in ("loss", "acc", "acc_ci95", "loss_ci95"))
-        # an augmented train step: the query gather and the fused support
-        # pass; an eval meta-batch: both gathers
-        expect = {"augment_embeddings": 0,
-                  "gather_augment_rows": DRIVER_TRAIN_STEPS,
-                  "gather_rows": DRIVER_TRAIN_STEPS + 2 * DRIVER_EVAL_BATCHES,
+        # an augmented train step and an eval meta-batch: one launch each
+        # for the episode's rows
+        expect = {"augment_embeddings": 0, "gather_augment_rows": 0,
+                  "gather_rows": 0,
+                  "gather_episode_rows": DRIVER_TRAIN_STEPS
+                  + DRIVER_EVAL_BATCHES,
                   "fused_adapt": DRIVER_EVAL_BATCHES if model == "fumi"
                   else 0,
                   "fused_maml_adapt_batched": DRIVER_EVAL_BATCHES
@@ -639,10 +695,12 @@ def driver_runs(root: str, reset_counts, read_counts, by_path) -> dict:
                   f"{diff:.3e} (tolerance 1e-6); launches {counts}")
             if set(again) != set(out) or diff > 1e-6:
                 fail("driver fumi --evaluate does not reproduce the test")
-            if counts["fused_adapt"] != DRIVER_TEST_BATCHES or \
-                    counts["augment_embeddings"] != 0 or \
-                    counts["gather_augment_rows"] != 0:
-                fail(f"driver fumi --evaluate: launches {counts}")
+            expect = {name: 0 for name in KERNEL_NAMES}
+            expect.update(fused_adapt=DRIVER_TEST_BATCHES,
+                          gather_episode_rows=DRIVER_TEST_BATCHES)
+            if counts != expect:
+                fail(f"driver fumi --evaluate: launches {counts}, expected "
+                     f"{expect}")
     return walls
 
 
@@ -762,6 +820,7 @@ def main() -> int:
     table = on_card(table_np)
     gather_err = check_gather(table, dev)
     fused_aug_err = check_gather_augment(table, dev)
+    episode_err = check_episode(table, dev)
     check_sampler_augment(table, ids_np, cset, dev)
 
     # ---- 4. the serving path at full width ------------------------------
@@ -864,9 +923,11 @@ def main() -> int:
               f"metrics {sorted(ms)}")
         if not bool(torch.isfinite(losses).all()) or moved == 0.0:
             fail(f"training {model}: non-finite losses or params unmoved")
-        if counts["gather_rows"] != 2 * 2 * TRAIN_CHUNK:
-            fail(f"training {model}: gather_rows launched "
-                 f"{counts['gather_rows']} times, not 2 per step")
+        # a step: one launch for the episode's rows
+        expect = {name: 0 for name in KERNEL_NAMES}
+        expect["gather_episode_rows"] = 2 * TRAIN_CHUNK
+        if counts != expect:
+            fail(f"training {model}: launches {counts}, expected {expect}")
         trained[model] = p
         train_state[model] = (run, p, s, gen, seconds / TRAIN_CHUNK)
 
@@ -884,10 +945,9 @@ def main() -> int:
               f"loss {float(ms['loss'][-1]):.4f}; {seconds:.3f} s = "
               f"{train_eps[f'{model} --augment']:.1f} episodes/s; launches "
               f"{counts}")
-        # a step: the query gather and the fused support pass
+        # a step: one launch for the episode's rows, jitter included
         expect = {name: 0 for name in KERNEL_NAMES}
-        expect.update(gather_rows=TRAIN_CHUNK,
-                      gather_augment_rows=TRAIN_CHUNK)
+        expect["gather_episode_rows"] = TRAIN_CHUNK
         if not bool(torch.isfinite(ms["loss"]).all()) or counts != expect:
             fail(f"training {model} --augment: non-finite losses or "
                  f"launches {counts}, expected {expect}")
@@ -952,7 +1012,7 @@ def main() -> int:
             kernel = "fused_adapt" if model == "fumi" else \
                 "fused_maml_adapt_batched"
             expect = {name: 0 for name in KERNEL_NAMES}
-            expect["gather_rows"] = 2 * EVAL_BATCHES
+            expect["gather_episode_rows"] = EVAL_BATCHES
             expect[kernel] = EVAL_BATCHES if fused else 0
             if counts != expect:
                 fail(f"eval {model} through the {path}: launches {counts}, "
@@ -1120,9 +1180,9 @@ def main() -> int:
     # the support set of a training step (B*S = 100 rows of the 2048-wide
     # fp32 table): 100 index sets and seeds (as 100 episodes draw them),
     # each route in one CUDA graph of 100 calls, in turns (forward, then
-    # backward): the gather alone, the standalone jitter on a gathered
-    # block, the two in sequence as the sampler ran them before, and the
-    # fused pass that replaces them
+    # backward, twice): the gather alone, the standalone jitter on a
+    # gathered block, the two in sequence as PR 4's sampler ran them, and
+    # the jittered gather that replaced them in PR 5
     m_s = B * S
     sgen = torch.Generator(device=dev).manual_seed(6)
     s_idx = [torch.randint(0, table.shape[0], (m_s,), generator=sgen,
@@ -1159,7 +1219,8 @@ def main() -> int:
             lambda i=i, s_=s_: kernels.gather_augment_rows_reference(
                 table, i, s_, AUG_SCALE) for i, s_ in pairs]}
     s_times = {}
-    for turn in list(s_calls) + list(reversed(s_calls)):
+    order = list(s_calls) + list(reversed(s_calls))
+    for turn in order + order:
         s_times.setdefault(turn, []).append(graph_ms(s_calls[turn]))
     s_ms = {k: statistics.median(v) for k, v in s_times.items()}
     gs_bytes = gather_bytes(m_s, D * table.element_size())
@@ -1202,6 +1263,79 @@ def main() -> int:
     print(f"for comparison: torch.rand + multiply on the same {m_s}x{D} "
           f"fp32, one call from the host, CUDA events: {rand_mul_ms * 1e3:.2f}"
           f" us (other random bits; not a library call of this function)")
+    # whole episodes (B=4 tasks of 5 ways, 5 shots and 32 or 20 queries a
+    # class), 100 index tensors and seeds (as 100 episodes draw them), each
+    # route in one CUDA graph of 100 calls, in turns (forward, then
+    # backward, twice): the one launch, its plain version, the two launches
+    # of PR 5's sampler (the support rows by gather_augment_rows, or by
+    # gather_rows where there is no jitter, then the query rows by
+    # gather_rows; fp32 needs no widening pass; the indices split before
+    # the graph, as that sampler split them for the episode's ids too), one
+    # index_select over the episode's rows and one for each segment
+    egen = torch.Generator(device=dev).manual_seed(10)
+    e_seeds = [torch.randint(0, 2 ** 62, (1,), generator=egen,
+                             dtype=torch.int64, device=dev)
+               for _ in range(100)]
+
+    def pr5_route(t, s_idx, q_idx, seed):
+        return (kernels.gather_rows(t, s_idx) if seed is None else
+                kernels.gather_augment_rows(t, s_idx, seed, AUG_SCALE),
+                kernels.gather_rows(t, q_idx))
+
+    e_ms, e_turns, e_bounds = {}, {}, {}
+    for use, q in (("train", TRAIN_Q), ("eval", EVAL_Q)):
+        sets = [torch.randint(0, table.shape[0], (B, WAYS, SHOTS + q),
+                              generator=egen, dtype=torch.int32, device=dev)
+                for _ in range(100)]
+        flat = [r.reshape(-1).long() for r in sets]
+        split32 = [(r[..., :SHOTS].reshape(-1).contiguous(),
+                    r[..., SHOTS:].reshape(-1).contiguous()) for r in sets]
+        split = [(a.long(), b.long()) for a, b in split32]
+        for jit in (False, True):
+            pairs = [(r, e_seeds[k] if jit else None)
+                     for k, r in enumerate(sets)]
+            scale = AUG_SCALE if jit else 0.0
+            calls = {
+                "gather_episode_rows": [
+                    lambda r=r, s_=s_, c=scale: kernels.gather_episode_rows(
+                        table, r, SHOTS, s_, c) for r, s_ in pairs],
+                "plain": [
+                    lambda r=r, s_=s_, c=scale:
+                    kernels.gather_episode_rows_reference(
+                        table, r, SHOTS, s_, c) for r, s_ in pairs],
+                "PR 5 route (two launches)": [
+                    lambda a=a, b=b, s_=s_: pr5_route(table, a, b, s_)
+                    for (a, b), (_, s_) in zip(split32, pairs)],
+                "index_select": [
+                    lambda i=i: torch.index_select(table, 0, i)
+                    for i in flat],
+                "two index_selects": [
+                    lambda a=a, b=b: (torch.index_select(table, 0, a),
+                                      torch.index_select(table, 0, b))
+                    for a, b in split]}
+            label = f"{use}{' jittered' if jit else ''}"
+            turns = {}
+            order = list(calls) + list(reversed(calls))
+            for name in order + order:
+                turns.setdefault(name, []).append(graph_ms(calls[name]))
+            e_turns[label] = turns
+            e_ms[label] = {k: statistics.median(v) for k, v in turns.items()}
+            nbytes = gather_bytes(B * WAYS * (SHOTS + q),
+                                  D * table.element_size()) + (8 if jit
+                                                               else 0)
+            e_bounds[label] = 1e3 * nbytes / PEAK_BYTES_PER_S
+            for name, t in turns.items():
+                print(f"episode {label} (M={B * WAYS * SHOTS}+{B * WAYS * q}"
+                      f" rows of D={D} fp32), {name} (device time, CUDA graph "
+                      f"of 100 calls): {e_ms[label][name] * 1e3:.2f} us "
+                      f"(turns {', '.join(f'{x * 1e3:.2f}' for x in t)}), "
+                      f"bound {e_bounds[label] * 1e3:.3f} us (bytes: "
+                      f"{nbytes / 1e6:.3f} MB at 3.35 TB/s)")
+    e_host_ms = cuda_ms(lambda: kernels.gather_episode_rows(
+        table, sets[0], SHOTS), 10, 50)
+    print(f"gather_episode_rows eval episode: one call from the host with "
+          f"its launch, CUDA events: {e_host_ms * 1e3:.2f} us")
+
     # how busy the card is in a train step: device time from a profiler
     # trace of 5 steps against the wall time of a step in the timed chunk
     prof_steps = 5
@@ -1219,39 +1353,46 @@ def main() -> int:
               f"busy {100 * dev_ms / prof_steps / (step_s * 1e3):.1f}% of "
               "the step")
 
-    # an augmented train step before and after the fused pass, on the same
-    # episodes (one generator seed; both routes give bitwise the same
-    # support set): through gather_augment_rows, and with it swapped for
-    # the two launches it replaced, in turns. Per route a profile of 5
-    # steps (device time and operations), then a timed chunk (episodes/s)
-    fused_fn = kernels.gather_augment_rows
+    # an augmented train step before and after the episode's one launch,
+    # on the same episodes (one generator seed; both routes give bitwise
+    # the same episode): through gather_episode_rows, and with it swapped
+    # for PR 5's two launches, in turns. Per route a profile of 5 steps
+    # (device time and operations), then a timed chunk (episodes/s)
+    one_launch = kernels.gather_episode_rows
 
-    def two_launches(t, idx, seed, scale=0.1, row_offset=0):
-        return kernels.augment_embeddings(
-            kernels.pixels_to_float(kernels.gather_rows(t, idx)), seed,
-            scale, row_offset)
+    def two_launches(t, rows, num_shots, seed=None, scale=0.0):
+        s_idx = rows[..., :num_shots].reshape(-1).contiguous()
+        q_idx = rows[..., num_shots:].reshape(-1).contiguous()
+        b, n = rows.shape[:2]
+        support = kernels.gather_augment_rows(t, s_idx, seed, scale)
+        query = kernels.pixels_to_float(kernels.gather_rows(t, q_idx))
+        return (support.reshape(b, n * num_shots, -1),
+                query.reshape(b, n * (rows.shape[2] - num_shots), -1))
 
     def through(route, fn):
-        kernels.gather_augment_rows = fused_fn if route == "fused" else \
-            two_launches
+        kernels.gather_episode_rows = one_launch if route == "one launch" \
+            else two_launches
         try:
             return fn()
         finally:
-            kernels.gather_augment_rows = fused_fn
-    names = ("gather_augment_kernel", "augment_kernel", "gather_rows_kernel")
+            kernels.gather_episode_rows = one_launch
+    # every launch of csrc/gather_rows.cu runs an instance of its
+    # gather_kernel (the prefix keeps PyTorch's vectorized_gather_kernel
+    # out)
+    names = ("::gather_kernel<", "::augment_kernel")
     for model, (aug_run, p, s) in aug_state.items():
         traces, route_eps = {}, {}
-        for route in ("fused", "two launches", "two launches", "fused"):
+        for route in ("one launch", "two launches", "two launches",
+                      "one launch"):
             reset_counts()
             traced = through(route, lambda: device_profile(
                 lambda: aug_run(p, s, aug_smp.generator(4), prof_steps),
                 names))
             counts = read_counts()
-            want = ({"gather_rows": prof_steps,
-                     "gather_augment_rows": prof_steps}
-                    if route == "fused" else
-                    {"gather_rows": 2 * prof_steps,
-                     "augment_embeddings": prof_steps})
+            want = ({"gather_episode_rows": prof_steps}
+                    if route == "one launch" else
+                    {"gather_rows": prof_steps,
+                     "gather_augment_rows": prof_steps})
             if any(counts[k] != want.get(k, 0) for k in counts):
                 fail(f"profile of train {model} --augment ({route}): "
                      f"launches {counts}, expected {want}")
@@ -1262,7 +1403,7 @@ def main() -> int:
             route_eps.setdefault(route, []).append(TRAIN_CHUNK * B / seconds)
         for route, eps in route_eps.items():
             label = (f"train {model} --augment through the {route} "
-                     f"({'after' if route == 'fused' else 'before'})")
+                     f"({'after' if route == 'one launch' else 'before'})")
             print(f"{label}: {', '.join(f'{e:.1f}' for e in eps)} "
                   f"episodes/s (a chunk of {TRAIN_CHUNK} steps, 2 turns)")
             runs = traces.get(route)
@@ -1280,7 +1421,7 @@ def main() -> int:
                   f"{', '.join(f'{t[0]:.4f}' for t in per_step)} ms in "
                   f"{', '.join(f'{t[1]:.0f}' for t in per_step)} device "
                   f"operations (torch.profiler, {prof_steps} steps, "
-                  f"{len(runs)} turns); support-assembly kernels a step: "
+                  f"{len(runs)} turns); episode-assembly kernels a step: "
                   f"{kern}")
     for model in trained:
         fused = "fused_adapt" if model == "fumi" else \
@@ -1332,7 +1473,7 @@ def main() -> int:
                              for p, c in by_path.items()},
     }, {
         "name": "gather_augment_rows", "route": "cuda",
-        "source": "fumi_tpu_torch/csrc/augment_embeddings.cu",
+        "source": "fumi_tpu_torch/csrc/gather_rows.cu",
         "replaces": "fumi_tpu/ops/pallas_kernels.py:53",
         "launches": launches["gather_augment_rows"],
         "max_abs_err": fused_aug_err, "ms": ga_ms, "plain_ms": ga_plain_ms,
@@ -1348,6 +1489,27 @@ def main() -> int:
         "max_abs_err": batched_err, "ms": b_ms, "plain_ms": b_plain_ms,
         "bound_ms": b_bound_ms, "bound_by": bound_by, "library_ms": None,
         "launches_by_path": {p: c["fused_maml_adapt_batched"]
+                             for p, c in by_path.items()},
+    }, {
+        # the train episode without the jitter; the eval episode and the
+        # jittered ones under their own keys
+        "name": "gather_episode_rows", "route": "cuda",
+        "source": "fumi_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "fumi_tpu/ops/pallas_kernels.py:288",
+        "launches": launches["gather_episode_rows"],
+        "max_abs_err": episode_err,
+        "ms": e_ms["train"]["gather_episode_rows"],
+        "plain_ms": e_ms["train"]["plain"], "bound_ms": e_bounds["train"],
+        "bound_by": "bytes", "library_ms": e_ms["train"]["index_select"],
+        **{f"{key}_{label.replace(' ', '_')}": e_ms[label][name]
+           for label in e_ms for key, name in (
+               ("ms", "gather_episode_rows"), ("plain_ms", "plain"),
+               ("two_launch_ms", "PR 5 route (two launches)"),
+               ("library_ms", "index_select"),
+               ("two_library_ms", "two index_selects"))},
+        **{f"bound_ms_{label.replace(' ', '_')}": b
+           for label, b in e_bounds.items()},
+        "launches_by_path": {p: c["gather_episode_rows"]
                              for p, c in by_path.items()},
     }]}))
     print(f"card: {card}")

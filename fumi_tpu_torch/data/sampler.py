@@ -7,20 +7,20 @@ transfer: top-N of uniform noise picks N distinct classes per task, and a
 per-class argsort of masked uniform noise picks K+Q distinct images per
 class (sampling without replacement as one vectorised op), then the rows
 are gathered. With ``use_pallas_gather`` (``--tpu_pallas_gather``) the
-gathers of image rows run ``ops/kernels.py:gather_rows``, the hand-written
-CUDA kernel; otherwise they are plain indexing, as the JAX package uses
-XLA's gather when the flag is off.
+episode's image rows, support and query, are gathered and widened in one
+launch of ``ops/kernels.py:gather_episode_rows``, the hand-written CUDA
+kernel; otherwise they are plain indexing, as the JAX package uses XLA's
+gather when the flag is off.
 
 :func:`sample_episode` draws its noise from a ``torch.Generator`` on the
 table's device, then calls :func:`episode_from_noise`, a pure function of
 the noise, so the tests can feed it the JAX package's own noise. With
 ``augment_scale > 0`` (``--augment``) the support embeddings are jittered
 from a one-element seed the generator draws on the device, so no value
-crosses to the host: with the kernel gather by
-``ops/kernels.py:gather_augment_rows``, one CUDA kernel that gathers,
-widens and jitters the support rows in one pass; without it by the
-library gather followed by ``ops/kernels.py:augment_embeddings``, the
-standalone CUDA jitter. The two give bitwise the same episode.
+crosses to the host: with the kernel gather as the epilogue of the
+support rows in that one launch; without it by the library gather
+followed by ``ops/kernels.py:augment_embeddings``, the standalone CUDA
+jitter. The two give bitwise the same episode.
 ``episode_from_noise(aug_noise=...)`` takes the jitter as noise instead,
 the form the tests feed JAX's noise through.
 
@@ -41,7 +41,7 @@ from fumi_tpu_torch.core.episode import Episode, EpisodeSpec, \
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.data.class_set import ClassSet
 from fumi_tpu_torch.ops import kernels
-# the widening the fused support kernel applies, kept beside it
+# the widening the episode's gather kernel applies, kept beside it
 from fumi_tpu_torch.ops.kernels import pixels_to_float
 
 
@@ -52,15 +52,6 @@ class SamplerTables(NamedTuple):
     class_rows: torch.Tensor  # (C, max_count) int32
     class_counts: torch.Tensor  # (C,) int32
     text_features: torch.Tensor  # (C, E)
-
-
-def _gather_image_rows(table: torch.Tensor, rows: torch.Tensor,
-                       use_pallas_gather: bool) -> torch.Tensor:
-    """``table[rows]`` for (B, M) int32 rows -> (B, M, D)."""
-    if use_pallas_gather and table.dim() == 2:
-        flat = kernels.gather_rows(table, rows.reshape(-1).contiguous())
-        return flat.reshape(rows.shape + (table.shape[1],))
-    return table[rows.long()]
 
 
 def episode_from_noise(tables: SamplerTables, spec: EpisodeSpec,
@@ -76,11 +67,12 @@ def episode_from_noise(tables: SamplerTables, spec: EpisodeSpec,
     queries stay clean) either by ``aug_noise`` (B, N*K, D), uniform in
     [-s, s), as ``x * (1 + aug_noise)``, or by the Philox jitter keyed by
     ``aug_seed`` (a one-element int64 tensor) at ``augment_scale``; or not
-    at all when both are None. With ``use_pallas_gather`` the seeded
-    jitter is the epilogue of the support gather (``gather_augment_rows``,
-    one launch); without it the library gather is followed by the
-    standalone ``augment_embeddings`` kernel. The flag picks the route,
-    and both give bitwise the same support set."""
+    at all when both are None. With ``use_pallas_gather`` one
+    ``gather_episode_rows`` launch gathers and widens the support and
+    query rows, the seeded jitter as the epilogue of the support rows;
+    without it the library gather is followed by the standalone
+    ``augment_embeddings`` kernel. The flag picks the route, and both
+    give bitwise the same episode."""
     if aug_noise is not None and aug_seed is not None:
         raise ValueError("episode_from_noise: aug_noise or aug_seed, not both")
     B, N, K, Q = (spec.batch_size, spec.num_ways, spec.num_shots,
@@ -111,21 +103,20 @@ def episode_from_noise(tables: SamplerTables, spec: EpisodeSpec,
         raise NotImplementedError(
             "raw-image augmentation is not ported yet (ROADMAP.md "
             "Queue 1, item 7: raw-image backbones)")
-    if jitter and aug_noise is None and use_pallas_gather:
-        support_im = kernels.gather_augment_rows(
-            table, s_rows.reshape(-1).contiguous(), aug_seed,
-            augment_scale).reshape(B, N * K, table.shape[1])
+    seeded = jitter and aug_noise is None
+    if use_pallas_gather and table.dim() == 2:
+        support_im, query_im = kernels.gather_episode_rows(
+            table, rows, K, aug_seed if seeded else None,
+            augment_scale if seeded else 0.0)
     else:
-        support_im = pixels_to_float(_gather_image_rows(
-            table, s_rows, use_pallas_gather))
-        if aug_noise is not None:
-            support_im = support_im * (1.0 + aug_noise)
-        elif jitter:
+        support_im = pixels_to_float(table[s_rows.long()])
+        query_im = pixels_to_float(table[q_rows.long()])
+        if seeded:
             flat = kernels.augment_embeddings(
                 support_im.reshape(B * N * K, -1), aug_seed, augment_scale)
             support_im = flat.reshape(support_im.shape)
-    query_im = pixels_to_float(_gather_image_rows(table, q_rows,
-                                                  use_pallas_gather))
+    if aug_noise is not None:
+        support_im = support_im * (1.0 + aug_noise)
 
     # per-class text repeated per shot, class-major like the targets
     text_cls = tables.text_features[class_idx]  # (B, N, E)

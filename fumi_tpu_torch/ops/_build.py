@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, ``build/lib<name>-<hash>.so`` inside the package (the
 directory is in ``.gitignore``), and loads with ``ctypes``. The build runs
-at first use; the file name carries a hash of the source and the flags, so
-an edited source builds anew and an unchanged one loads at once. Several
+at first use; the file name carries a hash of the source, the headers
+beside it and the flags, so an edited source or header builds anew and an
+unchanged one loads at once. Several
 sources build in parallel, one ``nvcc`` each (:func:`build_all`).
 """
 
@@ -41,8 +42,13 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path: a hash of the source, of every header beside it
+    (``csrc/*.cuh``, which a source may include) and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -52,11 +58,11 @@ def _start(name: str):
     path = _lib_path(name)
     if os.path.exists(path):
         return None
+    nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC, name + ".cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, path

@@ -12,21 +12,27 @@ The counterparts of ``fumi_tpu/ops/pallas_kernels.py``:
 - :func:`fused_maml_adapt_batched`: the same function for MAML's B tasks
   that share one head, through the same kernel with the head at a task
   stride of 0. Plain version: :func:`fused_maml_adapt_batched_reference`.
-- :func:`gather_rows`: the row gather ``table[idx]`` that assembles each
-  episode from the device-resident embedding table
-  (``csrc/gather_rows.cu``). Plain version: :func:`gather_rows_reference`.
+- :func:`gather_rows`: the row gather ``table[idx]`` of the TPU kernel,
+  any dtype, byte for byte (``csrc/gather_rows.cu``). Plain version:
+  :func:`gather_rows_reference`.
 - :func:`augment_embeddings`: the ``--augment`` jitter ``x * (1 +
   U[-scale, scale))`` of the support embeddings, Philox4x32-10 bits keyed
   by a seed on the device and counted by position
   (``csrc/augment_embeddings.cu``). Plain version:
   :func:`augment_embeddings_reference`, the same bits in int64 arithmetic,
   bitwise equal.
-- :func:`gather_augment_rows`: the same jitter as the epilogue of the
-  support-row gather, widening the table's rows to fp32 on the way
-  (``csrc/augment_embeddings.cu``'s second entry point), one launch and
-  the gather's bytes. Plain version: :func:`gather_augment_rows_reference`,
+- :func:`gather_augment_rows`: the same jitter as the epilogue of a
+  row gather, widening the table's rows to fp32 on the way (a second entry
+  point of ``csrc/gather_rows.cu``), one launch and the gather's bytes.
+  Plain version: :func:`gather_augment_rows_reference`,
   ``augment_embeddings_reference(pixels_to_float(gather_rows_reference(
   ...)))``, bitwise equal.
+- :func:`gather_episode_rows`: a whole episode in one launch (the third
+  entry point of ``csrc/gather_rows.cu``): the support and query rows of
+  the sampler's (B, N, K+Q) index tensor, widened, the support rows
+  jittered where a seed is given. Plain version:
+  :func:`gather_episode_rows_reference`, the same composition on each
+  segment, bitwise equal. The sampler's kernel-gather route.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version. The design and bound of each kernel are in its
@@ -38,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -451,11 +457,25 @@ def gather_rows_reference(table: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _gather_library():
+    """``csrc/gather_rows.cu``: one kernel body behind three entry points
+    (the byte copy, the jittered rows, the episode)."""
     from fumi_tpu_torch.ops import _build
-    lib = _build.load("gather_rows")
-    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    return bind_gather(_build.load("gather_rows"))
+
+
+def bind_gather(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a library built from
+    ``csrc/gather_rows.cu`` (or a copy of it)."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gather_rows_launch.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
-    lib.gather_rows_launch.restype = ctypes.c_int
+    lib.gather_augment_launch.argtypes = [ptr, i32, ptr, ptr, ptr, i64, i64,
+                                          i32, i64, ctypes.c_float, ptr]
+    lib.gather_episode_launch.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i64,
+                                          i64, i32, i32, i32, ctypes.c_float,
+                                          ptr]
+    for fn in (lib.gather_rows_launch, lib.gather_augment_launch,
+               lib.gather_episode_launch):
+        fn.restype = i32
     return lib
 
 
@@ -479,8 +499,9 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     ``table`` is 2-D and contiguous, of any dtype (the kernel copies row
     bytes); ``idx`` is 1-D int32 on the same device. A CUDA table launches
-    ``csrc/gather_rows.cu`` (an index outside ``[0, R)`` raises at the next
-    synchronisation); a CPU table runs :func:`gather_rows_reference`."""
+    ``csrc/gather_rows.cu``'s ``gather_rows_launch`` (an index outside
+    ``[0, R)`` raises at the next synchronisation); a CPU table runs
+    :func:`gather_rows_reference`."""
     _check_gather("gather_rows", table, idx)
     dev = table.device
     if dev.type == "cpu":
@@ -597,10 +618,6 @@ def _augment_library():
     lib.augment_embeddings_launch.argtypes = [ptr, ptr, ptr, i64, ctypes.c_int,
                                               i64, ctypes.c_float, ptr]
     lib.augment_embeddings_launch.restype = ctypes.c_int
-    lib.gather_augment_launch.argtypes = [ptr, ctypes.c_int, ptr, ptr, ptr,
-                                          i64, i64, ctypes.c_int, i64,
-                                          ctypes.c_float, ptr]
-    lib.gather_augment_launch.restype = ctypes.c_int
     return lib
 
 
@@ -638,7 +655,7 @@ augment_embeddings.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Support-row gather with the jitter as its epilogue
+# Row gathers that widen, with the jitter as their epilogue
 # ---------------------------------------------------------------------------
 
 def pixels_to_float(im: torch.Tensor) -> torch.Tensor:
@@ -652,8 +669,7 @@ def pixels_to_float(im: torch.Tensor) -> torch.Tensor:
     return im
 
 
-# the table dtypes the kernel widens, by csrc/augment_embeddings.cu's
-# TableKind
+# the table dtypes the kernel widens, by csrc/gather_rows.cu's TableKind
 _TABLE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 
@@ -684,7 +700,7 @@ def gather_augment_rows(table: torch.Tensor, idx: torch.Tensor,
     scale, row_offset)`` in one pass: (M, D) fp32 from a contiguous (R, D)
     float32, bfloat16 or uint8 table, 1-D int32 ``idx`` and a one-element
     int64 ``seed``, all on one device. Output row m is jittered as row
-    ``row_offset + m``. A CUDA table launches ``csrc/augment_embeddings.cu``'s
+    ``row_offset + m``. A CUDA table launches ``csrc/gather_rows.cu``'s
     ``gather_augment_launch`` (an index outside ``[0, R)`` raises at the
     next synchronisation); a CPU table runs
     :func:`gather_augment_rows_reference`."""
@@ -699,7 +715,7 @@ def gather_augment_rows(table: torch.Tensor, idx: torch.Tensor,
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _augment_library().gather_augment_launch(
+    err = _gather_library().gather_augment_launch(
         table.data_ptr(), _TABLE_KINDS[table.dtype], idx.data_ptr(),
         seed.data_ptr(), out.data_ptr(), R, M, D, int(row_offset),
         2.0 * scale, stream)
@@ -712,3 +728,89 @@ def gather_augment_rows(table: torch.Tensor, idx: torch.Tensor,
 
 
 gather_augment_rows.launches = 0
+
+
+def _check_episode(table, rows, num_shots, seed, scale) -> None:
+    who = "gather_episode_rows"
+    if rows.dtype != torch.int32 or rows.dim() != 3:
+        raise TypeError(f"{who} takes (B, N, K+Q) int32 rows, got "
+                        f"{rows.dtype} of shape {tuple(rows.shape)}")
+    _check_gather(who, table, rows.reshape(-1))
+    if table.dtype not in _TABLE_KINDS:
+        raise TypeError(f"{who} takes float32, bfloat16 or uint8 tables, "
+                        f"got {table.dtype}")
+    if not 0 <= num_shots <= rows.shape[2]:
+        raise ValueError(f"{who}: num_shots {num_shots} outside [0, "
+                         f"{rows.shape[2]}] (rows of shape "
+                         f"{tuple(rows.shape)})")
+    if seed is not None:
+        _check_seed(who, seed, "table", table.device)
+    elif scale != 0.0:
+        raise ValueError(f"{who}: scale {scale} without a seed")
+
+
+def gather_episode_rows_reference(table: torch.Tensor, rows: torch.Tensor,
+                                  num_shots: int,
+                                  seed: Optional[torch.Tensor] = None,
+                                  scale: float = 0.0
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel, bitwise: the support and query rows
+    apart, each gathered and widened, and the support rows jittered."""
+    _check_episode(table, rows, num_shots, seed, scale)
+    B, N, P = rows.shape
+    K, D = num_shots, table.shape[1]
+    support = pixels_to_float(gather_rows_reference(
+        table, rows[..., :K].reshape(-1)))
+    if seed is not None:
+        support = augment_embeddings_reference(support, seed, scale)
+    query = pixels_to_float(gather_rows_reference(
+        table, rows[..., K:].reshape(-1)))
+    return (support.reshape(B, N * K, D),
+            query.reshape(B, N * (P - K), D))
+
+
+def gather_episode_rows(table: torch.Tensor, rows: torch.Tensor,
+                        num_shots: int, seed: Optional[torch.Tensor] = None,
+                        scale: float = 0.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An episode's image rows in one pass: ``(support (B, N·K, D), query
+    (B, N·Q, D))`` fp32 from a contiguous (R, D) float32, bfloat16 or uint8
+    table and the sampler's (B, N, K+Q) int32 ``rows``, K = ``num_shots``.
+    Of class n's K+Q indices the first K make support rows n·K + j, the
+    rest query rows n·Q + j − K; both are widened as
+    :func:`pixels_to_float` does. With a one-element int64 ``seed`` the
+    support rows are jittered at ``scale``, support row m of the flattened
+    (B·N·K, D) block as ``gather_augment_rows`` jitters row m; the queries
+    never are. A CUDA table launches ``csrc/gather_rows.cu``'s
+    ``gather_episode_launch`` (an index outside ``[0, R)`` raises at the
+    next synchronisation); a CPU table runs
+    :func:`gather_episode_rows_reference`."""
+    _check_episode(table, rows, num_shots, seed, scale)
+    dev = table.device
+    if dev.type == "cpu":
+        return gather_episode_rows_reference(table, rows, num_shots, seed,
+                                             scale)
+    rows = rows.contiguous()
+    B, N, P = rows.shape
+    (R, D), K = table.shape, num_shots
+    support = torch.empty((B, N * K, D), dtype=torch.float32, device=dev)
+    query = torch.empty((B, N * (P - K), D), dtype=torch.float32, device=dev)
+    if rows.numel() == 0 or D == 0:
+        return support, query
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(t):
+        return t.data_ptr() if t.numel() else None
+    err = _gather_library().gather_episode_launch(
+        table.data_ptr(), _TABLE_KINDS[table.dtype], rows.data_ptr(),
+        None if seed is None else seed.data_ptr(), ptr(support), ptr(query),
+        R, B * N, K, P - K, D, 2.0 * scale, stream)
+    if err != 0:
+        raise RuntimeError(f"gather_episode_rows kernel launch failed with "
+                           f"CUDA error {err} (R={R} D={D} rows "
+                           f"{tuple(rows.shape)} K={K} {table.dtype})")
+    gather_episode_rows.launches += 1
+    return support, query
+
+
+gather_episode_rows.launches = 0

@@ -1,4 +1,6 @@
-"""The port's embedding jitter (``--augment``) on the CPU.
+"""The port's embedding jitter (``--augment``) on the CPU, and the widening
+row gathers that carry it as their epilogue (``gather_augment_rows``,
+``gather_episode_rows``).
 
 ``augment_embeddings_reference`` is the plain version of the CUDA kernel
 (``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the two bitwise
@@ -223,6 +225,93 @@ def test_gather_augment_rows_errors_and_no_launch_on_the_cpu():
                                     s.to("meta"))
     kernels.gather_augment_rows(table, idx, s)
     assert kernels.gather_augment_rows.launches == before
+
+
+# (B, N, K, Q): the flagship train episode, a small one, K+Q of 1 either way
+EPISODES = [(4, 5, 5, 32), (2, 3, 2, 4), (3, 2, 1, 0), (2, 2, 0, 1)]
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["plain", "seeded"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8], ids=str)
+@pytest.mark.parametrize("width", [99, 2048])
+def test_gather_episode_rows_is_the_composition(dtype, width, seeded):
+    """Bitwise the composition it replaces: each segment gathered and
+    widened, the support rows jittered as ``gather_augment_rows`` jitters
+    the support indices (and, computed apart in numpy, widened rows times
+    the jitter of a row of ones); rows repeat, as too-small classes draw
+    them with replacement."""
+    table = table_of(dtype, 30, width, seed=width)
+    rng = np.random.RandomState(width + seeded)
+    for b, n, k, q in EPISODES:
+        rows = torch.from_numpy(rng.randint(0, 30, (b, n, k + q))
+                                .astype(np.int32))
+        seed = seed_of(2 ** 62 - 7) if seeded else None
+        scale = SCALE if seeded else 0.0
+        got = kernels.gather_episode_rows(table, rows, k, seed, scale)
+        want = kernels.gather_episode_rows_reference(table, rows, k, seed,
+                                                     scale)
+        s_idx = rows[..., :k].reshape(-1)
+        q_idx = rows[..., k:].reshape(-1)
+        support = sampler.pixels_to_float(
+            kernels.gather_rows_reference(table, s_idx))
+        if seeded:
+            support = kernels.augment_embeddings_reference(support, seed,
+                                                           SCALE)
+            assert torch.equal(support, kernels.gather_augment_rows(
+                table, s_idx, seed, SCALE))
+        query = sampler.pixels_to_float(
+            kernels.gather_rows_reference(table, q_idx))
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and torch.equal(g, w)
+        assert got[0].shape == (b, n * k, width)
+        assert got[1].shape == (b, n * q, width)
+        assert torch.equal(got[0].reshape(-1, width), support)
+        assert torch.equal(got[1].reshape(-1, width), query)
+        factor = (kernels.augment_embeddings_reference(
+            torch.ones(b * n * k, width), seed, SCALE).numpy()
+            if seeded else np.float32(1.0))
+        np.testing.assert_array_equal(
+            got[0].reshape(-1, width).numpy(),
+            widened(table)[s_idx.numpy()] * factor)
+        np.testing.assert_array_equal(got[1].reshape(-1, width).numpy(),
+                                      widened(table)[q_idx.numpy()])
+
+
+def test_gather_episode_rows_errors_and_no_launch_on_the_cpu():
+    table, s = table_of(torch.float32, 8, 4), seed_of(1)
+    rows = torch.zeros(2, 3, 5, dtype=torch.int32)
+    before = kernels.gather_episode_rows.launches
+    with pytest.raises(TypeError, match="int32 rows"):
+        kernels.gather_episode_rows(table, rows.long(), 2)
+    with pytest.raises(TypeError, match="int32 rows"):
+        kernels.gather_episode_rows(table, rows.reshape(6, 5), 2)
+    with pytest.raises(TypeError, match="uint8 tables"):
+        kernels.gather_episode_rows(table.double(), rows, 2)
+    with pytest.raises(ValueError, match="strided"):
+        kernels.gather_episode_rows(table_of(torch.float32, 4, 8).t(), rows,
+                                    2)
+    with pytest.raises(ValueError, match="2-D"):
+        kernels.gather_episode_rows(table.reshape(2, 4, 4), rows, 2)
+    with pytest.raises(ValueError, match="indices on meta"):
+        kernels.gather_episode_rows(table, rows.to("meta"), 2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernels.gather_episode_rows(table.to("meta"), rows.to("meta"), 2)
+    for k in (-1, 6):
+        with pytest.raises(ValueError, match="num_shots"):
+            kernels.gather_episode_rows(table, rows, k)
+    with pytest.raises(TypeError, match="int64"):
+        kernels.gather_episode_rows(table, rows, 2, s.int(), SCALE)
+    with pytest.raises(TypeError, match="one-element"):
+        kernels.gather_episode_rows(table, rows, 2,
+                                    torch.zeros(2, dtype=torch.int64), SCALE)
+    with pytest.raises(ValueError, match="seed on meta"):
+        kernels.gather_episode_rows(table, rows, 2, s.to("meta"), SCALE)
+    with pytest.raises(ValueError, match="without a seed"):
+        kernels.gather_episode_rows(table, rows, 2, None, SCALE)
+    support, query = kernels.gather_episode_rows(table, rows, 2, s, SCALE)
+    assert support.shape == (2, 6, 4) and query.shape == (2, 9, 4)
+    assert kernels.gather_episode_rows.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -309,8 +309,9 @@ def test_augment_bitwise(cuda_device, case):
 
 # (dtype, rows, width, M, row_offset): fp32, bf16 and uint8 rows at the
 # flagship support gather take the 16-, 8- and 4-byte group loads, odd
-# widths the scalar path (2050 over three blocks of a row); M = 0 and 1; a
-# row offset past 2**32; more rows than the grid's cap
+# widths the scalar path (2050 over several warps of a row); M = 0 and 1;
+# row offsets past 2**32, and rows whose counters cross it; more rows
+# than one warp a row covers at once
 GATHER_AUGMENT_CASES = [(torch.float32, 4096, 2048, 100, 0),
                         (torch.bfloat16, 4096, 2048, 100, 0),
                         (torch.uint8, 4096, 2048, 100, 0),
@@ -320,7 +321,8 @@ GATHER_AUGMENT_CASES = [(torch.float32, 4096, 2048, 100, 0),
                         (torch.uint8, 20, 6, 1, 9),
                         (torch.bfloat16, 30, 2050, 7, 4),
                         (torch.float32, 16, 8, 0, 0),
-                        (torch.float32, 70000, 4, 70000, 0)]
+                        (torch.float32, 70000, 4, 70000, 0),
+                        (torch.float32, 64, 2048, 100, 2 ** 32 - 50)]
 
 
 @pytest.mark.parametrize("case", GATHER_AUGMENT_CASES, ids=lambda c: "-".join(
@@ -377,8 +379,91 @@ def test_gather_augment_out_of_range_raises_at_synchronize(cuda_device):
     assert "raised:" in out.stdout
 
 
+# (dtype, table rows, width, (B, N, K, Q)): the flagship train (5+32) and
+# eval (5+20) episodes on fp32, bf16 and uint8 tables; K+Q of 1 (support
+# only, query only) at an odd width; D = 2050 (scalar path, several warps
+# a row); 70,000 rows in one launch
+EPISODE_CASES = [(torch.float32, 4096, 2048, (4, 5, 5, 32)),
+                 (torch.float32, 4096, 2048, (4, 5, 5, 20)),
+                 (torch.bfloat16, 4096, 2048, (4, 5, 5, 32)),
+                 (torch.uint8, 4096, 2048, (4, 5, 5, 20)),
+                 (torch.float32, 300, 99, (2, 3, 1, 0)),
+                 (torch.bfloat16, 300, 99, (2, 3, 0, 1)),
+                 (torch.uint8, 300, 2050, (2, 5, 5, 20)),
+                 (torch.float32, 300, 2050, (1, 5, 5, 32)),
+                 (torch.float32, 70000, 4, (100, 20, 5, 30))]
+
+
+@pytest.mark.parametrize("case", EPISODE_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "").replace(" ", "") for x in c))
+def test_gather_episode_bitwise(cuda_device, case):
+    """Bitwise its plain version, with and without the jitter; the support
+    rows bitwise ``gather_augment_rows`` of the support indices and the
+    query rows the widened ``gather_rows`` of the query indices (the
+    PR 5 route), and a table view that starts one element in (its groups
+    lose their alignment) gives the same rows. The episode's jitter rows
+    start at 0; row counters past 2**32 run the same kernel body through
+    ``gather_augment_rows`` (GATHER_AUGMENT_CASES)."""
+    dtype, rows, width, (B, N, K, Q) = case
+    gen = torch.Generator().manual_seed(rows + width + K + Q)
+    if dtype == torch.uint8:
+        table = torch.randint(0, 256, (rows, width), generator=gen,
+                              dtype=torch.uint8)
+    else:
+        table = torch.randn((rows, width), generator=gen).to(dtype)
+    idx = torch.randint(0, rows, (B, N, K + Q), generator=gen,
+                        dtype=torch.int32)
+    table, idx = table.to(cuda_device), idx.to(cuda_device)
+    buf = torch.empty(rows * width + 1, dtype=dtype, device=cuda_device)
+    buf[1:] = table.reshape(-1)
+    s_idx, q_idx = idx[..., :K].reshape(-1), idx[..., K:].reshape(-1)
+    seed = torch.tensor([rows * 7919 + width], dtype=torch.int64,
+                        device=cuda_device)
+    for sd, scale in ((None, 0.0), (seed, 0.1)):
+        before = kernels.gather_episode_rows.launches
+        got = kernels.gather_episode_rows(table, idx, K, sd, scale)
+        torch.cuda.synchronize()
+        assert kernels.gather_episode_rows.launches == before + 1
+        want = kernels.gather_episode_rows_reference(table, idx, K, sd,
+                                                     scale)
+        for g, w, m in zip(got, want, (N * K, N * Q)):
+            assert g.dtype == torch.float32 and g.shape == (B, m, width)
+            assert torch.equal(g, w)
+        support = (kernels.gather_augment_rows(table, s_idx, sd, scale)
+                   if sd is not None else
+                   sampler.pixels_to_float(kernels.gather_rows(table, s_idx)))
+        query = sampler.pixels_to_float(kernels.gather_rows(table, q_idx))
+        assert torch.equal(got[0].reshape(-1, width), support)
+        assert torch.equal(got[1].reshape(-1, width), query)
+        view = kernels.gather_episode_rows(buf[1:].view(rows, width), idx,
+                                           K, sd, scale)
+        assert torch.equal(view[0], got[0]) and torch.equal(view[1], got[1])
+
+
+def test_gather_episode_out_of_range_raises_at_synchronize(cuda_device):
+    """As for gather_rows: the bad launch runs in a child process."""
+    code = (
+        "import torch\n"
+        "from fumi_tpu_torch.ops import kernels\n"
+        "table = torch.zeros(8, 64, device='cuda')\n"
+        "rows = torch.tensor([[[0, 1], [2, 8]]], dtype=torch.int32, "
+        "device='cuda')\n"
+        "kernels.gather_episode_rows(table, rows, 1)\n"
+        "try:\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n"
+        "    raise SystemExit(0)\n"
+        "raise SystemExit('no error at synchronize')\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "raised:" in out.stdout
+
+
 def test_sampler_jitter_routes_agree_on_the_card(cuda_device):
-    """--augment with the kernel gather (one gather_augment_rows launch)
+    """--augment with the kernel gather (one gather_episode_rows launch)
     and without it (the library gather, then augment_embeddings) draw
     bitwise the same episode from the same generator seed."""
     cs, table, ids = synthetic.synthetic_class_set(
@@ -389,12 +474,13 @@ def test_sampler_jitter_routes_agree_on_the_card(cuda_device):
         smp = sampler.DeviceEpisodeSampler(
             table, ids, cs, spec, use_pallas_gather=pallas,
             augment_scale=0.1, device=cuda_device)
-        before = (kernels.gather_augment_rows.launches,
-                  kernels.augment_embeddings.launches)
+        names = ("gather_episode_rows", "gather_rows",
+                 "gather_augment_rows", "augment_embeddings")
+        before = [getattr(kernels, n).launches for n in names]
         eps[pallas] = smp.sample(smp.generator(3))
-        assert (kernels.gather_augment_rows.launches - before[0],
-                kernels.augment_embeddings.launches - before[1]) == \
-            ((1, 0) if pallas else (0, 1))
+        assert [getattr(kernels, n).launches - b
+                for n, b in zip(names, before)] == \
+            ([1, 0, 0, 0] if pallas else [0, 0, 0, 1])
     for name in Episode._fields:
         a, b = getattr(eps[True], name), getattr(eps[False], name)
         assert (a is None and b is None) or torch.equal(a, b), name

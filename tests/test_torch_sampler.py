@@ -3,11 +3,13 @@
 - ``data/class_set.py`` and ``data/synthetic.py`` are copies of pure-numpy
   modules: their outputs and errors are held EQUAL to the originals.
 - ``gather_rows``: the JAX Pallas kernel in interpret mode and the port's
-  plain version (and its wrapper on CPU tensors) agree bitwise.
+  plain version (and its wrapper on CPU tensors) agree bitwise; so do the
+  raw rows of ``gather_episode_rows``' support and query segments.
 - ``sample_episode``: fed the noise JAX's ``sample_episode`` draws from a
   key, the port returns every ``Episode`` leaf bitwise equal to JAX's
   (same dtypes too), on fp32, bf16 and uint8 tables, with ragged and
-  too-small classes, with and without augmentation and the kernel gather.
+  too-small classes, with and without augmentation and the kernel gather
+  (``gather_episode_rows``, one call an episode).
 """
 
 import dataclasses
@@ -170,11 +172,34 @@ def test_gather_rows_wrapper_errors():
     assert kernels.gather_rows.launches == before
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16, jnp.uint8])
+def test_episode_rows_match_interpret_kernel_bitwise(dtype):
+    """The support and query segments of ``gather_episode_rows`` (no seed)
+    are the JAX Pallas gather of each segment's indices, in interpret
+    mode, widened by JAX's ``pixels_to_float``."""
+    rng = np.random.RandomState(3)
+    if dtype == jnp.uint8:
+        table = jnp.asarray(rng.randint(0, 256, (40, D)).astype(np.uint8))
+    else:
+        table = jnp.asarray(rng.randn(40, D).astype(np.float32)).astype(dtype)
+    rows = rng.randint(0, 40, (B, N, K + Q)).astype(np.int32)
+    t_table, t_rows = _torch_of(table), torch.from_numpy(rows)
+    segments = (rows[..., :K].reshape(-1), rows[..., K:].reshape(-1))
+    want = [np.asarray(jax_sampler.pixels_to_float(pk.gather_rows(
+        table, jnp.asarray(idx), block_rows=4, interpret=True)))
+        for idx in segments]
+    for got in (kernels.gather_episode_rows_reference(t_table, t_rows, K),
+                kernels.gather_episode_rows(t_table, t_rows, K)):
+        for g, w, m in zip(got, want, (N * K, N * Q)):
+            assert g.dtype == torch.float32 and g.shape == (B, m, D)
+            np.testing.assert_array_equal(g.reshape(-1, D).numpy(), w)
+
+
 # ---------------------------------------------------------------------------
 # sample_episode
 # ---------------------------------------------------------------------------
 
-def _tables(table_dtype, counts):
+def _tables(table_dtype, counts, width=D):
     """The same tables for both packages: ragged classes padded as
     build_class_tables pads them. Returns (jax tables, port tables)."""
     rng = np.random.RandomState(1)
@@ -184,10 +209,10 @@ def _tables(table_dtype, counts):
     rows, cnt = jax_class_set.build_class_tables(np.arange(len(counts)),
                                                  per_class)
     if table_dtype == "uint8":
-        table = rng.randint(0, 256, (n_img, D)).astype(np.uint8)
+        table = rng.randint(0, 256, (n_img, width)).astype(np.uint8)
         j_table = jnp.asarray(table)
     else:
-        table = rng.randn(n_img, D).astype(np.float32)
+        table = rng.randn(n_img, width).astype(np.float32)
         j_table = jax_sampler.table_storage(jnp.asarray(table), table_dtype)
     ids = (1000 + rng.permutation(n_img)).astype(np.int32)
     text = rng.randn(len(counts), E).astype(np.float32)
@@ -225,6 +250,8 @@ COUNTS = {"even": [9] * 7, "ragged": [6, 11, 7, 9, 6, 13],
     ("float32", "even", 0.0, False), ("float32", "ragged", 0.0, True),
     ("float32", "too_small", 0.0, False), ("float32", "ragged", 0.3, True),
     ("bfloat16", "ragged", 0.0, True), ("uint8", "even", 0.2, False),
+    ("float32", "too_small", 0.0, True), ("bfloat16", "too_small", 0.2, True),
+    ("uint8", "even", 0.2, True), ("uint8", "too_small", 0.0, True),
 ])
 def test_sample_episode_bitwise_equal_given_jax_noise(table_dtype, counts,
                                                       augment, pallas):
@@ -360,8 +387,9 @@ def test_episode_from_noise_jitters_by_noise_or_by_seed():
     ("uint8", "ragged")])
 def test_seeded_jitter_routes_give_the_same_episode(monkeypatch,
                                                     table_dtype, counts):
-    """With the kernel gather the seeded jitter is one
-    ``gather_augment_rows`` call; without it the library gather and
+    """With the kernel gather the whole episode, the seeded jitter
+    included, is one ``gather_episode_rows`` call (no ``gather_rows`` or
+    ``gather_augment_rows``); without it the library gather and
     ``augment_embeddings``. Both give bitwise the unjittered episode with
     ``augment_embeddings_reference`` applied to its support rows: ids,
     labels, text and queries unchanged."""
@@ -371,7 +399,7 @@ def test_seeded_jitter_routes_give_the_same_episode(monkeypatch,
                                          len(COUNTS[counts]),
                                          max(COUNTS[counts]), 0.0)
     calls = {"gather_augment_rows": 0, "augment_embeddings": 0,
-             "gather_rows": 0}
+             "gather_rows": 0, "gather_episode_rows": 0}
     for name in calls:
         def spy(*a, _name=name, _fn=getattr(kernels, name), **kw):
             calls[_name] += 1
@@ -382,12 +410,14 @@ def test_seeded_jitter_routes_give_the_same_episode(monkeypatch,
     want = kernels.augment_embeddings_reference(
         plain.support_im.reshape(B * N * K, D), seed, 0.1
     ).reshape(B, N * K, D)
-    for pallas, route in ((True, {"gather_augment_rows": 1,
+    for pallas, route in ((True, {"gather_augment_rows": 0,
                                   "augment_embeddings": 0,
-                                  "gather_rows": 1}),
+                                  "gather_rows": 0,
+                                  "gather_episode_rows": 1}),
                           (False, {"gather_augment_rows": 0,
                                    "augment_embeddings": 1,
-                                   "gather_rows": 0})):
+                                   "gather_rows": 0,
+                                   "gather_episode_rows": 0})):
         calls.update({k: 0 for k in calls})
         got = sampler.episode_from_noise(t_tables, spec, cls_noise,
                                          img_noise, use_pallas_gather=pallas,
@@ -399,3 +429,35 @@ def test_seeded_jitter_routes_give_the_same_episode(monkeypatch,
             if name != "support_im" and getattr(plain, name) is not None:
                 assert torch.equal(getattr(got, name),
                                    getattr(plain, name)), name
+
+
+@pytest.mark.parametrize("width", [99, 2048])
+@pytest.mark.parametrize("table_dtype,counts", [
+    ("float32", "ragged"), ("float32", "too_small"), ("bfloat16", "ragged"),
+    ("bfloat16", "too_small"), ("uint8", "ragged"), ("uint8", "too_small")])
+def test_episode_gather_routes_agree(monkeypatch, table_dtype, counts,
+                                     width):
+    """At an odd width and at the flagship's, on ragged and too-small
+    classes (rows drawn with replacement): the kernel gather's one
+    ``gather_episode_rows`` call gives bitwise the library gather's
+    episode, with and without the seeded jitter."""
+    _, t_tables = _tables(table_dtype, COUNTS[counts], width)
+    spec = EpisodeSpec(B, N, K, Q, width, E)
+    cls_noise, img_noise, _ = _jax_noise(jax.random.PRNGKey(2),
+                                         len(COUNTS[counts]),
+                                         max(COUNTS[counts]), 0.0)
+    calls = []
+    real = kernels.gather_episode_rows
+    monkeypatch.setattr(kernels, "gather_episode_rows",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    for seed, scale in ((None, 0.0),
+                        (torch.tensor([5], dtype=torch.int64), 0.1)):
+        eps = [sampler.episode_from_noise(
+            t_tables, spec, cls_noise, img_noise, use_pallas_gather=pallas,
+            aug_seed=seed, augment_scale=scale) for pallas in (True, False)]
+        for name in Episode._fields:
+            a, b = getattr(eps[0], name), getattr(eps[1], name)
+            assert (a is None and b is None) or torch.equal(a, b), name
+        assert eps[0].support_im.dtype == eps[0].query_im.dtype == \
+            torch.float32
+    assert len(calls) == 2
