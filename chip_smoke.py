@@ -42,6 +42,25 @@ fails:
    --tpu_pallas_gather --tpu_pallas_fused_eval`` (21 train steps, evals at
    batches 10 and 20, a 9-meta-batch test pass), then FuMI ``--evaluate
    --checkpoint`` on the run it wrote;
+7a. serve from the FuMI and MAML run dirs the driver just wrote
+   (``FewShotClassifier.from_checkpoint``, then ``reload(best=False)``):
+   a flagship request bitwise (or within 1e-6) the answer of a classifier
+   on ``load_checkpoint``'s params, one ``fused_adapt`` launch a request;
+7b. serve FuMI over HTTP (``serve_http.make_server`` on 127.0.0.1 in a
+   thread): health says cuda, ``/v1/episode`` gives the in-process labels
+   and probabilities within 1e-5, ``/v1/episode_batch``, ``/v1/adapt``,
+   ``/v1/classify`` and ``/v1/reload`` answer, concurrent requests run one
+   at a time on worker threads; the request's median latency through HTTP
+   beside the in-process call;
+7c. train and evaluate AM3 (BERT text 768, prototype_dim 64, text_hid
+   256, dropout 0.25), ProtoNet and MatchingNet at the flagship width on
+   the device sampler with the kernel gather, without and with
+   ``--augment`` (one ``gather_episode_rows`` a step or meta-batch, no
+   other kernel), hold one AM3 train step against the CPU and profile an
+   AM3 step;
+7d. the driver for AM3 at the parser's defaults (``--augment
+   --tpu_pallas_gather``, phase 7's epochs), then AM3 ``--evaluate
+   --checkpoint``: the TEST line, the CSV with ``support_lamda``;
 8. time each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, and each path; time a
    FuMI R=1 request through ``fused_adapt`` and through the autograd
@@ -57,7 +76,7 @@ fails:
 9. print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Every path of phases 4-7 sets the kernels' launch counts to 0 just before
+Every path of phases 4-7d sets the kernels' launch counts to 0 just before
 it runs and reads them just after; it fails if it did not launch each
 kernel it runs, as many times as the path runs it.
 
@@ -569,9 +588,9 @@ def train_cfg(Config, model: str, **kw):
                   pallas_gather=True, seed=0, **kw)
 
 
-def train_step_card_vs_cpu(cfg, smp, dev):
+def train_step_card_vs_cpu(cfg, smp, dev, episode=None):
     """One train step on the card and on the CPU from the same weights on
-    the same episode, dropout 0.
+    the same episode (``smp``'s, unless ``episode`` is given), dropout 0.
 
     Tolerances: both sides are fp32 through a 5-step second-order chain,
     summed in other orders (cuBLAS against the CPU's BLAS), so the loss
@@ -589,7 +608,8 @@ def train_step_card_vs_cpu(cfg, smp, dev):
     from fumi_tpu_torch.core.episode import Episode
     from fumi_tpu_torch.train import optim, steps
     cfg0 = cfg.replace(dropout=0.0)
-    episode = smp.sample(smp.generator(7))
+    if episode is None:
+        episode = smp.sample(smp.generator(7))
     runs = {}
     for where, device in (("card", dev), ("cpu", "cpu")):
         st = steps.make_steps(cfg0, torch.Generator().manual_seed(0),
@@ -631,17 +651,19 @@ def train_step_card_vs_cpu(cfg, smp, dev):
         fail(f"train step {cfg.model}: card and CPU disagree")
 
 
-def driver_runs(root: str, reset_counts, read_counts, by_path) -> dict:
+def driver_runs(root: str, reset_counts, read_counts, by_path):
     """Phase 7: ``fumi_tpu_torch.cli.main`` on the card at the flagship
     width (the parser's defaults) for FuMI and MAML, each in its own
     ``--log_dir`` under ``root``, then FuMI ``--evaluate --checkpoint``.
-    Returns the wall seconds of each run."""
+    Returns the wall seconds of each run, and each family's ``(run dir,
+    driver arguments)``."""
     import glob
     import numpy as np
     import torch
     from fumi_tpu_torch.cli import main as cli_main
     walls = {}
     test = {}
+    runs = {}
     for model in ("fumi", "maml"):
         log_dir = os.path.join(root, model)
         args = ["--model", model, "--dataset", "synthetic", "--augment",
@@ -656,6 +678,7 @@ def driver_runs(root: str, reset_counts, read_counts, by_path) -> dict:
         walls[model] = time.perf_counter() - t0
         by_path[f"driver {model}"] = counts = read_counts()
         (run,) = glob.glob(os.path.join(log_dir, "runs", "*"))
+        runs[model] = (run, args)
         csvs = glob.glob(os.path.join(log_dir, "results", "run_*.csv"))
         with open(csvs[0]) as f:
             rows = len(f.read().splitlines()) - 1
@@ -701,6 +724,449 @@ def driver_runs(root: str, reset_counts, read_counts, by_path) -> dict:
             if counts != expect:
                 fail(f"driver fumi --evaluate: launches {counts}, expected "
                      f"{expect}")
+    return walls, runs
+
+
+def checkpoint_serving(runs, request, dev, reset_counts, read_counts,
+                       by_path):
+    """Phase 7a: ``FewShotClassifier.from_checkpoint`` on the FuMI and MAML
+    run dirs the driver just wrote, a flagship request (5-way 5-shot,
+    M=100, 100 steps) against a classifier built on ``load_checkpoint``'s
+    params (the same kernel on the same inputs: bitwise, else within
+    1e-6), then ``reload(run, best=False)``: the same request path (no
+    rebuild), the adapted state dropped, the answer of a classifier on
+    ``ckpt/``'s params. Each request launches ``fused_adapt`` once and no
+    other kernel. Returns the loaded classifiers and the load times
+    (ms)."""
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.core.config import config_from_args
+    from fumi_tpu_torch.serve import FewShotClassifier
+    from fumi_tpu_torch.train import checkpoint as ckpt_lib
+    from fumi_tpu_torch.train import steps
+    s_im, s_y, q_im, s_tx = request
+    clfs, load_ms = {}, {}
+    for model, (run, args) in runs.items():
+        cfg = config_from_args(args)
+        text = s_tx if model == "fumi" else None
+
+        def ask(clf):
+            return clf.episode_logits(s_im, s_y, q_im, support_text=text)
+
+        def on(best):
+            st = steps.make_steps(cfg, torch.Generator().manual_seed(
+                cfg.seed), device=dev)
+            params, _, _ = ckpt_lib.load_checkpoint(
+                run, st.params, st.opt.init(st.params), best=best)
+            return ask(FewShotClassifier(cfg, params, device=dev))
+        want_best, want_ckpt = on(True), on(False)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clf = FewShotClassifier.from_checkpoint(run, cfg, device=dev)
+        torch.cuda.synchronize()
+        load_ms[model] = 1e3 * (time.perf_counter() - t0)
+        reset_counts()
+        got = ask(clf)
+        fn = clf._episode_fn
+        clf.adapt(s_im, text, s_y)
+        clf.reload(run, best=False)
+        dropped = clf._state is None
+        try:
+            clf.classify(q_im)
+            dropped = False
+        except RuntimeError:
+            pass
+        again = ask(clf)
+        by_path[f"serve {model} from checkpoint"] = counts = read_counts()
+        errs = [float(np.abs(a - b).max()) for a, b in
+                ((got, want_best), (again, want_ckpt))]
+        exact = np.array_equal(got, want_best) and \
+            np.array_equal(again, want_ckpt)
+        moved = not np.array_equal(want_best, want_ckpt)
+        print(f"main path, serve {model} from checkpoint: from_checkpoint "
+              f"{load_ms[model]:.1f} ms; logits vs a classifier on "
+              f"load_checkpoint's params: bitwise {exact}, max|diff| best/ "
+              f"{errs[0]:.3e}, after reload(best=False) {errs[1]:.3e} "
+              f"(tolerance 1e-6; best/ and ckpt/ differ: {moved}); the "
+              f"request path kept: {clf._episode_fn is fn}; adapted state "
+              f"dropped: {dropped}; launches {counts}")
+        expect = {name: 0 for name in counts}
+        expect["fused_adapt"] = 2  # one a request
+        if not (max(errs) <= 1e-6 and clf._episode_fn is fn and dropped
+                and np.isfinite(got).all() and got.shape == want_best.shape):
+            fail(f"serving {model} from its checkpoint disagrees with "
+                 "load_checkpoint's params")
+        if counts != expect:
+            fail(f"serve {model} from checkpoint: launches {counts}, "
+                 f"expected {expect}")
+        clf.reload(run)  # back to best/ for the HTTP phase
+        clfs[model] = clf
+    return clfs, load_ms
+
+
+def http_serving(clf, run, request, batch, dev, reset_counts, read_counts,
+                 by_path):
+    """Phase 7b: ``serve_http.make_server`` on 127.0.0.1, port 0, in a
+    thread, serving the FuMI classifier loaded from its run dir: health
+    says cuda; ``/v1/episode`` answers the in-process labels and
+    probabilities within 1e-5; ``/v1/episode_batch`` (R=4), ``/v1/adapt``
+    then ``/v1/classify``, and ``/v1/reload`` (409 after it); four
+    concurrent requests run one at a time on worker threads, on each
+    thread's current stream. Returns the median request latency through
+    HTTP and in process (ms, 20 calls each)."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    import torch
+    from fumi_tpu_torch import serve_http
+    from fumi_tpu_torch.serve import _np_softmax
+    s_im, s_y, q_im, s_tx = request
+    b_im, b_y, b_q, b_tx = batch
+    server = serve_http.make_server(clf, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def call(path, body=None):
+        data = body if body is None or isinstance(body, bytes) else \
+            json.dumps(body).encode()
+        try:
+            with opener.open(urllib.request.Request(url + path, data=data),
+                             timeout=300) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    one = {"support_im": s_im.tolist(), "support_y": s_y.tolist(),
+           "query_im": q_im.tolist(), "support_text": s_tx.tolist()}
+    many = {"support_im": b_im.tolist(), "support_y": b_y.tolist(),
+            "query_im": b_q.tolist(), "support_text": b_tx.tolist(),
+            "return": "logits"}
+    inner, seen = clf.episode_logits, {"now": 0, "most": 0, "calls": []}
+    guard = threading.Lock()
+
+    def watched(*a, **kw):
+        with guard:
+            seen["now"] += 1
+            seen["most"] = max(seen["most"], seen["now"])
+            seen["calls"].append((
+                threading.get_ident(),
+                torch.cuda.current_stream(dev).cuda_stream,
+                torch.cuda.default_stream(dev).cuda_stream))
+        try:
+            return inner(*a, **kw)
+        finally:
+            with guard:
+                seen["now"] -= 1
+    try:
+        status, health = call("/healthz")
+        print(f"http: /healthz {status} {health}")
+        if status != 200 or health.get("backend") != "cuda" or \
+                health.get("devices") != torch.cuda.device_count():
+            fail(f"http: /healthz says {health}")
+        clf.episode_logits = watched
+        reset_counts()
+        codes = {}
+        codes["episode probs"], probs = call("/v1/episode",
+                                             {**one, "return": "probs"})
+        codes["episode labels"], labels = call("/v1/episode", one)
+        codes["episode_batch"], logits_b = call("/v1/episode_batch", many)
+        codes["adapt"], _ = call("/v1/adapt", {
+            k: one[k] for k in ("support_im", "support_y", "support_text")})
+        codes["classify"], cls = call("/v1/classify",
+                                      {"query_im": one["query_im"]})
+        by_path["http fumi"] = counts = read_counts()
+        clf.episode_logits = inner
+        want = clf.episode_logits(s_im, s_y, q_im, support_text=s_tx)
+        want_b = clf.episode_logits_batch(b_im, b_y, b_q, support_text=b_tx)
+        clf.adapt(s_im, s_tx, s_y)
+        want_cls = clf.classify(q_im)
+        p_err = float(np.abs(np.asarray(probs["result"])
+                             - _np_softmax(want)).max())
+        b_err = float(np.abs(np.asarray(logits_b["result"]) - want_b).max())
+        same = (labels["result"] == want.argmax(-1).tolist()
+                and cls["result"] == want_cls.tolist()
+                and np.array_equal(np.asarray(logits_b["result"]).argmax(-1),
+                                   want_b.argmax(-1)))
+        print(f"main path, http fumi: status {codes}; /v1/episode labels "
+              f"equal in process: {same}, probabilities max|diff| "
+              f"{p_err:.3e} (tolerance 1e-5); /v1/episode_batch R={B} "
+              f"logits max|diff| {b_err:.3e}; launches {counts}")
+        expect = {name: 0 for name in counts}
+        expect["fused_adapt"] = 3  # two episodes and one batch of 4
+        if set(codes.values()) != {200} or not same or p_err > 1e-5 or \
+                b_err > 1e-5:
+            fail("http: the answers differ from the in-process ones")
+        if counts != expect:
+            fail(f"http fumi: launches {counts}, expected {expect}")
+
+        # four clients at once: the lock lets one request in at a time,
+        # each on its worker thread's current stream
+        clf.episode_logits = watched
+        seen.update(most=0, calls=[])
+        answers = []
+        clients = [threading.Thread(target=lambda: answers.append(
+            call("/v1/episode", one))) for _ in range(4)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        clf.episode_logits = inner
+        threads = {t for t, _, _ in seen["calls"]}
+        on_current = all(cur == default for _, cur, default in seen["calls"])
+        agree = len(answers) == 4 and all(a == (200, labels)
+                                          for a in answers)
+        ok = (agree and seen["most"] == 1
+              and threading.get_ident() not in threads and on_current)
+        print(f"http: 4 concurrent requests: answers equal {agree}, "
+              f"at most {seen['most']} in the classifier at once, on "
+              f"{len(threads)} worker threads (not the main one), each on "
+              f"its thread's current stream (the default stream "
+              f"{sorted({d for _, _, d in seen['calls']})}): {on_current}")
+        if not ok:
+            fail("http: concurrent requests were not serialised or differ")
+
+        codes = {
+            "reload": call("/v1/reload", {"checkpoint": run,
+                                          "best": False})[0],
+            "classify after reload": call(
+                "/v1/classify", {"query_im": one["query_im"]})[0],
+            "unknown route": call("/v1/nope", one)[0],
+            "missing field": call("/v1/episode", {"query_im": []})[0]}
+        call("/v1/reload", {"checkpoint": run})
+        print(f"http: {codes}")
+        if codes != {"reload": 200, "classify after reload": 409,
+                     "unknown route": 404, "missing field": 400}:
+            fail(f"http: status codes {codes}")
+
+        # latency: 20 requests through HTTP (the body encoded once) and 20
+        # in process, in turns
+        body = json.dumps(one).encode()
+        turns = {}
+        for turn in ("http", "in process", "in process", "http"):
+            fn = (lambda: call("/v1/episode", body)) if turn == "http" else \
+                (lambda: clf.episode_logits(s_im, s_y, q_im,
+                                            support_text=s_tx))
+            turns.setdefault(turn, []).append(host_ms(fn, reps=20))
+        ms = {k: statistics.median(v) for k, v in turns.items()}
+        print(f"FuMI flagship request (M={QN}, {STEPS} steps), median of 20 "
+              f"calls, 2 turns: through HTTP {ms['http']:.3f} ms (turns "
+              f"{', '.join(f'{t:.3f}' for t in turns['http'])}; a "
+              f"{len(body) / 1e6:.2f} MB JSON body), in process "
+              f"{ms['in process']:.3f} ms (turns "
+              f"{', '.join(f'{t:.3f}' for t in turns['in process'])})")
+    finally:
+        clf.episode_logits = inner
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    return ms
+
+
+def gaussian_episode(dev):
+    """A train episode (B tasks, 5-way 5-shot, 32 queries a class) of
+    N(0, 1) image and text embeddings, from a seed."""
+    import torch
+    from fumi_tpu_torch.core.episode import Episode, class_major_labels
+    gen = torch.Generator().manual_seed(11)
+    nq = WAYS * TRAIN_Q
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+    zeros = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    return Episode(
+        support_im=randn(B, S, D), support_text=randn(B, S, E),
+        support_text_mask=None, support_ids=zeros,
+        support_y=class_major_labels(B, WAYS, SHOTS, dev),
+        query_im=randn(B, nq, D),
+        query_ids=torch.zeros((B, nq), dtype=torch.int32, device=dev),
+        query_y=class_major_labels(B, WAYS, TRAIN_Q, dev))
+
+
+def prototype_families(Config, train_smp, aug_smp, eval_smp, dev,
+                       reset_counts, read_counts, by_path):
+    """Phase 7c: AM3 (BERT text 768, image 2048, prototype_dim 64, text_hid
+    256, dropout 0.25), ProtoNet and MatchingNet on the device sampler with
+    the kernel gather, B=4, 5-way 5-shot, 32 train queries per class:
+    a timed chunk of 50 steps after a warm chunk, without and with
+    ``--augment``, then 8 eval meta-batches at 20 queries per class. Each
+    train step and eval meta-batch launches one ``gather_episode_rows``
+    and no other kernel. One AM3 train step on the card is held against
+    the CPU, and an AM3 step is profiled. Returns the episodes/s of each
+    path and AM3's (device ms, operations, wall ms) a step."""
+    import torch
+    from fumi_tpu_torch.train import steps
+    eps, am3_busy = {}, None
+    for model in ("am3", "protonet", "matchingnet"):
+        cfg = train_cfg(Config, model).replace(text_encoder="BERT",
+                                               prototype_dim=64)
+        st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        for label, smp in (("", train_smp), (" --augment", aug_smp)):
+            run = steps.make_chunked_train(st.family, st.opt, smp,
+                                           TRAIN_CHUNK)
+            p, s, gen, warm = run(st.params, st.opt.init(st.params),
+                                  smp.generator(1))
+            box = {}
+            reset_counts()
+            seconds = synced_s(lambda: box.update(out=run(p, s, gen)))
+            by_path[f"train {model}{label}"] = counts = read_counts()
+            p2, _, _, ms = box["out"]
+            losses = torch.cat([warm["loss"], ms["loss"]])
+            moved = max(float((p2[k] - st.params[k]).abs().max())
+                        for k in p2)
+            eps[f"train {model}{label}"] = TRAIN_CHUNK * B / seconds
+            print(f"main path, train {model}{label}: 2 chunks of "
+                  f"{TRAIN_CHUNK} steps, loss {float(losses[0]):.4f} -> "
+                  f"{float(losses[-1]):.4f}, acc {float(ms['acc'].mean()):.3f}"
+                  f"; timed chunk {seconds:.3f} s = "
+                  f"{eps[f'train {model}{label}']:.1f} episodes/s; launches "
+                  f"{counts}; metrics {sorted(ms)}")
+            expect = {name: 0 for name in counts}
+            expect["gather_episode_rows"] = TRAIN_CHUNK
+            am3_keys = {"prec", "rec", "f1", "avg_lamda"}
+            if not bool(torch.isfinite(losses).all()) or moved == 0.0 or \
+                    (model == "am3" and not am3_keys <= set(ms)):
+                fail(f"training {model}{label}: non-finite losses, params "
+                     "unmoved or metrics missing")
+            if counts != expect:
+                fail(f"training {model}{label}: launches {counts}, expected "
+                     f"{expect}")
+            if model == "am3" and not label:
+                am3_run = (run, p, s, gen, seconds / TRAIN_CHUNK)
+
+        evaluate = steps.make_chunked_eval(st.family, eval_smp,
+                                           collect=True)
+        evaluate(p2, eval_smp.generator(99), 1)  # warm
+        box = {}
+        reset_counts()
+        seconds = synced_s(lambda: box.update(
+            out=evaluate(p2, eval_smp.generator(3), EVAL_BATCHES)))
+        by_path[f"eval {model}"] = counts = read_counts()
+        out = box["out"][1]
+        eps[f"eval {model}"] = EVAL_BATCHES * B / seconds
+        lam_ok = model != "am3" or bool(
+            ((out["lamda"] >= 0) & (out["lamda"] <= 1)).all()
+            and out["lamda"].shape == (EVAL_BATCHES, B, S))
+        print(f"main path, eval {model}: {EVAL_BATCHES} meta-batches, loss "
+              f"{float(out['loss'].mean()):.4f}, acc "
+              f"{float(out['acc'].mean()):.4f}; {seconds:.3f} s = "
+              f"{eps[f'eval {model}']:.1f} episodes/s; launches {counts}; "
+              f"collected {sorted(k for k in out if out[k].dim() > 1)}")
+        expect = {name: 0 for name in counts}
+        expect["gather_episode_rows"] = EVAL_BATCHES
+        if not bool(torch.isfinite(out["loss"]).all()) or not lam_ok:
+            fail(f"eval {model}: non-finite losses or λ out of [0, 1]")
+        if counts != expect:
+            fail(f"eval {model}: launches {counts}, expected {expect}")
+        if model == "am3":
+            # on the synthetic table AM3's loss is ~1e-5 (its classes lie
+            # far apart), so every gradient is fp32 rounding of a saturated
+            # softmax; the step is held on Gaussian embeddings of the same
+            # shapes instead, where the loss is of order 1
+            train_step_card_vs_cpu(cfg, train_smp, dev,
+                                   gaussian_episode(dev))
+
+    # an AM3 step on the card: device time and operations of 5 steps
+    run, p, s, gen, step_s = am3_run
+    prof_steps = 5
+    traced = device_profile(lambda: run(p, s, gen, prof_steps))
+    if traced is None:
+        print("train am3: device busy share not measured (the profiler "
+              "recorded no device time)")
+    else:
+        dev_ms, ops, _ = traced
+        am3_busy = (dev_ms / prof_steps, ops / prof_steps, step_s * 1e3)
+        print(f"train am3: device time {am3_busy[0]:.3f} ms a step in "
+              f"{am3_busy[1]:.0f} device operations (torch.profiler, "
+              f"{prof_steps} steps) against {am3_busy[2]:.3f} ms of wall "
+              f"time a step: the card is busy "
+              f"{100 * am3_busy[0] / am3_busy[2]:.1f}% of the step")
+    return eps, am3_busy
+
+
+def am3_driver(root, reset_counts, read_counts, by_path) -> dict:
+    """Phase 7d: ``cli.main --model am3`` at the parser's defaults with
+    ``--augment --tpu_pallas_gather`` and phase 7's epochs (AM3 validates
+    at batch 0 as well: 4 validation passes), then ``--evaluate
+    --checkpoint`` on its run, which tests the params the run tested
+    (best/ where validation improved, which AM3 reloads, else ckpt/): the
+    same test metrics within 1e-6. A finite TEST line with AM3's
+    prec / rec / f1 / avg_lamda, ckpt/, a CSV with the
+    ``support_lamda`` column (λ in [0, 1]); one ``gather_episode_rows`` a
+    train step and eval meta-batch, no other kernel. Returns the wall
+    seconds of both runs."""
+    import csv
+    import glob
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    log_dir = os.path.join(root, "am3")
+    args = ["--model", "am3", "--dataset", "synthetic", "--augment",
+            "--tpu_pallas_gather", "--epochs", str(DRIVER_EPOCHS),
+            "--eval_freq", str(DRIVER_EVAL_FREQ), "--num_ep_test",
+            str(DRIVER_EP_TEST), "--seed", "0", "--wandb_offline",
+            "--log_dir", log_dir]
+    walls = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cli_main.cli(args)
+    torch.cuda.synchronize()
+    walls["am3"] = time.perf_counter() - t0
+    by_path["driver am3"] = counts = read_counts()
+    (run,) = glob.glob(os.path.join(log_dir, "runs", "*"))
+    (path,) = glob.glob(os.path.join(log_dir, "results", "run_*.csv"))
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    lam = [json.loads(r[rows[0].index("support_lamda")]) for r in rows[1:]] \
+        if "support_lamda" in rows[0] else []
+    lam_ok = (len(lam) == DRIVER_TEST_BATCHES * B
+              and all(len(x) == S and all(0.0 <= v <= 1.0 for v in x)
+                      for x in lam))
+    # best/ is written only where a validation pass beat the first one;
+    # on the synthetic table AM3's loss starts near 1e-6 and may never
+    # improve, and then --evaluate tests ckpt/, as the run itself did
+    files = all(os.path.exists(os.path.join(run, n))
+                for n in ("ckpt", "ckpt.meta.json", "config.json"))
+    has_best = os.path.isdir(os.path.join(run, "best"))
+    keys = {f"test/{k}" for k in ("loss", "acc", "prec", "rec", "f1",
+                                  "avg_lamda", "acc_ci95", "loss_ci95")}
+    finite = set(out) == keys and all(np.isfinite(v) for v in out.values())
+    # 4 validation passes of 5 meta-batches (before training and at
+    # batches 0, 10 and 20) and the test pass
+    val_batches = 4 * (DRIVER_EP_TEST // B // 2 + 1)
+    expect = {name: 0 for name in counts}
+    expect["gather_episode_rows"] = (DRIVER_TRAIN_STEPS + val_batches
+                                     + DRIVER_TEST_BATCHES)
+    print(f"main path, driver am3: TEST {out}; {len(rows) - 1} CSV rows "
+          f"with support_lamda ({S} λ a row in [0, 1]): {lam_ok}; ckpt/ "
+          f"{files}, best/ {has_best}; {walls['am3']:.3f} s of wall time; "
+          f"launches {counts}")
+    if not (finite and files and lam_ok):
+        fail("driver am3: non-finite or missing test metrics, or missing "
+             "artifacts")
+    if counts != expect:
+        fail(f"driver am3: launches {counts}, expected {expect}")
+    reset_counts()
+    t0 = time.perf_counter()
+    again = cli_main.cli(args[:-1] + [log_dir + "_evaluate", "--evaluate",
+                                      "--checkpoint", run])
+    walls["am3 --evaluate"] = time.perf_counter() - t0
+    by_path["driver am3 --evaluate"] = counts = read_counts()
+    diff = max(abs(again[k] - out[k]) for k in out)
+    print(f"main path, driver am3 --evaluate --checkpoint: TEST {again}; "
+          f"max|diff| to the training run's test {diff:.3e} (tolerance "
+          f"1e-6); launches {counts}")
+    expect = {name: 0 for name in counts}
+    expect["gather_episode_rows"] = DRIVER_TEST_BATCHES
+    if set(again) != set(out) or diff > 1e-6:
+        fail("driver am3 --evaluate does not reproduce the test")
+    if counts != expect:
+        fail(f"driver am3 --evaluate: launches {counts}, expected {expect}")
     return walls
 
 
@@ -1032,9 +1498,24 @@ def main() -> int:
     import tempfile
     import shutil
     driver_root = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    request = (s_im, s_y, q_im, s_tx)
     try:
-        driver_walls = driver_runs(driver_root, reset_counts, read_counts,
-                                   by_path)
+        driver_walls, driver_dirs = driver_runs(driver_root, reset_counts,
+                                                read_counts, by_path)
+        # ---- 7a. serving from the run dirs the driver just wrote -------
+        served_clfs, load_ms = checkpoint_serving(
+            driver_dirs, request, dev, reset_counts, read_counts, by_path)
+        # ---- 7b. the HTTP front-end on the card --------------------------
+        http_ms = http_serving(served_clfs["fumi"], driver_dirs["fumi"][0],
+                               request, (b_im, b_y, b_q, b_tx), dev,
+                               reset_counts, read_counts, by_path)
+        # ---- 7c. AM3, ProtoNet and MatchingNet at the flagship width -----
+        fam_eps, am3_busy = prototype_families(
+            Config, train_smp, aug_smp, eval_smp, dev, reset_counts,
+            read_counts, by_path)
+        # ---- 7d. the driver for AM3 ---------------------------------------
+        driver_walls.update(am3_driver(driver_root, reset_counts,
+                                       read_counts, by_path))
     finally:
         shutil.rmtree(driver_root, ignore_errors=True)
 
@@ -1437,6 +1918,16 @@ def main() -> int:
               f"{eval_eps[(model, 'autograd engine')]:.1f} episodes/s")
     print("driver wall time per run (s): " + ", ".join(
         f"{k} {v:.3f}" for k, v in driver_walls.items()))
+    print("from_checkpoint load time (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in load_ms.items()))
+    print(f"FuMI request median (ms): through HTTP {http_ms['http']:.3f}, "
+          f"in process {http_ms['in process']:.3f}")
+    print("prototype families (episodes/s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in fam_eps.items()))
+    if am3_busy is not None:
+        print(f"train am3 a step: device {am3_busy[0]:.3f} ms in "
+              f"{am3_busy[1]:.0f} operations, wall {am3_busy[2]:.3f} ms, "
+              f"busy {100 * am3_busy[0] / am3_busy[2]:.1f}%")
 
     # ---- 9. result ------------------------------------------------------
     launches = {name: sum(c[name] for c in by_path.values())

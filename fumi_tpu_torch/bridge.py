@@ -8,7 +8,11 @@ checkpoints with:
 - maml: ``net.lin_{i}`` for the hidden layers, ``net.lin_final`` the head;
 - fumi: ``text_encoder`` (the ``rand`` encoder's unused Linear; nothing for
   BERT/precomputed), ``im_net.linear{i}``, ``hyper_net.0`` and
-  ``hyper_net.2``.
+  ``hyper_net.2``;
+- am3: ``image_encoder``, ``text_encoder`` (as for fumi), ``g.0``/``g.3``
+  and ``h.0``/``h.3``;
+- protonet, matchingnet (no reference counterpart): their one bare
+  ``{"w", "b"}`` linear is ``image_encoder``.
 
 Linear weights are (out, in) on both sides, so the conversion renames and
 never transposes. Episodes keep their field names and dtypes. The bridge
@@ -28,7 +32,7 @@ from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.models import mlp
 from fumi_tpu_torch.models.fumi import im_net_depth
 
-FAMILIES = ("maml", "fumi")
+FAMILIES = ("maml", "fumi", "am3", "protonet", "matchingnet")
 
 
 def _lin(prefix: str) -> Dict[str, str]:
@@ -46,6 +50,14 @@ def _name_tree(family: str, n_layers: int, has_text_linear: bool):
                 "hyper_net": (_lin("hyper_net.0"), _lin("hyper_net.2")),
                 "im_net": tuple(_lin(f"im_net.linear{i}")
                                 for i in range(n_layers))}
+    if family == "am3":
+        return {"image_encoder": _lin("image_encoder"),
+                "text_encoder": _lin("text_encoder") if has_text_linear
+                else {},
+                "g": (_lin("g.0"), _lin("g.3")),
+                "h": (_lin("h.0"), _lin("h.3"))}
+    if family in ("protonet", "matchingnet"):
+        return _lin("image_encoder")
     raise NotImplementedError(
         f"no bridge for model family {family!r} yet (have {FAMILIES})")
 
@@ -83,13 +95,13 @@ def params_from_jax(tree: Any, family: str,
     dev = resolve_device(device)
     if family == "maml":
         names = _name_tree("maml", len(tree), False)
-    elif family == "fumi":
+    elif family in ("fumi", "am3"):
         te = tree["text_encoder"]
         if te and set(te) != {"w", "b"}:
             raise NotImplementedError(
                 "token text encoders are not ported yet (ROADMAP.md "
                 "Queue 1, item 5)")
-        names = _name_tree("fumi", len(tree["im_net"]), bool(te))
+        names = _name_tree(family, len(tree.get("im_net", ())), bool(te))
     else:
         names = _name_tree(family, 0, False)
     return {name: torch.tensor(np.asarray(leaf, dtype=np.float32)).to(dev)
@@ -100,8 +112,8 @@ def params_to_numpy(params: Dict[str, torch.Tensor], family: str) -> Any:
     """The port's state dict -> the JAX package's pytree, numpy leaves."""
     if family == "maml":
         names = _name_tree("maml", len(mlp.layer_names(params)), False)
-    elif family == "fumi":
-        names = _name_tree("fumi", im_net_depth(params),
+    elif family in ("fumi", "am3"):
+        names = _name_tree(family, im_net_depth(params),
                            "text_encoder.weight" in params)
     else:
         names = _name_tree(family, 0, False)

@@ -1,13 +1,14 @@
 """Experiment driver: ``python -m fumi_tpu_torch.cli.main``.
 
-The counterpart of ``fumi_tpu/cli/main.py`` for MAML and FuMI on
-precomputed embeddings. The flow is the JAX package's: validate the
-config, set up the run and its log, load the data, build the family's
-steps and three device samplers (train, val, test; ``--augment`` jitters
-the train support set only), restore ``--checkpoint`` or
-``--tpu_auto_resume`` state, train (:func:`~fumi_tpu_torch.train.loop.
-training_run`), then the test pass, the ``TEST`` line and the prediction
-CSV ``<log_dir>/results/run_*.csv``. Each run writes its config to
+The counterpart of ``fumi_tpu/cli/main.py`` for the episodic families on
+precomputed embeddings: MAML, FuMI, AM3, ProtoNet and MatchingNet. The
+flow is the JAX package's: validate the config, set up the run and its
+log, load the data, build the family's steps and three device samplers
+(train, val, test; ``--augment`` jitters the train support set only),
+restore ``--checkpoint`` or ``--tpu_auto_resume`` state, train
+(:func:`~fumi_tpu_torch.train.loop.training_run`), then the test pass,
+the ``TEST`` line and the prediction CSV ``<log_dir>/results/run_*.csv``
+(with AM3's ``support_lamda`` column). Each run writes its config to
 ``<log_dir>/runs/<run>/config.json`` and its checkpoints beside it.
 
 Device: the driver runs on the card; ``--disable_cuda`` selects the CPU
@@ -16,10 +17,10 @@ driver raises. Random streams are the loop's (``train/loop.py``); model
 init draws from a CPU generator seeded with ``--seed``.
 
 Not ported yet, each rejected with ``NotImplementedError`` naming its
-ROADMAP.md Queue 1 item: the datasets other than ``synthetic`` and the
-other families (item 5), the host samplers (item 4), raw-image backbones
-(item 7), multi-device and sweep modes (item 9), and the training
-extensions (item 10).
+ROADMAP.md Queue 1 item: the datasets other than ``synthetic``, CLIP and
+the token text encoders (item 5), the host samplers (item 4b), raw-image
+backbones (item 7), multi-device and sweep modes (item 9), and the
+training extensions (item 10).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from fumi_tpu_torch.train import checkpoint as ckpt_lib
 from fumi_tpu_torch.train.logging import MetricWriter
 from fumi_tpu_torch.train.loop import (TEST, eval_view, stream_generator,
                                        test_loop, training_run)
-from fumi_tpu_torch.train.steps import make_steps
+from fumi_tpu_torch.train.steps import FAMILY_BUILDERS, make_steps
 from fumi_tpu_torch.utils.profiling import profile_trace
 
 
@@ -57,7 +58,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _check_driver(cfg: Config) -> None:
     """Reject what the driver does not run yet, before any work."""
-    if cfg.model not in ("maml", "fumi"):
+    if cfg.model not in FAMILY_BUILDERS:
         raise _not_ported(f"--model {cfg.model}", "item 5: the other families")
     if cfg.dataset != "synthetic":
         raise _not_ported(f"--dataset {cfg.dataset} (its loader and files)",
@@ -66,7 +67,7 @@ def _check_driver(cfg: Config) -> None:
         raise _not_ported(f"--text_encoder {cfg.text_encoder}",
                           "item 5: the token text encoders")
     if not cfg.device_sampler:
-        raise _not_ported("--tpu_host_sampler", "item 4: the host samplers")
+        raise _not_ported("--tpu_host_sampler", "item 4b: the host samplers")
     if cfg.import_modules:
         raise _not_ported("--tpu_import (a family registry)",
                           "item 5: the other families")

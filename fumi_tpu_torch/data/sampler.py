@@ -26,7 +26,7 @@ the form the tests feed JAX's noise through.
 
 Raw-image tables and their flip-and-crop augmentation wait for the
 raw-image backbones (ROADMAP.md Queue 1, item 7); the host samplers wait
-for the harness (item 4); bf16 table storage for the bf16 policy (item 8).
+for the harness (item 4b); bf16 table storage for the bf16 policy (item 8).
 """
 
 from __future__ import annotations

@@ -1,17 +1,23 @@
 """Few-shot serving: adapt on a request's support set, classify its queries.
 
 The PyTorch counterpart of ``fumi_tpu/serve.py``'s ``FewShotClassifier``
-for MAML and FuMI on precomputed embeddings (fp32, plain full-parameter
-test-time adaptation):
+for the episodic families on precomputed embeddings (fp32):
 
 - ``episode_logits`` / ``episode_logits_batch``: adapt AND classify in one
-  call. Where the fused kernel applies (a CUDA device, fp32, plain full
-  GD, 2 hidden layers, ``n_steps >= ops/kernels.py:MIN_FUSED_STEPS``) the
-  whole adaptation runs in one
-  launch of ``ops/kernels.py:fused_adapt``; otherwise the autograd engine
-  (a loop of ``torch.autograd.grad`` SGD steps with no outer graph) runs.
+  call. For MAML and FuMI, where the fused kernel applies (a CUDA device,
+  fp32, plain full GD, 2 hidden layers, ``n_steps >=
+  ops/kernels.py:MIN_FUSED_STEPS``) the whole adaptation runs in one
+  launch of ``ops/kernels.py:fused_adapt``; otherwise, and for AM3,
+  ProtoNet and MatchingNet, the engine runs: MAML/FuMI as a loop of
+  ``torch.autograd.grad`` SGD steps with no outer graph, AM3 and ProtoNet
+  to the class prototypes, MatchingNet to the embedded support set and
+  its labels.
 - ``adapt`` then ``logits`` / ``classify``: the stateful pair, adapted by
-  the autograd engine (the kernel returns logits, not adapted weights).
+  the engine (the kernel returns logits, not adapted weights).
+  MatchingNet's logits are ``log(probs + 1e-8)``, so every return mode
+  renders its probabilities.
+- ``from_checkpoint`` / ``reload``: weights from a run dir the port's
+  driver wrote (``train/checkpoint.py``).
 
 Request shapes keep the JAX package's power-of-two bucketing of the
 episode axis R and the query axis M, and its request errors, so served
@@ -22,7 +28,7 @@ bucket size.
 
 Usage::
 
-    clf = FewShotClassifier(cfg, params)            # runs on cuda
+    clf = FewShotClassifier.from_checkpoint(run_dir, cfg)   # runs on cuda
     logits = clf.episode_logits(s_im, s_y, q_im, support_text=s_text)
     clf.adapt(s_im, s_text, s_y)
     labels = clf.classify(q_im)
@@ -30,18 +36,25 @@ Usage::
 
 from __future__ import annotations
 
+import glob
+import os
+import re
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from fumi_tpu_torch.core.config import Config
+from fumi_tpu_torch.core.config import Config, TOKEN_TEXT_ENCODERS
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.metalearn.inner_loop import sgd_inner_update
 from fumi_tpu_torch.models import mlp
 from fumi_tpu_torch.ops import fewshot, kernels
-from fumi_tpu_torch.train.steps import build_family, plain_full_gd_adaptation
+from fumi_tpu_torch.train import checkpoint as ckpt_lib
+from fumi_tpu_torch.train.loop import eval_view
+from fumi_tpu_torch.train.steps import (build_family, embed_images,
+                                        image_prototypes, make_opt,
+                                        plain_full_gd_adaptation)
 
 
 class RequestError(ValueError):
@@ -138,12 +151,39 @@ def _check_slice(cfg: Config) -> None:
             "(SeedEnsemble): Queue 1, item 9 (scale-out) in ROADMAP.md")
 
 
+def serving_dictionary(cfg: Config, run_dir: Optional[str] = None):
+    """The token dictionary a glove/w2v/RNN/RNNhid model is served with;
+    ``None`` for the other text encoders. The token encoders are not
+    ported yet, so those raise."""
+    if cfg.text_encoder not in TOKEN_TEXT_ENCODERS:
+        return None
+    raise NotImplementedError(
+        f"not ported to the PyTorch package yet — --text_encoder "
+        f"{cfg.text_encoder} (the token text encoders and their "
+        "vocabulary): Queue 1, item 5 in ROADMAP.md")
+
+
+def find_seed_exports(run_dir: str) -> List[str]:
+    """Per-seed export dirs of a ``--tpu_seed_sweep`` run: strictly-named
+    ``run_dir/seed<k>/`` holding a ``best/`` checkpoint, sorted by seed
+    number (the JAX package's definition)."""
+    def seed_no(d):
+        m = re.fullmatch(r"seed(\d+)", os.path.basename(d))
+        return int(m.group(1)) if m and os.path.isdir(d) else None
+    return sorted(
+        (d for d in glob.glob(os.path.join(run_dir, "seed*"))
+         if seed_no(d) is not None
+         and os.path.isdir(os.path.join(d, "best"))),
+        key=seed_no)
+
+
 def _tensor(x, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(device)
 
 
 class FewShotClassifier:
-    """Adapt-once / classify-many wrapper over a trained MAML or FuMI model.
+    """Adapt-once / classify-many wrapper over a trained episodic model
+    (MAML, FuMI, AM3, ProtoNet or MatchingNet).
 
     ``params`` is the model's state dict (``fumi_tpu_torch/bridge.py``
     carries JAX weights over); None serves the family's own seeded init.
@@ -169,19 +209,40 @@ class FewShotClassifier:
 
     @classmethod
     def from_checkpoint(cls, run_dir: str, cfg: Config, dictionary=None,
-                        best: bool = True) -> "FewShotClassifier":
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet (ROADMAP.md Queue 1, "
-            "item 4); carry JAX weights over with fumi_tpu_torch.bridge")
+                        best: bool = True, device: DeviceLike = None
+                        ) -> "FewShotClassifier":
+        """A classifier on the weights of a run dir written by the port's
+        driver (``best/``, or ``ckpt/`` with ``best=False``), on
+        ``device`` (default the current CUDA device)."""
+        if dictionary is None:
+            serving_dictionary(cfg, run_dir)  # token encoders raise
+        self = cls(cfg, None, device=device)
+        self.params = self._load(run_dir, best)
+        return self
+
+    def _load(self, run_dir: str, best: bool) -> Dict[str, torch.Tensor]:
+        """The weights evaluation sees, restored with this classifier's
+        params and a fresh optimizer state as the template (AM3's
+        ``adamw_lin_schedule`` state carries its update count)."""
+        params, opt_state, _ = ckpt_lib.load_checkpoint(
+            run_dir, self.params, make_opt(self.cfg).init(self.params),
+            best=best)
+        return eval_view(self.cfg, params, opt_state)
 
     def reload(self, run_dir: str, best: bool = True) -> None:
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet (ROADMAP.md Queue 1, "
-            "item 4)")
+        """Swap in the weights of a run dir without a rebuild: the request
+        paths take the params as an argument. The adapted state was derived
+        from the old weights, so it is dropped, and ``classify`` raises
+        until ``adapt`` runs again."""
+        self.params = self._load(run_dir, best)
+        self._state = None
+        self._classify_fn = None
 
     # ------------------------------------------------------------------
-    # The autograd engine: per-episode weights with a leading R axis (the
-    # JAX package vmaps one episode's program over R instead).
+    # The engine: per-episode state (MAML/FuMI's adapted weights, the
+    # prototype families' prototypes or embedded support sets) with a
+    # leading R axis (the JAX package vmaps one episode's program over R
+    # instead).
 
     def _hyper0(self, p, s_text, s_y, seeds):
         """(R, N, H2+1) generated heads, one generator per episode."""
@@ -228,19 +289,68 @@ class FewShotClassifier:
                 return mlp.apply(state, q_im)
             return adapt_fn, classify_fn
 
-        model = self.family.model
+        if cfg.model == "fumi":
+            model = self.family.model
 
+            def adapt_fn(p, s_im, s_text, s_y, seeds):
+                R = s_im.shape[0]
+                theta = per_episode(
+                    p, [k for k in p if k.startswith("im_net.")], R)
+                theta["hyper"] = self._hyper0(p, s_text, s_y, seeds)
+                return sgd_steps(theta, lambda q: fewshot.cross_entropy(
+                    model.im_forward(q, q["hyper"], s_im, train=False),
+                    s_y) * R)
+
+            def classify_fn(p, state, q_im):
+                return model.im_forward(state, state["hyper"], q_im,
+                                        train=False)
+            return adapt_fn, classify_fn
+
+        if cfg.model == "am3":
+            model = self.family.model
+
+            def adapt_fn(p, s_im, s_text, s_y, seeds):
+                """The λ-fused class prototypes (R, N, P)."""
+                if model.text_encoder.kind == "rand":
+                    # one generator per episode for its noise
+                    im_e, tx_e, lam = (torch.cat(t) for t in zip(*(
+                        model.forward(p, s_text[r:r + 1], s_im[r:r + 1],
+                                      torch.Generator().manual_seed(
+                                          seeds[r]))
+                        for r in range(s_im.shape[0]))))
+                else:
+                    im_e, tx_e, lam = model.forward(p, s_text, s_im)
+                return fewshot.get_prototypes(im_e, tx_e,
+                                              model.fixed_lamda(lam), s_y,
+                                              cfg.num_ways)
+
+            def classify_fn(p, protos, q_im):
+                return fewshot.prototype_logits(
+                    protos, model.encode_image(p, q_im))
+            return adapt_fn, classify_fn
+
+        if cfg.model == "protonet":
+            def adapt_fn(p, s_im, s_text, s_y, seeds):
+                """The class prototypes (R, N, P) of the support set."""
+                return image_prototypes(embed_images(p, s_im), s_y,
+                                        cfg.num_ways)
+
+            def classify_fn(p, protos, q_im):
+                return fewshot.prototype_logits(protos, embed_images(p, q_im))
+            return adapt_fn, classify_fn
+
+        # matchingnet
         def adapt_fn(p, s_im, s_text, s_y, seeds):
-            R = s_im.shape[0]
-            theta = per_episode(p, [k for k in p if k.startswith("im_net.")],
-                                R)
-            theta["hyper"] = self._hyper0(p, s_text, s_y, seeds)
-            return sgd_steps(theta, lambda q: fewshot.cross_entropy(
-                model.im_forward(q, q["hyper"], s_im, train=False),
-                s_y) * R)
+            """The embedded support set and its labels."""
+            return embed_images(p, s_im), s_y
 
         def classify_fn(p, state, q_im):
-            return model.im_forward(state, state["hyper"], q_im, train=False)
+            s_emb, s_y = state
+            probs = fewshot.matching_probs(s_emb, s_y,
+                                           embed_images(p, q_im),
+                                           cfg.num_ways)
+            # log-probs as the logits: softmax(log p) = p
+            return torch.log(probs + 1e-8)
         return adapt_fn, classify_fn
 
     def _engine_fns(self):
@@ -339,7 +449,7 @@ class FewShotClassifier:
               seed: int = 0) -> None:
         """Run the one-time adaptation for this support set: support_im
         (N*K, D), support_y (N*K,) int in [0, num_ways), support_text
-        (N*K, E) for FuMI."""
+        (N*K, E) for FuMI and AM3."""
         _check_support_y(self.cfg, support_y)
         support_im = np.asarray(support_im, dtype=np.float32)
         support_text = self._prep_text(support_text, support_im.shape[0])
@@ -390,7 +500,7 @@ def warmup(clf: FewShotClassifier, r_buckets=(1,), num_queries=16) -> None:
              for m in num_queries]
     s_y = np.repeat(np.arange(cfg.num_ways), cfg.num_shots).astype(np.int32)
     s_text = (rng.randn(NK, cfg.text_emb_dim).astype(np.float32)
-              if cfg.model == "fumi" else None)
+              if cfg.model in ("am3", "fumi") else None)
 
     saved = (clf._state, clf._classify_fn)
     t0 = time.perf_counter()

@@ -9,7 +9,7 @@ params state dict) and ``opt_state.pt`` (the optimizer state: nested dicts
 of tensors and the update count), written by ``torch.save`` from CPU
 copies and read with ``torch.load(weights_only=True)``.
 
-Not ported yet (ROADMAP.md Queue 1, item 4): wandb run paths for
+Not ported yet (ROADMAP.md Queue 1, item 4b): wandb run paths for
 ``--checkpoint`` and uploads to a live wandb run, reference ``.pth.tar``
 files, and the JAX package's orbax / ``np_tree.npz`` checkpoints.
 """
@@ -136,11 +136,11 @@ def resolve_checkpoint(checkpoint: str, model: str,
         raise NotImplementedError(
             f"--checkpoint {checkpoint!r}: importing a reference .pth.tar "
             "file is not ported to the PyTorch package yet (ROADMAP.md "
-            "Queue 1, item 4)")
+            "Queue 1, item 4b)")
     raise NotImplementedError(
         f"--checkpoint {checkpoint!r} is not a local run dir; resolving "
         f"wandb run paths ({entity}/{project or model}/<run_id>) is not "
-        "ported to the PyTorch package yet (ROADMAP.md Queue 1, item 4)")
+        "ported to the PyTorch package yet (ROADMAP.md Queue 1, item 4b)")
 
 
 def _flat(tree, prefix="") -> Dict[str, Any]:

@@ -1,4 +1,4 @@
-"""Episodic training and eval harness for MAML and FuMI.
+"""Episodic training and eval harness for the episodic families.
 
 The counterpart of ``fumi_tpu/train/loop.py`` (its single-device paths;
 the mesh engines and ``--tpu_watch`` are ROADMAP.md Queue 1, item 9). It

@@ -1,9 +1,11 @@
 """Model families, their episode losses, and the train and eval steps.
 
-The counterpart of ``fumi_tpu/train/steps.py`` for MAML and FuMI on
-precomputed embeddings, fp32, ``--tpu_meta_grad explicit``,
-``--tpu_adapt_params all``. Each family is built once as a
-:class:`Family` of episode-level functions:
+The counterpart of ``fumi_tpu/train/steps.py`` on precomputed embeddings,
+fp32, ``--tpu_meta_grad explicit``, ``--tpu_adapt_params all``, for the
+five episodic families: MAML and FuMI (an inner loop), AM3, ProtoNet and
+MatchingNet (prototypes or attention over the support set, no inner
+loop). Each family is built once as a :class:`Family` of episode-level
+functions:
 
 - ``train_loss(params, episode, gen) -> (loss, aux)``, differentiable;
 - ``eval_raw(params, episode, gen) -> dict``, the test-time adaptation
@@ -11,7 +13,9 @@ precomputed embeddings, fp32, ``--tpu_meta_grad explicit``,
   device, one launch of a fused kernel, ``ops/kernels.py``: FuMI's
   per-task heads through ``fused_fumi_adapt``, MAML's shared head through
   ``fused_maml_adapt_batched``);
-- ``eval_finalize(raw) -> metrics`` and ``eval_reduce``.
+- ``eval_finalize(raw) -> metrics`` and ``eval_reduce``. AM3's raw dict
+  holds the meta-batch's confusion matrix, from which its finalize derives
+  acc and the macro prec / rec / f1 (``ops/metrics.py``).
 
 :func:`make_steps` wraps a family into train/eval steps;
 :func:`make_chunked_train` / :func:`make_chunked_eval` run ``chunk``
@@ -30,9 +34,11 @@ from fumi_tpu_torch.core.config import Config, TOKEN_TEXT_ENCODERS
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.metalearn.inner_loop import (fumi_episode_loss,
                                                  maml_episode_loss)
+from fumi_tpu_torch.models import am3 as am3_mod
 from fumi_tpu_torch.models import fumi as fumi_mod
-from fumi_tpu_torch.models import mlp, text_encoders
+from fumi_tpu_torch.models import layers, mlp, text_encoders
 from fumi_tpu_torch.ops import fewshot, kernels
+from fumi_tpu_torch.ops import metrics as metrics_ops
 from fumi_tpu_torch.train import optim
 
 RAW_IMAGE_ENCODERS = ("conv4", "resnet12")
@@ -197,14 +203,145 @@ def build_fumi_family(cfg: Config, gen: torch.Generator) -> Family:
                   eval_reduce=dict(EVAL_REDUCE), model=model)
 
 
+def build_am3_family(cfg: Config, gen: torch.Generator) -> Family:
+    """AM3's prototypical episode. Metrics come from the meta-batch's
+    confusion matrix (``sum``-reducible), from which accuracy and the
+    sklearn-macro P/R/F1 follow."""
+    _check_slice(cfg)
+    enc = text_encoders.make_text_encoder(cfg.text_encoder, gen,
+                                          cfg.text_emb_dim, cfg.fine_tune)
+    model = am3_mod.AM3(
+        im_emb_dim=cfg.im_emb_dim, prototype_dim=cfg.prototype_dim,
+        text_encoder=enc, text_emb_dim=enc.out_dim,
+        text_hid_dim=cfg.text_hid_dim, dropout=cfg.dropout,
+        fine_tune=cfg.fine_tune, lamda_fixed=cfg.lamda_fixed)
+    params = model.init_params(gen)
+    N = cfg.num_ways
+
+    def train_loss(p, episode, gen):
+        loss, aux = model.episode_loss(p, episode, N, gen, train=True)
+        preds = fewshot.predict_classes(aux["prototypes"].detach(),
+                                        aux["query_emb"].detach())
+        conf = metrics_ops.confusion_matrix(episode.query_y, preds, N)
+        return loss, {"conf": conf, "avg_lamda": aux["avg_lamda"],
+                      "preds": preds}
+
+    def eval_raw(p, episode, gen):
+        loss, aux = model.episode_loss(p, episode, N, gen, train=False)
+        preds = fewshot.predict_classes(aux["prototypes"], aux["query_emb"])
+        conf = metrics_ops.confusion_matrix(episode.query_y, preds, N)
+        return {"loss": loss, "conf": conf, "avg_lamda": aux["avg_lamda"],
+                "preds": preds, "targets": episode.query_y,
+                "lamda": aux["lamda"][..., 0]}
+
+    def eval_finalize(raw):
+        """acc, prec, rec and f1 of one meta-batch's confusion matrix."""
+        return {"loss": raw["loss"], **metrics_ops.conf_metrics(raw["conf"]),
+                "avg_lamda": raw["avg_lamda"],
+                **{k: raw[k] for k in ("preds", "targets", "lamda")
+                   if k in raw}}
+
+    return Family(name="am3", params=params, train_loss=train_loss,
+                  eval_raw=eval_raw, eval_finalize=eval_finalize,
+                  eval_reduce={"loss": "mean", "conf": "sum",
+                               "avg_lamda": "mean", "preds": "concat",
+                               "targets": "concat", "lamda": "concat"},
+                  model=model)
+
+
+def embedding_head_init(cfg: Config, gen: torch.Generator
+                        ) -> Dict[str, torch.Tensor]:
+    """ProtoNet's and MatchingNet's params: one Linear(im_emb_dim →
+    prototype_dim) named ``image_encoder`` (the JAX package keeps it as a
+    bare ``{"w", "b"}`` layer)."""
+    w, b = layers.linear_init(gen, cfg.im_emb_dim, cfg.prototype_dim)
+    return {"image_encoder.weight": w, "image_encoder.bias": b}
+
+
+def embed_images(p, x: torch.Tensor) -> torch.Tensor:
+    """ProtoNet's and MatchingNet's embedding of (..., im_emb_dim) rows."""
+    return layers.linear(p["image_encoder.weight"], p["image_encoder.bias"],
+                         x)
+
+
+def image_prototypes(emb: torch.Tensor, targets: torch.Tensor,
+                     num_ways: int) -> torch.Tensor:
+    """ProtoNet's class prototypes (B, N, P): the λ-fused prototypes with
+    λ ≡ 1, the image embeddings alone."""
+    lam = torch.ones(emb.shape[:-1] + (1,), dtype=emb.dtype,
+                     device=emb.device)
+    return fewshot.get_prototypes(emb, emb, lam, targets, num_ways)
+
+
+def _no_inner_loop_family(name: str, params, raw_fn) -> Family:
+    """A family whose episode is ``raw_fn(p, episode) -> (loss, preds)``."""
+    def metrics(p, episode):
+        loss, preds = raw_fn(p, episode)
+        acc = (preds == episode.query_y).to(torch.float32).mean()
+        return loss, preds, acc
+
+    def train_loss(p, episode, gen):
+        loss, preds, acc = metrics(p, episode)
+        return loss, {"acc": acc, "preds": preds}
+
+    def eval_raw(p, episode, gen):
+        loss, preds, acc = metrics(p, episode)
+        return {"loss": loss, "acc": acc, "preds": preds,
+                "targets": episode.query_y}
+
+    return Family(name=name, params=params, train_loss=train_loss,
+                  eval_raw=eval_raw, eval_finalize=lambda raw: raw,
+                  eval_reduce=dict(EVAL_REDUCE))
+
+
+def build_protonet_family(cfg: Config, gen: torch.Generator) -> Family:
+    """Prototypical Networks (Snell et al. 2017): class means of the
+    embedded support set, the queries' prototypical cross-entropy."""
+    _check_slice(cfg)
+    N = cfg.num_ways
+
+    def raw(p, episode):
+        protos = image_prototypes(embed_images(p, episode.support_im),
+                                  episode.support_y, N)
+        q_e = embed_images(p, episode.query_im)  # (B, NQ, P)
+        return (fewshot.prototypical_loss(protos, q_e, episode.query_y),
+                fewshot.predict_classes(protos, q_e))
+    return _no_inner_loop_family("protonet", embedding_head_init(cfg, gen),
+                                 raw)
+
+
+def build_matchingnet_family(cfg: Config, gen: torch.Generator) -> Family:
+    """Matching Networks (Vinyals et al. 2016, without full context
+    embeddings): queries attend over the support samples with softmaxed
+    cosine similarity and sum their one-hot labels."""
+    _check_slice(cfg)
+    N = cfg.num_ways
+
+    def raw(p, episode):
+        probs = fewshot.matching_probs(embed_images(p, episode.support_im),
+                                       episode.support_y,
+                                       embed_images(p, episode.query_im), N)
+        picked = torch.gather(probs, -1,
+                              episode.query_y.long().unsqueeze(-1))[..., 0]
+        return (-torch.log(picked + 1e-8).mean(),
+                torch.argmax(probs, dim=-1).to(torch.int32))
+    return _no_inner_loop_family("matchingnet",
+                                 embedding_head_init(cfg, gen), raw)
+
+
+FAMILY_BUILDERS = {"maml": build_maml_family, "fumi": build_fumi_family,
+                   "am3": build_am3_family,
+                   "protonet": build_protonet_family,
+                   "matchingnet": build_matchingnet_family}
+
+
 def build_family(cfg: Config, gen: torch.Generator) -> Family:
-    if cfg.model == "maml":
-        return build_maml_family(cfg, gen)
-    if cfg.model == "fumi":
-        return build_fumi_family(cfg, gen)
-    raise NotImplementedError(
-        f"model {cfg.model!r} is not ported yet (ROADMAP.md Queue 1, "
-        "item 5: the other families)")
+    builder = FAMILY_BUILDERS.get(cfg.model)
+    if builder is None:
+        raise NotImplementedError(
+            f"model {cfg.model!r} is not ported yet (ROADMAP.md Queue 1, "
+            "item 5: the other families)")
+    return builder(cfg, gen)
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +386,9 @@ def value_and_grad(family: Family, params, episode, gen):
                                     allow_unused=True)
     grads = {k: torch.zeros_like(v) if g is None else g
              for (k, v), g in zip(leaves.items(), grads)}
+    # aux leaves (AM3's avg_lamda) must not keep the step's graph alive
+    aux = {k: v.detach() if torch.is_tensor(v) else v
+           for k, v in aux.items()}
     return (loss.detach(), aux), grads
 
 
@@ -278,13 +418,18 @@ def steps_from_family(family: Family, opt: optim.Optimizer) -> FamilySteps:
 def component_partition(tree: Dict[str, torch.Tensor], family: str
                         ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The JAX package's top-level components of a flat state dict: MAML's
-    layer tuple is ``layer0``, ``layer1``, ...; FuMI's dict is
-    ``text_encoder`` / ``hyper_net`` / ``im_net``, the first part of each
-    name (an empty component has no entries, so it is absent)."""
+    layer tuple is ``layer0``, ``layer1``, ...; ProtoNet's and
+    MatchingNet's bare linear is ``w`` and ``b``; FuMI's and AM3's dicts
+    are the first part of each name (``text_encoder`` / ``hyper_net`` /
+    ``im_net``; ``image_encoder`` / ``text_encoder`` / ``g`` / ``h``). An
+    empty component has no entries, so it is absent."""
     if family == "maml":
         return {f"layer{i}": {name + ".weight": tree[name + ".weight"],
                               name + ".bias": tree[name + ".bias"]}
                 for i, name in enumerate(mlp.layer_names(tree))}
+    if family in ("protonet", "matchingnet"):
+        return {c: {k: tree[k]} for c, k in (
+            ("w", "image_encoder.weight"), ("b", "image_encoder.bias"))}
     parts: Dict[str, Dict[str, torch.Tensor]] = {}
     for k, v in tree.items():
         parts.setdefault(k.split(".", 1)[0], {})[k] = v
@@ -302,7 +447,8 @@ def per_layer_grad_norms(grads, family: str) -> Dict[str, torch.Tensor]:
 
 
 def _train_metrics(family: Family, loss, aux, episode, grads=None) -> Dict:
-    """Per-train-step metrics: loss, acc, and the global and per-component
+    """Per-train-step metrics: loss, acc (AM3: acc, prec, rec, f1 and
+    avg_lamda from the confusion matrix), and the global and per-component
     gradient norms when grads are supplied."""
     extra = {}
     if grads is not None:
@@ -310,6 +456,9 @@ def _train_metrics(family: Family, loss, aux, episode, grads=None) -> Dict:
         # the components partition the grads: the global norm follows
         extra["grad_norm"] = torch.sqrt(sum(v * v for v in per_layer.values()))
         extra.update(per_layer)
+    if family.name == "am3":
+        return {"loss": loss, **metrics_ops.conf_metrics(aux["conf"]),
+                "avg_lamda": aux["avg_lamda"], **extra}
     return {"loss": loss, "acc": aux["acc"], **extra}
 
 
@@ -361,8 +510,8 @@ def make_chunked_eval(family: Family, sampler, collect: bool = False
                       ) -> Callable:
     """``(params, gen, n) -> (gen, metrics)`` over ``n`` device-sampled eval
     meta-batches; scalar metrics stack to ``(n,)``. With ``collect``,
-    per-query predictions/targets and the episode's image ids ride
-    along."""
+    per-query predictions/targets, AM3's per-support λ and the episode's
+    image ids ride along."""
     def run(params, gen, n):
         per_step = []
         with torch.no_grad():
@@ -372,8 +521,8 @@ def make_chunked_eval(family: Family, sampler, collect: bool = False
                                                            gen))
                 m = {k: v for k, v in out.items() if v.dim() == 0}
                 if collect:
-                    for k in ("preds", "targets"):
-                        m[k] = out[k]
+                    m.update({k: out[k] for k in ("preds", "targets",
+                                                  "lamda") if k in out})
                     m["query_idx"] = episode.query_ids
                     m["support_idx"] = episode.support_ids
                 per_step.append(m)

@@ -236,8 +236,10 @@ def test_auto_resume_continues_the_counter_of_its_own_family(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--model", "am3"], "item 5"), (["--model", "clip"], "item 5"),
-    (["--model", "protonet"], "item 5"), (["--dataset", "cub"], "item 5"),
+    (["--model", "am3", "--text_encoder", "glove"], "item 5"),
+    (["--model", "clip"], "item 5"),
+    (["--model", "protonet", "--dataset", "cub"], "item 5"),
+    (["--dataset", "cub"], "item 5"),
     (["--tpu_host_sampler"], "item 4"), (["--tpu_seed_sweep", "2"],
                                          "item 9"),
     (["--tpu_mesh_mp", "2"], "item 9"), (["--tpu_ema", "0.9"], "item 10"),

@@ -554,6 +554,150 @@ def test_train_step_on_card_matches_cpu(cuda_device, model):
                                    err_msg=k)
 
 
+def test_am3_train_step_on_card_matches_cpu(cuda_device):
+    """One AM3 train step (prototypes, no inner loop) from the same weights
+    on the same episode, dropout 0: fp32 on both, summed in other orders,
+    1e-4; the confusion matrix and the predictions exactly."""
+    cfg = Config(model="am3", dataset="synthetic", im_emb_dim=64,
+                 text_emb_dim=16, prototype_dim=16, text_hid_dim=16,
+                 num_ways=3, num_shots=2, num_shots_test=4, batch_size=2,
+                 dropout=0.0, optim="SGD", lr=0.1, text_encoder="BERT",
+                 seed=0)
+    cs, table, ids = synthetic.synthetic_class_set(
+        num_classes=10, images_per_class=12, im_dim=64, text_dim=16)
+    smp = sampler.DeviceEpisodeSampler(
+        table, ids, cs, EpisodeSpec(2, 3, 2, 4, 64, 16),
+        use_pallas_gather=True, device=cuda_device)
+    episode = smp.sample(smp.generator(0))
+    card = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                            device=cuda_device)
+    host = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    host_ep = Episode(*(None if t is None else t.cpu() for t in episode))
+    (_, a_card), _ = steps.value_and_grad(card.family, card.params, episode,
+                                          None)
+    (_, a_host), _ = steps.value_and_grad(host.family, host.params, host_ep,
+                                          None)
+    assert torch.equal(a_card["conf"].cpu(), a_host["conf"])
+    assert torch.equal(a_card["preds"].cpu(), a_host["preds"])
+    p_card, _, m_card = card.train_step(
+        card.params, card.opt.init(card.params), episode, None)
+    p_host, _, m_host = host.train_step(
+        host.params, host.opt.init(host.params), host_ep, None)
+    assert set(m_card) == set(m_host)
+    for k in m_host:
+        np.testing.assert_allclose(float(m_card[k]), float(m_host[k]),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+    for k in p_host:
+        np.testing.assert_allclose(p_card[k].cpu().numpy(),
+                                   p_host[k].numpy(), rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+
+
+def _driver_run(log_dir, model):
+    """A run dir the port's driver wrote on the card, and its config."""
+    import glob
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.config import config_from_args
+    argv = ["--model", model, "--dataset", "synthetic", "--im_emb_dim",
+            "128", "--text_emb_dim", "16", "--im_hid_dim", "32", "16",
+            "--text_hid_dim", "16", "--prototype_dim", "16", "--num_ways",
+            "3", "--num_shots", "2", "--num_shots_test", "4", "--batch_size",
+            "2", "--num_ep_test", "4", "--epochs", "4", "--eval_freq", "2",
+            "--num_train_adapt_steps", "2", "--num_test_adapt_steps", "10",
+            "--step_size", "0.1", "--lr", "0.01", "--text_encoder",
+            "precomputed", "--seed", "0", "--wandb_offline",
+            "--tpu_pallas_gather", "--log_dir", str(log_dir)]
+    cli_main.cli(argv)
+    (run,) = glob.glob(os.path.join(str(log_dir), "runs", "*"))
+    return config_from_args(argv), run
+
+
+@pytest.mark.parametrize("model", ["fumi", "maml", "am3", "protonet",
+                                   "matchingnet"])
+def test_serving_from_checkpoint_on_card(cuda_device, tmp_path, model):
+    """``from_checkpoint`` on a run dir the driver wrote on the card gives
+    bitwise the logits of a classifier on ``load_checkpoint``'s params (the
+    same kernel on the same inputs); a FuMI/MAML request launches
+    ``fused_adapt`` once; ``reload(best=False)`` swaps the weights and
+    drops the adapted state."""
+    from fumi_tpu_torch.train import checkpoint
+    cfg, run = _driver_run(tmp_path, model)
+    clf = FewShotClassifier.from_checkpoint(run, cfg)
+    assert clf.device.type == "cuda"
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                          device=cuda_device)
+    params, _, _ = checkpoint.load_checkpoint(run, st.params,
+                                              st.opt.init(st.params))
+    ref = FewShotClassifier(cfg, params)
+    rng = np.random.RandomState(0)
+    s_im = rng.randn(6, 128).astype(np.float32)
+    s_tx = rng.randn(6, 16).astype(np.float32)
+    s_y = np.repeat(np.arange(3), 2).astype(np.int32)
+    q_im = rng.randn(7, 128).astype(np.float32)
+    before = kernels.fused_adapt.launches
+    got = clf.episode_logits(s_im, s_y, q_im, support_text=s_tx)
+    fused = model in ("fumi", "maml")
+    assert kernels.fused_adapt.launches - before == int(fused)
+    np.testing.assert_array_equal(
+        got, ref.episode_logits(s_im, s_y, q_im, support_text=s_tx))
+    assert got.shape == (7, 3) and np.isfinite(got).all()
+    clf.adapt(s_im, s_tx, s_y)
+    clf.reload(run, best=False)
+    with pytest.raises(RuntimeError):
+        clf.classify(q_im)
+    assert np.isfinite(clf.episode_logits(s_im, s_y, q_im,
+                                          support_text=s_tx)).all()
+
+
+def test_http_on_card(cuda_device):
+    """The HTTP front-end on the card: health says cuda, and /v1/episode
+    answers the in-process labels and probabilities within 1e-5 from a
+    worker thread's launch of ``fused_adapt``."""
+    import json
+    import threading
+    import urllib.request
+    from fumi_tpu_torch import serve_http
+    from fumi_tpu_torch.serve import _np_softmax
+    cfg = Config(model="fumi", dataset="synthetic", im_emb_dim=128,
+                 text_emb_dim=16, im_hid_dim=(32, 16), text_hid_dim=16,
+                 num_ways=3, num_shots=2, num_test_adapt_steps=20,
+                 step_size=0.1, dropout=0.0, text_encoder="precomputed",
+                 seed=0)
+    clf = FewShotClassifier(cfg)
+    server = serve_http.make_server(clf, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def call(path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        with opener.open(urllib.request.Request(url + path, data=data),
+                         timeout=120) as resp:
+            return json.loads(resp.read())
+    try:
+        assert call("/healthz")["backend"] == "cuda"
+        rng = np.random.RandomState(1)
+        s_im = rng.randn(6, 128).astype(np.float32)
+        s_tx = rng.randn(6, 16).astype(np.float32)
+        s_y = np.repeat(np.arange(3), 2).astype(np.int32)
+        q_im = rng.randn(9, 128).astype(np.float32)
+        body = {"support_im": s_im.tolist(), "support_y": s_y.tolist(),
+                "query_im": q_im.tolist(), "support_text": s_tx.tolist()}
+        before = kernels.fused_adapt.launches
+        probs = np.asarray(call("/v1/episode",
+                                {**body, "return": "probs"})["result"])
+        labels = call("/v1/episode", body)["result"]
+        assert kernels.fused_adapt.launches - before == 2
+        want = clf.episode_logits(s_im, s_y, q_im, support_text=s_tx)
+        np.testing.assert_allclose(probs, _np_softmax(want), rtol=1e-5,
+                                   atol=1e-5)
+        assert labels == want.argmax(-1).tolist()
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
 if __name__ == "__main__":
     sys.exit(pytest.main([__file__, "-m", "cuda", "-q", "--noconftest",
                           "-p", "no:cacheprovider"]))

@@ -177,3 +177,27 @@ def test_the_driver_defaults_to_cuda(monkeypatch, tmp_path):
         cli_main.cli(args)
     assert port_config.config_from_args(args + ["--disable_cuda"]) \
         .disable_cuda
+
+
+def test_the_serving_and_family_modules_are_among_those_checked():
+    """The HTTP front-end, AM3 and the metrics are walked by the import
+    checks above: no JAX and nothing of fumi_tpu at run time."""
+    assert {"fumi_tpu_torch.serve_http", "fumi_tpu_torch.models.am3",
+            "fumi_tpu_torch.ops.metrics"} <= set(port_modules())
+
+
+def test_the_server_defaults_to_cuda(monkeypatch, tmp_path):
+    """The HTTP server's classifier and ``from_checkpoint`` ask for CUDA
+    and raise where it is missing, unless ``--disable_cuda`` or
+    device='cpu' asks for the CPU."""
+    from fumi_tpu_torch import serve_http
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = port_config.Config(model="protonet", dataset="synthetic",
+                             im_emb_dim=16, prototype_dim=4, num_ways=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_http.build_classifier(cfg, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FewShotClassifier.from_checkpoint(str(tmp_path), cfg)
+    clf = serve_http.build_classifier(cfg.replace(disable_cuda=True), None)
+    assert clf.device.type == "cpu"
+    assert serve_http.FewShotService(clf).healthz()["backend"] == "cpu"
