@@ -61,6 +61,29 @@ fails:
 7d. the driver for AM3 at the parser's defaults (``--augment
    --tpu_pallas_gather``, phase 7's epochs), then AM3 ``--evaluate
    --checkpoint``: the TEST line, the CSV with ``support_lamda``;
+7e. CLIP at the parser's widths (text 768, image 2048, latent 512): one
+   train step card against CPU; the driver (``--model clip --batch_size
+   64 --epochs 3``: ``ckpt/``, ``best/``, the TEST line) and
+   ``--evaluate`` reproducing its accuracy exactly; ``ClipRetrieval``
+   from that run (index the 2048-row table, retrieve 100 texts top-5
+   against the CPU, ``similarity`` bitwise ``model.forward``);
+   ``ClipService`` on loopback (409 before an index, every route against
+   the in-process answers); train steps/s and the busy share, index and
+   retrieve ms, HTTP retrieve beside in process. No kernel launches;
+7f. the token text encoders at the full width for FuMI and AM3 (RNN:
+   300-wide embeddings into 2 × 384; glove: 300, mean pooling; RNNhid and
+   w2v once each) on the driver's synthetic tokens, padded to every
+   length 1..12: training on the device sampler (one
+   ``gather_episode_rows`` a step, the frozen encoder bitwise unchanged),
+   one FuMI and one AM3 RNN step card against CPU, a FuMI RNN
+   ``--fine_tune`` step, FuMI RNN eval through ``fused_adapt`` against the
+   engine, a served request with descriptions of mixed length through
+   ``fused_adapt`` against the engine, the driver for FuMI RNN and AM3
+   glove (``vocab.json``), serving the FuMI run dir in process and over
+   HTTP (400 without ``support_text`` and for a token id outside the
+   embedding table, the next request still answered as before); train
+   episodes/s beside the BERT runs, the encoder's device ms a meta-batch,
+   the busy share;
 8. time each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, and each path; time a
    FuMI R=1 request through ``fused_adapt`` and through the autograd
@@ -76,7 +99,7 @@ fails:
 9. print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Every path of phases 4-7d sets the kernels' launch counts to 0 just before
+Every path of phases 4-7f sets the kernels' launch counts to 0 just before
 it runs and reads them just after; it fails if it did not launch each
 kernel it runs, as many times as the path runs it.
 
@@ -86,6 +109,7 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -129,6 +153,17 @@ DRIVER_EPOCHS, DRIVER_EVAL_FREQ, DRIVER_EP_TEST = 20, 10, 32
 DRIVER_TRAIN_STEPS = DRIVER_EPOCHS + 1
 DRIVER_TEST_BATCHES = DRIVER_EP_TEST // B + 1
 DRIVER_EVAL_BATCHES = 3 * (DRIVER_EP_TEST // B // 2 + 1) + DRIVER_TEST_BATCHES
+# phase 7e, CLIP at the parser's widths (text E, image D, latent 512): the
+# driver's batches and epochs (lr 1e-3, so that 3 epochs improve on the
+# first validation and write best/), 100 texts ranked top-5 against the
+# 2048-row table, 256 gallery rows over HTTP; scores within 1e-5
+CLIP_BATCH, CLIP_EPOCHS, CLIP_LR = 64, 3, 1e-3
+CLIP_TEXTS, CLIP_TOP_K, CLIP_HTTP_ROWS, CLIP_TOL = 100, 5, 256, 1e-5
+# phase 7f, the token encoders: the driver's synthetic tokens (12 a class,
+# a vocabulary of 128), chunks of 20 train steps
+TOKEN_LEN, TOKEN_VOCAB, TOKEN_CHUNK = 12, 128, 20
+TOKEN_CASES = (("fumi", "RNN"), ("am3", "RNN"), ("fumi", "glove"),
+               ("am3", "glove"), ("fumi", "RNNhid"), ("am3", "w2v"))
 
 
 def fail(msg: str) -> None:
@@ -588,7 +623,7 @@ def train_cfg(Config, model: str, **kw):
                   pallas_gather=True, seed=0, **kw)
 
 
-def train_step_card_vs_cpu(cfg, smp, dev, episode=None):
+def train_step_card_vs_cpu(cfg, smp, dev, episode=None, dictionary=None):
     """One train step on the card and on the CPU from the same weights on
     the same episode (``smp``'s, unless ``episode`` is given), dropout 0.
 
@@ -613,7 +648,7 @@ def train_step_card_vs_cpu(cfg, smp, dev, episode=None):
     runs = {}
     for where, device in (("card", dev), ("cpu", "cpu")):
         st = steps.make_steps(cfg0, torch.Generator().manual_seed(0),
-                              device=device)
+                              device=device, dictionary=dictionary)
         ep = Episode(*(None if t is None else t.to(device) for t in episode))
         (loss, _), grads = steps.value_and_grad(st.family, st.params, ep,
                                                 None)
@@ -624,6 +659,15 @@ def train_step_card_vs_cpu(cfg, smp, dev, episode=None):
         runs[where] = (float(loss), {k: v.cpu() for k, v in grads.items()},
                        {k: v.cpu() for k, v in st.params.items()},
                        {k: v.cpu() for k, v in new.items()})
+    token = f" {cfg.text_encoder}" if dictionary is not None else ""
+    hold_step(f"train step {cfg.model}{token}", runs, LR, cfg.weight_decay)
+
+
+def hold_step(label: str, runs, lr: float, weight_decay: float) -> None:
+    """One step's ``(loss, grads, params before, params after)`` on the
+    card against the CPU (``runs["card"]``, ``runs["cpu"]``), with the
+    tolerances :func:`train_step_card_vs_cpu` states for a fresh Adam
+    step at ``lr`` with coupled L2 ``weight_decay``."""
     (l_card, g_card, _, p_card), (l_cpu, g_cpu, p0, p_cpu) = (
         runs["card"], runs["cpu"])
     p_err = g_err = 0.0
@@ -637,18 +681,22 @@ def train_step_card_vs_cpu(cfg, smp, dev, episode=None):
             g_err, worst = err / g_tol, f"{k} {err:.3e}"
         ok &= err <= g_tol
         diff = (p_card[k] - p_cpu[k]).abs()
-        g_eff = g + cfg.weight_decay * p0[k]
+        g_eff = g + weight_decay * p0[k]
         off = diff > 1e-6
         flipped += int(off.sum())
         ok &= bool((g_eff[off].abs() <= g_tol).all())
-        ok &= bool((diff <= 2.001 * LR).all())
+        ok &= bool((diff <= 2.001 * lr).all())
         p_err = max(p_err, float(diff.max()))
-    print(f"train step {cfg.model} card vs cpu: loss {l_card:.6f} vs "
-          f"{l_cpu:.6f}; gradients at {g_err:.3f} of their tolerance at "
-          f"most ({worst}); updated params max|diff| {p_err:.3e}, "
-          f"{flipped} entries off by more than 1e-6")
+    print(f"{label} card vs cpu: loss {l_card:.6f} vs "
+          f"{l_cpu:.6f} (tolerance 1e-4 of itself); gradients at "
+          f"{g_err:.3f} of their tolerance (1e-4 of the tensor's largest "
+          f"entry + 1e-5 of the gradient's, {g_all:.3e}) at most "
+          f"({worst}); updated "
+          f"params max|diff| {p_err:.3e}, {flipped} entries off by more "
+          f"than 1e-6 (each where the gradient is within its tolerance of "
+          f"0, by at most 2·lr)")
     if not ok:
-        fail(f"train step {cfg.model}: card and CPU disagree")
+        fail(f"{label}: card and CPU disagree")
 
 
 def driver_runs(root: str, reset_counts, read_counts, by_path):
@@ -805,26 +853,16 @@ def checkpoint_serving(runs, request, dev, reset_counts, read_counts,
     return clfs, load_ms
 
 
-def http_serving(clf, run, request, batch, dev, reset_counts, read_counts,
-                 by_path):
-    """Phase 7b: ``serve_http.make_server`` on 127.0.0.1, port 0, in a
-    thread, serving the FuMI classifier loaded from its run dir: health
-    says cuda; ``/v1/episode`` answers the in-process labels and
-    probabilities within 1e-5; ``/v1/episode_batch`` (R=4), ``/v1/adapt``
-    then ``/v1/classify``, and ``/v1/reload`` (409 after it); four
-    concurrent requests run one at a time on worker threads, on each
-    thread's current stream. Returns the median request latency through
-    HTTP and in process (ms, 20 calls each)."""
-    import json
+@contextlib.contextmanager
+def loopback(clf):
+    """``serve_http.make_server(clf)`` on 127.0.0.1, port 0, in a thread.
+    Yields ``call(path, body=None) -> (status, JSON answer)``: a GET
+    without a body, else a POST of ``body`` (bytes as they are, anything
+    else as JSON). Stops the server on the way out."""
     import threading
     import urllib.error
     import urllib.request
-    import numpy as np
-    import torch
     from fumi_tpu_torch import serve_http
-    from fumi_tpu_torch.serve import _np_softmax
-    s_im, s_y, q_im, s_tx = request
-    b_im, b_y, b_q, b_tx = batch
     server = serve_http.make_server(clf, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -840,7 +878,32 @@ def http_serving(clf, run, request, batch, dev, reset_counts, read_counts,
                 return resp.status, json.loads(resp.read())
         except urllib.error.HTTPError as e:
             return e.code, json.loads(e.read())
+    try:
+        yield call
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
 
+
+def http_serving(clf, run, request, batch, dev, reset_counts, read_counts,
+                 by_path):
+    """Phase 7b: ``serve_http.make_server`` on 127.0.0.1, port 0, in a
+    thread, serving the FuMI classifier loaded from its run dir: health
+    says cuda; ``/v1/episode`` answers the in-process labels and
+    probabilities within 1e-5; ``/v1/episode_batch`` (R=4), ``/v1/adapt``
+    then ``/v1/classify``, and ``/v1/reload`` (409 after it); four
+    concurrent requests run one at a time on worker threads, on each
+    thread's current stream. Returns the median request latency through
+    HTTP and in process (ms, 20 calls each)."""
+    import threading
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.serve import _np_softmax
+    s_im, s_y, q_im, s_tx = request
+    b_im, b_y, b_q, b_tx = batch
+    server = contextlib.ExitStack()
+    call = server.enter_context(loopback(clf))
     one = {"support_im": s_im.tolist(), "support_y": s_y.tolist(),
            "query_im": q_im.tolist(), "support_text": s_tx.tolist()}
     many = {"support_im": b_im.tolist(), "support_y": b_y.tolist(),
@@ -961,9 +1024,7 @@ def http_serving(clf, run, request, batch, dev, reset_counts, read_counts,
               f"{', '.join(f'{t:.3f}' for t in turns['in process'])})")
     finally:
         clf.episode_logits = inner
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=60)
+        server.close()
     return ms
 
 
@@ -1168,6 +1229,580 @@ def am3_driver(root, reset_counts, read_counts, by_path) -> dict:
     if counts != expect:
         fail(f"driver am3 --evaluate: launches {counts}, expected {expect}")
     return walls
+
+
+def clip_phase(root, dev, reset_counts, read_counts, by_path) -> dict:
+    """Phase 7e: CLIP at the parser's widths (text 768, image 2048, latent
+    512) on the driver's synthetic data (32 classes × 64 images; the train
+    split's 19 classes make a deduped batch of at most 19 valid rows).
+
+    - One train step (the masked symmetric CE of a deduped batch of 64,
+      Adam from a fresh state), card against CPU (:func:`hold_step`).
+    - The driver: ``cli.main --model clip --dataset synthetic --batch_size
+      64 --epochs 3 --lr 1e-3``: ``ckpt/``, ``best/``, the ``TEST: test
+      acc`` line; then ``--evaluate --checkpoint`` on its run reproduces
+      the accuracy exactly.
+    - ``ClipRetrieval.from_checkpoint`` on that run: ``index`` the
+      2048-row table, ``retrieve`` 100 texts top-5 against the CPU (scores
+      within 1e-5; indices equal wherever the CPU's neighbouring scores
+      differ by more than that), ``similarity`` bitwise ``model.forward``.
+    - ``ClipService`` on loopback: retrieve before any index (409), index
+      (256 rows), retrieve, similarity, reload (the gallery dropped: 409),
+      healthz; each answer equal to the in-process one.
+    - Times: train steps/s (host clock over 2 epochs after a warm one) and
+      the device busy share of an epoch (``torch.profiler``), ``index``
+      and ``retrieve`` in ms, HTTP ``retrieve`` beside in process.
+
+    No path launches a kernel of ``ops/kernels.py``. Returns the times."""
+    import contextlib
+    import glob
+    import io
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.config import Config, config_from_args
+    from fumi_tpu_torch.data.supervised import (epoch_batches,
+                                                supervised_from_class_set)
+    from fumi_tpu_torch.serve import ClipRetrieval
+    from fumi_tpu_torch.train import clip_loop, optim
+    zero = {name: 0 for name in KERNEL_NAMES}
+    times = {}
+
+    # one train step, card against CPU, at the config's defaults (Adam
+    # 3e-5, coupled L2 5e-4)
+    cfg = Config(model="clip", dataset="synthetic", batch_size=CLIP_BATCH,
+                 seed=0)
+    splits, table, _, _ = cli_main._load_data(cfg)
+    train = (supervised_from_class_set(splits["train"]), table)
+    image, text, ids, valid_n = next(epoch_batches(
+        *train, CLIP_BATCH, np.random.RandomState(0)))
+    image, text, u = clip_loop.dedupe_batch(image, text, ids, valid_n)
+    model, p0 = clip_loop.make_clip(cfg, torch.Generator().manual_seed(0))
+    opt = optim.init_optim(cfg.optim, cfg.lr, cfg.weight_decay, cfg.momentum)
+    runs = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = {k: v.to(device) for k, v in p0.items()}
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        loss = clip_loop.masked_symmetric_ce(
+            model, leaves, torch.from_numpy(text).to(device),
+            torch.from_numpy(image).to(device), u)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        with torch.no_grad():
+            updates, _ = opt.update(grads, opt.init(p), p)
+            new = optim.apply_updates(p, updates)
+        runs[where] = (float(loss.detach()),) + tuple(
+            {k: v.detach().cpu() for k, v in t.items()}
+            for t in (grads, p, new))
+    hold_step(f"train step clip ({u} valid rows of {CLIP_BATCH})", runs,
+              cfg.lr, cfg.weight_decay)
+
+    # the driver, then --evaluate on its run
+    log_dir = os.path.join(root, "clip")
+    args = ["--model", "clip", "--dataset", "synthetic", "--batch_size",
+            str(CLIP_BATCH), "--epochs", str(CLIP_EPOCHS), "--lr",
+            str(CLIP_LR), "--seed", "0", "--wandb_offline", "--log_dir",
+            log_dir]
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = cli_main.cli(args)
+    times["driver clip s"] = time.perf_counter() - t0
+    by_path["driver clip"] = counts = read_counts()
+    sys.stdout.write(buf.getvalue())
+    (run,) = glob.glob(os.path.join(log_dir, "runs", "*"))
+    files = all(os.path.exists(os.path.join(run, n)) for n in (
+        "ckpt", "best", "ckpt.meta.json", "best.meta.json", "config.json"))
+    printed = f"TEST: test acc: {out['test/acc']}" in buf.getvalue()
+    print(f"main path, driver clip: TEST {out}; printed {printed}; ckpt/ "
+          f"and best/ {files}; {times['driver clip s']:.3f} s of wall "
+          f"time; launches {counts}")
+    if not (files and printed and 0.0 <= out["test/acc"] <= 1.0):
+        fail("driver clip: no TEST line, an accuracy out of [0, 1] or "
+             "missing artifacts")
+    if counts != zero:
+        fail(f"driver clip: launches {counts}, expected none")
+    reset_counts()
+    t0 = time.perf_counter()
+    again = cli_main.cli(args[:-1] + [log_dir + "_evaluate", "--evaluate",
+                                      "--checkpoint", run])
+    times["driver clip --evaluate s"] = time.perf_counter() - t0
+    by_path["driver clip --evaluate"] = counts = read_counts()
+    print(f"main path, driver clip --evaluate --checkpoint: TEST {again}; "
+          f"equal to the training run's test: {again == out} (tolerance "
+          f"0); launches {counts}")
+    if again != out or counts != zero:
+        fail(f"driver clip --evaluate: TEST {again} against {out}, "
+             f"launches {counts}")
+
+    # ClipRetrieval on the run dir, card against CPU
+    cfg = config_from_args(args)
+    rng = np.random.RandomState(5)
+    texts = rng.randn(CLIP_TEXTS, E).astype(np.float32)
+    reset_counts()
+    clf = ClipRetrieval.from_checkpoint(run, cfg, device=dev)
+    size = clf.index(table)
+    idx, scores = clf.retrieve(texts, CLIP_TOP_K)
+    sim = clf.similarity(texts[:8], table[:64])
+    with torch.no_grad():
+        fwd = clf.model.forward(clf.params,
+                                torch.from_numpy(texts[:8]).to(dev),
+                                torch.from_numpy(table[:64]).to(dev))
+    by_path["serve clip"] = counts = read_counts()
+    host = ClipRetrieval.from_checkpoint(run, cfg, device="cpu")
+    host.index(table)
+    h_idx, h_scores = host.retrieve(texts, CLIP_TOP_K + 1)
+    s_err = float(np.abs(scores - h_scores[:, :CLIP_TOP_K]).max())
+    # an index is held only where the CPU's scores around it are apart by
+    # more than the tolerance: ties within it may rank either way
+    gap = np.abs(np.diff(h_scores, axis=1)) > CLIP_TOL  # (M, K)
+    clear = gap[:, :CLIP_TOP_K] & np.concatenate(
+        [np.ones((CLIP_TEXTS, 1), bool), gap[:, :CLIP_TOP_K - 1]], axis=1)
+    idx_ok = np.array_equal(idx[clear], h_idx[:, :CLIP_TOP_K][clear])
+    bitwise = np.array_equal(sim, fwd.cpu().numpy())
+    print(f"main path, serve clip: from_checkpoint on the driver's run; "
+          f"index {size} rows; retrieve {CLIP_TEXTS} texts top-"
+          f"{CLIP_TOP_K} vs the CPU: scores max|diff| {s_err:.3e} "
+          f"(tolerance {CLIP_TOL}), indices equal on the "
+          f"{int(clear.sum())} of {clear.size} ranks apart from their "
+          f"neighbours by more than it: {idx_ok}; similarity bitwise "
+          f"model.forward: {bitwise}; launches {counts}")
+    if not (size == table.shape[0] and s_err <= CLIP_TOL and idx_ok
+            and bitwise and idx.shape == (CLIP_TEXTS, CLIP_TOP_K)):
+        fail("serve clip: retrieval on the card disagrees with the CPU")
+    if counts != zero:
+        fail(f"serve clip: launches {counts}, expected none")
+    times["index rows"] = size
+    times["index ms"] = 1e3 * statistics.median(
+        synced_s(lambda: clf.index(table)) for _ in range(5))
+    times["retrieve ms"] = host_ms(lambda: clf.retrieve(texts, CLIP_TOP_K),
+                                   reps=20)
+
+    # ClipService on loopback
+    with loopback(clf) as call:
+        gallery = table[:CLIP_HTTP_ROWS]
+        t_body = {"text": texts.tolist(), "top_k": CLIP_TOP_K}
+        reset_counts()
+        codes = {"reload": call("/v1/reload", {"checkpoint": run})[0]}
+        codes["retrieve before index"] = call("/v1/clip/retrieve",
+                                              t_body)[0]
+        codes["index"], indexed = call("/v1/clip/index",
+                                       {"images": gallery.tolist()})
+        codes["retrieve"], got = call("/v1/clip/retrieve", t_body)
+        codes["similarity"], got_sim = call("/v1/clip/similarity", {
+            "text": texts[:8].tolist(), "images": gallery[:64].tolist()})
+        status, health = call("/healthz")
+        by_path["http clip"] = counts = read_counts()
+        want_idx, want_scores = clf.retrieve(texts, CLIP_TOP_K)
+        want_sim = clf.similarity(texts[:8], gallery[:64])
+        same = (got["indices"] == want_idx.tolist()
+                and np.array_equal(np.asarray(got["scores"], np.float32),
+                                   want_scores)
+                and np.array_equal(np.asarray(got_sim["similarity"],
+                                              np.float32), want_sim)
+                and indexed["gallery_size"] == CLIP_HTTP_ROWS)
+        codes["reload again"] = call("/v1/reload", {"checkpoint": run})[0]
+        codes["retrieve after reload"] = call("/v1/clip/retrieve",
+                                              t_body)[0]
+        dropped = call("/healthz")[1]["gallery"]
+        print(f"main path, http clip: status {codes}; /healthz {health}; "
+              f"answers equal to in process: {same}; gallery after reload "
+              f"{dropped}; launches {counts}")
+        want_codes = {"reload": 200, "retrieve before index": 409,
+                      "index": 200, "retrieve": 200, "similarity": 200,
+                      "reload again": 200, "retrieve after reload": 409}
+        if codes != want_codes or not same or dropped != 0 or \
+                health.get("model") != "clip" or \
+                health.get("backend") != "cuda" or \
+                health.get("gallery") != CLIP_HTTP_ROWS:
+            fail("http clip: status codes, health or answers differ")
+        if counts != zero:
+            fail(f"http clip: launches {counts}, expected none")
+        call("/v1/clip/index", {"images": gallery.tolist()})
+        body = json.dumps(t_body).encode()
+        times["http retrieve ms"] = host_ms(
+            lambda: call("/v1/clip/retrieve", body), reps=20)
+        times["in-process retrieve ms (gallery 256)"] = host_ms(
+            lambda: clf.retrieve(texts, CLIP_TOP_K), reps=20)
+
+    # training steps/s and the device busy share of an epoch
+    model, p = clip_loop.make_clip(cfg, torch.Generator().manual_seed(0))
+    p = {k: v.to(dev) for k, v in p.items()}
+    opt = optim.init_optim(cfg.optim, cfg.lr, cfg.weight_decay, cfg.momentum)
+    state = opt.init(p)
+    rng = np.random.RandomState(0)
+    p, state, n = clip_loop.train_epoch(cfg, model, opt, p, state, train,
+                                        rng)  # warm
+    box = {}
+    reset_counts()
+    seconds = synced_s(lambda: box.update(out=[
+        clip_loop.train_epoch(cfg, model, opt, p, state, train, rng)
+        for _ in range(2)]))
+    by_path["train clip"] = counts = read_counts()
+    times["train steps/s"] = 2 * n / seconds
+    traced = device_profile(lambda: clip_loop.train_epoch(
+        cfg, model, opt, p, state, train, rng))
+    if traced is not None:
+        times["train busy"] = (traced[0] / n, traced[1] / n,
+                               1e3 * seconds / (2 * n))
+    print(f"main path, train clip: 2 epochs of {n} steps (batch "
+          f"{CLIP_BATCH}) in {seconds:.3f} s = {times['train steps/s']:.1f} "
+          f"steps/s; launches {counts}" + (
+              "" if traced is None else
+              f"; device time {times['train busy'][0]:.3f} ms a step in "
+              f"{times['train busy'][1]:.0f} device operations "
+              f"(torch.profiler, one epoch) against "
+              f"{times['train busy'][2]:.3f} ms of wall time: busy "
+              f"{100 * times['train busy'][0] / times['train busy'][2]:.1f}%"))
+    if counts != zero:
+        fail(f"train clip: launches {counts}, expected none")
+    return times
+
+
+def padded_tokens(rng, rows: int):
+    """(rows, TOKEN_LEN) token ids from 1..TOKEN_VOCAB-1 whose lengths
+    cycle through 1..TOKEN_LEN, PAD (0) after the last."""
+    import numpy as np
+    toks = rng.randint(1, TOKEN_VOCAB, size=(rows, TOKEN_LEN))
+    lengths = 1 + np.arange(rows) % TOKEN_LEN
+    return np.where(np.arange(TOKEN_LEN) < lengths[:, None], toks,
+                    0).astype(np.int32)
+
+
+def token_encoders(Config, dev, root, reset_counts, read_counts, by_path,
+                   bert_eps) -> dict:
+    """Phase 7f: the token text encoders at the full width for FuMI and
+    AM3 (``RNN``: 300-wide embeddings into 2 × 384; ``glove``: 300, mean
+    pooling; ``RNNhid`` and ``w2v`` once each), on the driver's synthetic
+    token data (12 tokens a class, a vocabulary of 128) with the train
+    split's descriptions padded to every length 1..12.
+
+    - Train on the device sampler with the kernel gather at the flagship
+      training config (one ``gather_episode_rows`` a step and no other
+      kernel), the frozen encoder bitwise unchanged; one FuMI and one AM3
+      RNN step card against CPU (FuMI on a sampled episode, AM3 on
+      Gaussian image embeddings and padded tokens); FuMI RNN
+      ``--fine_tune``: the second-order step with the encoder in its
+      graph moves the encoder.
+    - Eval FuMI RNN through ``fused_adapt`` against the autograd engine.
+    - Serve a token FuMI request (descriptions of lengths 1..12) through
+      ``fused_adapt``, against the engine.
+    - The driver for FuMI RNN and AM3 glove (``vocab.json`` in the run
+      dir), ``from_checkpoint`` on the FuMI run, the same request in
+      process and over HTTP, one without ``support_text`` (400) and one
+      with a token id outside the embedding table (refused in process,
+      400 over HTTP; the next request answers as the first did).
+    - Times: train episodes/s beside the BERT runs (``bert_eps``), the
+      encoder's device ms a meta-batch, the busy share of a FuMI RNN step.
+
+    Returns the times."""
+    import dataclasses
+    import glob
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.config import config_from_args
+    from fumi_tpu_torch.core.episode import EpisodeSpec
+    from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler
+    from fumi_tpu_torch.data.synthetic import synthetic_dictionary
+    from fumi_tpu_torch.serve import (FewShotClassifier, RequestError,
+                                      _np_softmax)
+    from fumi_tpu_torch.train import checkpoint as ckpt_lib
+    from fumi_tpu_torch.train import steps
+    vocab = synthetic_dictionary(TOKEN_VOCAB)
+    times = {"train eps": {}, "encoder": {}}
+    splits, table_np, ids_np, _ = cli_main._load_data(
+        train_cfg(Config, "fumi").replace(text_encoder="RNN",
+                                          dataset="synthetic"))
+    train_cs = splits["train"]
+    train_cs = dataclasses.replace(train_cs, text_features=padded_tokens(
+        np.random.RandomState(3), train_cs.num_classes))
+    table = torch.from_numpy(table_np).to(dev)
+    smp = {q: DeviceEpisodeSampler(
+        table, ids_np, cs, EpisodeSpec(B, WAYS, SHOTS, q, D, TOKEN_LEN,
+                                       text_is_tokens=True),
+        use_pallas_gather=True, device=dev)
+        for q, cs in ((TRAIN_Q, train_cs), (EVAL_Q, splits["test"]))}
+    train_smp, eval_smp = smp[TRAIN_Q], smp[EVAL_Q]
+    ep = train_smp.sample(train_smp.generator(9))
+    if ep.support_text.dtype != torch.int32 or \
+            tuple(ep.support_text.shape) != (B, S, TOKEN_LEN):
+        fail(f"token sampler: support_text {ep.support_text.dtype} "
+             f"{tuple(ep.support_text.shape)}")
+    gauss = gaussian_episode(dev)._replace(support_text=torch.from_numpy(
+        padded_tokens(np.random.RandomState(4), B * S).reshape(
+            B, S, TOKEN_LEN)).to(dev))
+
+    trained = {}
+    for model, enc in TOKEN_CASES:
+        label = f"{model} {enc}"
+        cfg = train_cfg(Config, model).replace(text_encoder=enc,
+                                               prototype_dim=64)
+        st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                              device=dev, dictionary=vocab)
+        run = steps.make_chunked_train(st.family, st.opt, train_smp,
+                                       TOKEN_CHUNK)
+        p, s, gen, warm = run(st.params, st.opt.init(st.params),
+                              train_smp.generator(1))
+        box = {}
+        reset_counts()
+        seconds = synced_s(lambda: box.update(out=run(p, s, gen)))
+        by_path[f"train {label}"] = counts = read_counts()
+        p2, s2, gen2, ms = box["out"]
+        losses = torch.cat([warm["loss"], ms["loss"]])
+        frozen = all(torch.equal(p2[k], st.params[k]) for k in p2
+                     if k.startswith("text_encoder."))
+        eps = times["train eps"][label] = TOKEN_CHUNK * B / seconds
+        with torch.no_grad():
+            traced = device_profile(lambda: st.family.model.text_encoder
+                                    .apply(p2, ep.support_text))
+        if traced is not None:
+            times["encoder"][enc] = traced[:2]
+        print(f"main path, train {label}: 2 chunks of {TOKEN_CHUNK} steps, "
+              f"loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f}; "
+              f"timed chunk {seconds:.3f} s = {eps:.1f} episodes/s; frozen "
+              f"encoder bitwise unchanged: {frozen}; launches {counts}" + (
+                  "" if traced is None else
+                  f"; the encoder on a meta-batch's {B * S} descriptions: "
+                  f"{traced[0]:.3f} ms of device time in {traced[1]} "
+                  "device operations"))
+        expect = {name: 0 for name in KERNEL_NAMES}
+        expect["gather_episode_rows"] = TOKEN_CHUNK
+        if not (bool(torch.isfinite(losses).all()) and frozen):
+            fail(f"training {label}: non-finite losses or the frozen "
+                 "encoder moved")
+        if counts != expect:
+            fail(f"training {label}: launches {counts}, expected {expect}")
+        trained[label] = (cfg, p2)
+        if enc == "RNN":
+            # FuMI on a sampled episode, as phase 5 holds it; AM3's loss
+            # saturates on the synthetic table, so on Gaussian image
+            # embeddings, as phase 7c holds it
+            train_step_card_vs_cpu(cfg, train_smp, dev,
+                                   gauss if model == "am3" else None,
+                                   vocab)
+        if label == "fumi RNN":
+            traced = device_profile(lambda: run(p2, s2, gen2, 5))
+            if traced is not None:
+                times["busy"] = (traced[0] / 5, traced[1] / 5,
+                                 1e3 * seconds / TOKEN_CHUNK)
+
+    # --fine_tune: the second-order step with the encoder in its graph
+    cfg = train_cfg(Config, "fumi").replace(text_encoder="RNN",
+                                            fine_tune=True)
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0), device=dev,
+                          dictionary=vocab)
+    reset_counts()
+    p, _, _, ms = steps.make_chunked_train(st.family, st.opt, train_smp, 2)(
+        st.params, st.opt.init(st.params), train_smp.generator(2))
+    by_path["train fumi RNN --fine_tune"] = counts = read_counts()
+    moved = all(not torch.equal(p[k], st.params[k]) for k in p
+                if k.startswith("text_encoder.rnn."))
+    print(f"main path, train fumi RNN --fine_tune: 2 steps, loss "
+          f"{[round(float(x), 4) for x in ms['loss']]}; every LSTM weight "
+          f"moved: {moved}; launches {counts}")
+    if not (moved and bool(torch.isfinite(ms["loss"]).all())) or \
+            counts["gather_episode_rows"] != 2:
+        fail("training fumi RNN --fine_tune: the encoder did not train")
+
+    # eval FuMI RNN through fused_adapt against the autograd engine
+    cfg, params = trained["fumi RNN"]
+    out = {}
+    for path, fused in (("fused kernel", True), ("autograd engine", False)):
+        family = steps.build_family(cfg.replace(pallas_fused_eval=fused),
+                                    torch.Generator().manual_seed(0), vocab)
+        run = steps.make_chunked_eval(family, eval_smp)
+        run(params, eval_smp.generator(99), 1)  # warm
+        box = {}
+        reset_counts()
+        seconds = synced_s(lambda: box.update(
+            out=run(params, eval_smp.generator(3), EVAL_BATCHES)))
+        counts = read_counts()
+        out[path] = box["out"][1]
+        expect = {name: 0 for name in KERNEL_NAMES}
+        expect["gather_episode_rows"] = EVAL_BATCHES
+        expect["fused_adapt"] = EVAL_BATCHES if fused else 0
+        if fused:
+            by_path["eval fumi RNN"] = counts
+            times["eval eps"] = EVAL_BATCHES * B / seconds
+        print(f"{'main path, ' if fused else ''}eval fumi RNN through the "
+              f"{path}: {EVAL_BATCHES} meta-batches, loss "
+              f"{float(out[path]['loss'].mean()):.4f}; "
+              f"{EVAL_BATCHES * B / seconds:.1f} episodes/s; launches "
+              f"{counts}")
+        if counts != expect:
+            fail(f"eval fumi RNN through the {path}: launches {counts}, "
+                 f"expected {expect}")
+    k, e = out["fused kernel"], out["autograd engine"]
+    loss_diff = float((k["loss"] - e["loss"]).abs().max())
+    acc_diff = float((k["acc"] - e["acc"]).abs().max())
+    per_query = 1.0 / (B * WAYS * EVAL_Q)
+    print(f"eval fumi RNN: kernel vs engine per meta-batch: loss max|diff| "
+          f"{loss_diff:.3e} (tolerance 1e-3), acc max|diff| {acc_diff:.4f} "
+          f"(tolerance one query, {per_query:.4f})")
+    if not (loss_diff <= 1e-3 and acc_diff <= per_query + 1e-6):
+        fail("eval fumi RNN: fused kernel and autograd engine disagree")
+
+    # a served token FuMI request, descriptions of lengths 1..12
+    rng = np.random.RandomState(6)
+    s_im = rng.randn(S, D).astype(np.float32)
+    s_y = np.repeat(np.arange(WAYS), SHOTS).astype(np.int32)
+    q_im = rng.randn(QN, D).astype(np.float32)
+    s_tx = padded_tokens(rng, S)
+    b_tx = np.stack([padded_tokens(rng, S) for _ in range(B)])
+    b_im = rng.randn(B, S, D).astype(np.float32)
+    b_q = rng.randn(B, QN, D).astype(np.float32)
+    b_y = np.repeat(s_y[None], B, axis=0)
+    clf = FewShotClassifier(cfg, params, vocab, device=dev)
+    engine = FewShotClassifier(cfg, params, vocab, device=dev)
+    engine._episode_fn = engine._build_episode_fn(force_engine=True)
+    reset_counts()
+    one = clf.episode_logits(s_im, s_y, q_im, support_text=s_tx)
+    batch = clf.episode_logits_batch(b_im, b_y, b_q, support_text=b_tx)
+    by_path["serve fumi RNN"] = counts = read_counts()
+    got = np.concatenate([one[None], batch])
+    eng = np.concatenate([
+        engine.episode_logits(s_im, s_y, q_im, support_text=s_tx)[None],
+        engine.episode_logits_batch(b_im, b_y, b_q, support_text=b_tx)])
+    exact = np.concatenate([
+        served_exact("fumi", clf, s_im[None], s_y[None], q_im[None],
+                     s_tx[None]),
+        served_exact("fumi", clf, b_im, b_y, b_q, b_tx)])
+    diff = float(np.abs(got - eng).max())
+    ties, same = served_argmax(got, eng, exact)
+    print(f"main path, serve fumi RNN: a request with descriptions of "
+          f"lengths 1..{TOKEN_LEN} and a batch of {B}: kernel vs autograd "
+          f"engine max|diff| {diff:.3e} (tolerance 1e-3); argmax differs "
+          f"on {ties} rows, each a tie the fp64 loop decides for the "
+          f"kernel: {same}; launches {counts}")
+    if not (diff <= 1e-3 and same and np.isfinite(got).all()):
+        fail("serving fumi RNN: kernel and autograd engine disagree")
+    if counts != dict({name: 0 for name in KERNEL_NAMES}, fused_adapt=2):
+        fail(f"serve fumi RNN: launches {counts}, expected 2 fused_adapt")
+    times["request ms"] = host_ms(lambda: clf.episode_logits(
+        s_im, s_y, q_im, support_text=s_tx), reps=20)
+
+    # the driver for FuMI RNN and AM3 glove
+    runs = {}
+    for model, enc in (("fumi", "RNN"), ("am3", "glove")):
+        log_dir = os.path.join(root, f"{model}-{enc}")
+        args = ["--model", model, "--text_encoder", enc, "--dataset",
+                "synthetic", "--tpu_pallas_gather", "--tpu_pallas_fused_eval",
+                "--epochs", str(DRIVER_EPOCHS), "--eval_freq",
+                str(DRIVER_EVAL_FREQ), "--num_ep_test", str(DRIVER_EP_TEST),
+                "--seed", "0", "--wandb_offline", "--log_dir", log_dir]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = cli_main.cli(args)
+        times[f"driver {model} {enc} s"] = time.perf_counter() - t0
+        by_path[f"driver {model} {enc}"] = counts = read_counts()
+        (run,) = glob.glob(os.path.join(log_dir, "runs", "*"))
+        runs[model] = (run, args)
+        with open(os.path.join(run, "vocab.json")) as f:
+            shipped = json.load(f) == vocab
+        finite = all(np.isfinite(v) for v in res.values())
+        # FuMI validates at batches 10 and 20, AM3 at 0 too
+        val = (3 if model == "fumi" else 4) * (DRIVER_EP_TEST // B // 2 + 1)
+        expect = {name: 0 for name in KERNEL_NAMES}
+        expect["gather_episode_rows"] = (DRIVER_TRAIN_STEPS + val
+                                         + DRIVER_TEST_BATCHES)
+        if model == "fumi":
+            expect["fused_adapt"] = val + DRIVER_TEST_BATCHES
+        print(f"main path, driver {model} {enc}: TEST {res}; vocab.json "
+              f"the synthetic dictionary: {shipped}; "
+              f"{times[f'driver {model} {enc} s']:.3f} s of wall time; "
+              f"launches {counts}")
+        if not (finite and shipped):
+            fail(f"driver {model} {enc}: non-finite test metrics or no "
+                 "vocab.json")
+        if counts != expect:
+            fail(f"driver {model} {enc}: launches {counts}, expected "
+                 f"{expect}")
+
+    # serve the FuMI RNN run dir, in process and over HTTP
+    run, args = runs["fumi"]
+    cfg = config_from_args(args)
+    reset_counts()
+    clf = FewShotClassifier.from_checkpoint(run, cfg, device=dev)
+    got = clf.episode_logits(s_im, s_y, q_im, support_text=s_tx)
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(cfg.seed),
+                          device=dev, dictionary=vocab)
+    loaded, _, _ = ckpt_lib.load_checkpoint(run, st.params,
+                                            st.opt.init(st.params))
+    want = FewShotClassifier(cfg, loaded, vocab, device=dev).episode_logits(
+        s_im, s_y, q_im, support_text=s_tx)
+    by_path["serve fumi RNN from checkpoint"] = counts = read_counts()
+    err = float(np.abs(got - want).max())
+    print(f"main path, serve fumi RNN from checkpoint (vocab.json): "
+          f"max|diff| to a classifier on load_checkpoint's params "
+          f"{err:.3e} (tolerance 1e-6); launches {counts}")
+    if err > 1e-6 or counts["fused_adapt"] != 2:
+        fail("serving fumi RNN from its checkpoint disagrees")
+    # a token id past the embedding table is refused before the device
+    # sees it (an out-of-range index would fail the CUDA context)
+    refused = []
+    for bad_id in (TOKEN_VOCAB, -1):
+        bad = s_tx.copy()
+        bad[0, 0] = bad_id
+        try:
+            clf.episode_logits(s_im, s_y, q_im, support_text=bad)
+        except RequestError as e:
+            refused.append(str(e))
+    again = clf.episode_logits(s_im, s_y, q_im, support_text=s_tx)
+    print(f"serve fumi RNN: token ids {TOKEN_VOCAB} and -1 refused: "
+          f"{refused}; the next request max|diff| to the first "
+          f"{float(np.abs(again - got).max()):.3e} (tolerance 1e-6)")
+    if len(refused) != 2 or float(np.abs(again - got).max()) > 1e-6:
+        fail("serve fumi RNN: a token id outside the table was not "
+             "refused, or the next request differs")
+
+    with loopback(clf) as call:
+        one = {"support_im": s_im.tolist(), "support_y": s_y.tolist(),
+               "query_im": q_im.tolist(), "support_text": s_tx.tolist()}
+        reset_counts()
+        codes = {}
+        codes["episode probs"], probs = call("/v1/episode",
+                                             {**one, "return": "probs"})
+        codes["episode labels"], labels = call("/v1/episode", one)
+        no_text = {k: v for k, v in one.items() if k != "support_text"}
+        codes["without support_text"], missing = call("/v1/episode",
+                                                      no_text)
+        bad = s_tx.copy()
+        bad[0, 0] = TOKEN_VOCAB
+        codes[f"token id {TOKEN_VOCAB}"], outside = call(
+            "/v1/episode", {**one, "support_text": bad.tolist()})
+        codes["after it"], probs_after = call("/v1/episode",
+                                              {**one, "return": "probs"})
+        by_path["http fumi RNN"] = counts = read_counts()
+        p_err = float(np.abs(np.asarray(probs["result"])
+                             - _np_softmax(got)).max())
+        p_after = float(np.abs(np.asarray(probs_after["result"])
+                               - np.asarray(probs["result"])).max())
+        same = labels["result"] == got.argmax(-1).tolist()
+        print(f"main path, http fumi RNN: status {codes} ({missing}; "
+              f"{outside}); labels equal in process: {same}, "
+              f"probabilities max|diff| {p_err:.3e} (tolerance 1e-5), "
+              f"after the refused request {p_after:.3e} (tolerance 1e-6); "
+              f"launches {counts}")
+        if codes != {"episode probs": 200, "episode labels": 200,
+                     "without support_text": 400,
+                     f"token id {TOKEN_VOCAB}": 400, "after it": 200} or \
+                not same or p_err > 1e-5 or p_after > 1e-6:
+            fail("http fumi RNN: status codes or answers differ")
+        if counts != dict({name: 0 for name in KERNEL_NAMES},
+                          fused_adapt=3):
+            fail(f"http fumi RNN: launches {counts}, expected 3 "
+                 "fused_adapt")
+        body = json.dumps(one).encode()
+        times["http ms"] = host_ms(lambda: call("/v1/episode", body),
+                                   reps=20)
+
+    print("token encoders, train episodes/s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times["train eps"].items())
+        + f"; BERT beside them: fumi {bert_eps['fumi']:.1f}, am3 "
+        f"{bert_eps['am3']:.1f}")
+    return times
 
 
 def main() -> int:
@@ -1516,6 +2151,13 @@ def main() -> int:
         # ---- 7d. the driver for AM3 ---------------------------------------
         driver_walls.update(am3_driver(driver_root, reset_counts,
                                        read_counts, by_path))
+        # ---- 7e. CLIP -----------------------------------------------------
+        clip_times = clip_phase(driver_root, dev, reset_counts, read_counts,
+                                by_path)
+        # ---- 7f. the token text encoders ---------------------------------
+        token_times = token_encoders(
+            Config, dev, driver_root, reset_counts, read_counts, by_path,
+            {"fumi": train_eps["fumi"], "am3": fam_eps["train am3"]})
     finally:
         shutil.rmtree(driver_root, ignore_errors=True)
 
@@ -1928,6 +2570,37 @@ def main() -> int:
         print(f"train am3 a step: device {am3_busy[0]:.3f} ms in "
               f"{am3_busy[1]:.0f} operations, wall {am3_busy[2]:.3f} ms, "
               f"busy {100 * am3_busy[0] / am3_busy[2]:.1f}%")
+
+    busy = clip_times.get("train busy")
+    print(f"clip: train {clip_times['train steps/s']:.1f} steps/s (batch "
+          f"{CLIP_BATCH})" + ("" if busy is None else
+                               f", busy {100 * busy[0] / busy[2]:.1f}% of "
+                               f"a step ({busy[0]:.3f} of {busy[2]:.3f} ms, "
+                               f"{busy[1]:.0f} device operations)")
+          + f"; index {clip_times['index rows']} rows "
+          f"{clip_times['index ms']:.3f} ms; "
+          f"retrieve {CLIP_TEXTS} texts {clip_times['retrieve ms']:.3f} ms; "
+          f"over HTTP (gallery {CLIP_HTTP_ROWS}) "
+          f"{clip_times['http retrieve ms']:.3f} ms against "
+          f"{clip_times['in-process retrieve ms (gallery 256)']:.3f} ms in "
+          f"process; driver {clip_times['driver clip s']:.3f} s, "
+          f"--evaluate {clip_times['driver clip --evaluate s']:.3f} s")
+    busy = token_times.get("busy")
+    print("token encoders: train episodes/s " + ", ".join(
+        f"{k} {v:.1f}" for k, v in token_times["train eps"].items())
+        + f" (BERT: fumi {train_eps['fumi']:.1f}, am3 "
+        f"{fam_eps['train am3']:.1f}); the encoder a meta-batch "
+        + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]} device operations"
+                    for k, v in token_times["encoder"].items())
+        + ("" if busy is None else
+           f"; a fumi RNN step: device {busy[0]:.3f} ms in {busy[1]:.0f} "
+           f"operations, wall {busy[2]:.3f} ms, busy "
+           f"{100 * busy[0] / busy[2]:.1f}%")
+        + f"; eval fumi RNN {token_times['eval eps']:.1f} episodes/s; a "
+        f"request {token_times['request ms']:.3f} ms, over HTTP "
+        f"{token_times['http ms']:.3f} ms; drivers "
+        f"{token_times['driver fumi RNN s']:.3f} s (fumi RNN), "
+        f"{token_times['driver am3 glove s']:.3f} s (am3 glove)")
 
     # ---- 9. result ------------------------------------------------------
     launches = {name: sum(c[name] for c in by_path.values())

@@ -7,17 +7,22 @@ checkpoints with:
 
 - maml: ``net.lin_{i}`` for the hidden layers, ``net.lin_final`` the head;
 - fumi: ``text_encoder`` (the ``rand`` encoder's unused Linear; nothing for
-  BERT/precomputed), ``im_net.linear{i}``, ``hyper_net.0`` and
-  ``hyper_net.2``;
+  BERT/precomputed; ``text_encoder.embed.weight`` for glove/w2v, and
+  with it ``text_encoder.rnn.{weight,bias}_{ih,hh}_l0[_reverse]`` for
+  RNN/RNNhid, from the JAX package's ``embed``, ``w_ih``, ``w_hh``,
+  ``b_ih``, ``b_hh`` and their ``_rev`` twins), ``im_net.linear{i}``,
+  ``hyper_net.0`` and ``hyper_net.2``;
 - am3: ``image_encoder``, ``text_encoder`` (as for fumi), ``g.0``/``g.3``
   and ``h.0``/``h.3``;
 - protonet, matchingnet (no reference counterpart): their one bare
-  ``{"w", "b"}`` linear is ``image_encoder``.
+  ``{"w", "b"}`` linear is ``image_encoder``;
+- clip: ``text_fc``, ``text_fc2``, ``image_fc`` and ``image_fc2``.
 
-Linear weights are (out, in) on both sides, so the conversion renames and
-never transposes. Episodes keep their field names and dtypes. The bridge
-takes and returns numpy leaves (callers turn JAX arrays into numpy with
-``np.asarray``); it imports no JAX. Optimizer state is not carried.
+Linear and LSTM weights are (out, in) on both sides, so the conversion
+renames and never transposes. Episodes keep their field names and dtypes.
+The bridge takes and returns numpy leaves (callers turn JAX arrays into
+numpy with ``np.asarray``); it imports no JAX. Optimizer state is not
+carried.
 """
 
 from __future__ import annotations
@@ -29,37 +34,63 @@ import torch
 
 from fumi_tpu_torch.core.episode import Episode
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
-from fumi_tpu_torch.models import mlp
+from fumi_tpu_torch.models import mlp, text_encoders
 from fumi_tpu_torch.models.fumi import im_net_depth
 
-FAMILIES = ("maml", "fumi", "am3", "protonet", "matchingnet")
+FAMILIES = ("maml", "fumi", "am3", "protonet", "matchingnet", "clip")
+CLIP_LAYERS = ("text_fc", "text_fc2", "image_fc", "image_fc2")
 
 
 def _lin(prefix: str) -> Dict[str, str]:
     return {"w": prefix + ".weight", "b": prefix + ".bias"}
 
 
-def _name_tree(family: str, n_layers: int, has_text_linear: bool):
+def _text_tree(kind: str) -> Dict[str, str]:
+    """The ``text_encoder`` subtree's names: ``"none"`` (BERT /
+    precomputed), ``"linear"`` (the ``rand`` encoder's Linear), ``"embed"``
+    (glove / w2v) or ``"rnn"`` (RNN / RNNhid)."""
+    if kind == "linear":
+        return _lin("text_encoder")
+    names = {} if kind == "none" else {"embed": text_encoders.EMBED}
+    if kind == "rnn":
+        for sfx, rev in (("", ""), ("_rev", "_reverse")):
+            for ours, theirs in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                                 ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+                names[ours + sfx] = f"text_encoder.rnn.{theirs}_l0{rev}"
+    return names
+
+
+def _name_tree(family: str, n_layers: int, text_kind: str):
     """Tree with the JAX package's structure whose leaves are names."""
     if family == "maml":
         return tuple([_lin(f"net.lin_{i}") for i in range(n_layers - 1)]
                      + [_lin("net.lin_final")])
     if family == "fumi":
-        return {"text_encoder": _lin("text_encoder") if has_text_linear
-                else {},
+        return {"text_encoder": _text_tree(text_kind),
                 "hyper_net": (_lin("hyper_net.0"), _lin("hyper_net.2")),
                 "im_net": tuple(_lin(f"im_net.linear{i}")
                                 for i in range(n_layers))}
     if family == "am3":
         return {"image_encoder": _lin("image_encoder"),
-                "text_encoder": _lin("text_encoder") if has_text_linear
-                else {},
+                "text_encoder": _text_tree(text_kind),
                 "g": (_lin("g.0"), _lin("g.3")),
                 "h": (_lin("h.0"), _lin("h.3"))}
     if family in ("protonet", "matchingnet"):
         return _lin("image_encoder")
+    if family == "clip":
+        return {name: _lin(name) for name in CLIP_LAYERS}
     raise NotImplementedError(
         f"no bridge for model family {family!r} yet (have {FAMILIES})")
+
+
+def _text_kind(keys) -> str:
+    """The text encoder's kind from its JAX keys or the port's names."""
+    keys = set(keys)
+    if keys & {"w", "text_encoder.weight"}:
+        return "linear"
+    if keys & {"w_ih", "text_encoder.rnn.weight_ih_l0"}:
+        return "rnn"
+    return "embed" if keys & {"embed", text_encoders.EMBED} else "none"
 
 
 def _pairs(names, tree):
@@ -94,16 +125,12 @@ def params_from_jax(tree: Any, family: str,
     ``device`` (default: the current CUDA device)."""
     dev = resolve_device(device)
     if family == "maml":
-        names = _name_tree("maml", len(tree), False)
+        names = _name_tree("maml", len(tree), "none")
     elif family in ("fumi", "am3"):
-        te = tree["text_encoder"]
-        if te and set(te) != {"w", "b"}:
-            raise NotImplementedError(
-                "token text encoders are not ported yet (ROADMAP.md "
-                "Queue 1, item 5)")
-        names = _name_tree(family, len(tree.get("im_net", ())), bool(te))
+        names = _name_tree(family, len(tree.get("im_net", ())),
+                           _text_kind(tree["text_encoder"]))
     else:
-        names = _name_tree(family, 0, False)
+        names = _name_tree(family, 0, "none")
     return {name: torch.tensor(np.asarray(leaf, dtype=np.float32)).to(dev)
             for name, leaf in _pairs(names, tree)}
 
@@ -111,12 +138,11 @@ def params_from_jax(tree: Any, family: str,
 def params_to_numpy(params: Dict[str, torch.Tensor], family: str) -> Any:
     """The port's state dict -> the JAX package's pytree, numpy leaves."""
     if family == "maml":
-        names = _name_tree("maml", len(mlp.layer_names(params)), False)
+        names = _name_tree("maml", len(mlp.layer_names(params)), "none")
     elif family in ("fumi", "am3"):
-        names = _name_tree(family, im_net_depth(params),
-                           "text_encoder.weight" in params)
+        names = _name_tree(family, im_net_depth(params), _text_kind(params))
     else:
-        names = _name_tree(family, 0, False)
+        names = _name_tree(family, 0, "none")
     return _fill(names, lambda n: params[n].detach().cpu().numpy())
 
 

@@ -1,15 +1,20 @@
 """Experiment driver: ``python -m fumi_tpu_torch.cli.main``.
 
-The counterpart of ``fumi_tpu/cli/main.py`` for the episodic families on
-precomputed embeddings: MAML, FuMI, AM3, ProtoNet and MatchingNet. The
-flow is the JAX package's: validate the config, set up the run and its
-log, load the data, build the family's steps and three device samplers
-(train, val, test; ``--augment`` jitters the train support set only),
-restore ``--checkpoint`` or ``--tpu_auto_resume`` state, train
+The counterpart of ``fumi_tpu/cli/main.py`` for the episodic families
+(MAML, FuMI, AM3, ProtoNet and MatchingNet) and CLIP on precomputed image
+embeddings. The flow is the JAX package's: validate the config, set up
+the run and its log, load the data, build the family's steps and three
+device samplers (train, val, test; ``--augment`` jitters the train support
+set only), restore ``--checkpoint`` or ``--tpu_auto_resume`` state, train
 (:func:`~fumi_tpu_torch.train.loop.training_run`), then the test pass,
 the ``TEST`` line and the prediction CSV ``<log_dir>/results/run_*.csv``
 (with AM3's ``support_lamda`` column). Each run writes its config to
-``<log_dir>/runs/<run>/config.json`` and its checkpoints beside it.
+``<log_dir>/runs/<run>/config.json`` and its checkpoints beside it; a
+token-encoder run (``--text_encoder glove|w2v|RNN|RNNhid``: synthetic
+token text and its dictionary) writes the dictionary to ``vocab.json``
+there too. ``--model clip`` runs ``train/clip_loop.py`` instead: restore
+``--checkpoint``, train unless ``--evaluate``, the retrieval test pass and
+``TEST: test acc: ...``.
 
 Device: the driver runs on the card; ``--disable_cuda`` selects the CPU
 (the reference's meaning of the flag). Without CUDA and without it, the
@@ -17,8 +22,8 @@ driver raises. Random streams are the loop's (``train/loop.py``); model
 init draws from a CPU generator seeded with ``--seed``.
 
 Not ported yet, each rejected with ``NotImplementedError`` naming its
-ROADMAP.md Queue 1 item: the datasets other than ``synthetic``, CLIP and
-the token text encoders (item 5), the host samplers (item 4b), raw-image
+ROADMAP.md Queue 1 item: the datasets other than ``synthetic`` and the
+family registry (item 5), the host samplers (item 4b), raw-image
 backbones (item 7), multi-device and sweep modes (item 9), and the
 training extensions (item 10).
 """
@@ -41,11 +46,15 @@ from fumi_tpu_torch.core.config import (Config, TOKEN_TEXT_ENCODERS,
 from fumi_tpu_torch.core.episode import EpisodeSpec
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler
-from fumi_tpu_torch.data.synthetic import synthetic_splits
+from fumi_tpu_torch.data.supervised import supervised_from_class_set
+from fumi_tpu_torch.data.synthetic import (synthetic_dictionary,
+                                           synthetic_splits)
 from fumi_tpu_torch.train import checkpoint as ckpt_lib
+from fumi_tpu_torch.train import clip_loop
 from fumi_tpu_torch.train.logging import MetricWriter
 from fumi_tpu_torch.train.loop import (TEST, eval_view, stream_generator,
                                        test_loop, training_run)
+from fumi_tpu_torch.train.optim import init_optim
 from fumi_tpu_torch.train.steps import FAMILY_BUILDERS, make_steps
 from fumi_tpu_torch.utils.profiling import profile_trace
 
@@ -58,14 +67,15 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _check_driver(cfg: Config) -> None:
     """Reject what the driver does not run yet, before any work."""
-    if cfg.model not in FAMILY_BUILDERS:
+    if cfg.model not in FAMILY_BUILDERS and cfg.model != "clip":
         raise _not_ported(f"--model {cfg.model}", "item 5: the other families")
     if cfg.dataset != "synthetic":
         raise _not_ported(f"--dataset {cfg.dataset} (its loader and files)",
                           "item 5: the host data code")
-    if cfg.text_encoder in TOKEN_TEXT_ENCODERS:
-        raise _not_ported(f"--text_encoder {cfg.text_encoder}",
-                          "item 5: the token text encoders")
+    if cfg.model == "clip" and cfg.text_encoder in TOKEN_TEXT_ENCODERS:
+        raise ValueError(
+            "--model clip reads precomputed text embeddings (--text_encoder "
+            f"BERT or precomputed), not {cfg.text_encoder} tokens")
     if not cfg.device_sampler:
         raise _not_ported("--tpu_host_sampler", "item 4b: the host samplers")
     if cfg.import_modules:
@@ -85,12 +95,21 @@ def _check_driver(cfg: Config) -> None:
 
 
 def _load_data(cfg: Config):
-    """``({"train", "val", "test"} -> ClassSet, image_table, image_ids)``
-    of the synthetic dataset: 32 classes of 64 images, the JAX package's
-    ``synthetic_splits`` at the config's widths and seed."""
-    return synthetic_splits(
+    """``({"train", "val", "test"} -> ClassSet, image_table, image_ids,
+    dictionary)`` of the synthetic dataset: 32 classes of 64 images, the
+    JAX package's ``synthetic_splits`` at the config's widths and seed;
+    for a token text encoder, 12 random tokens a class from a vocabulary
+    of 128 and its dictionary (``{}`` otherwise)."""
+    if cfg.dataset != "synthetic":
+        raise _not_ported(f"--dataset {cfg.dataset} (its loader and files)",
+                          "item 5: the host data code")
+    tokens = cfg.text_encoder in TOKEN_TEXT_ENCODERS
+    kw = dict(text_tokens=True, vocab_size=128, text_len=12) \
+        if tokens else {}
+    splits, table, ids = synthetic_splits(
         num_classes=32, images_per_class=64, im_dim=cfg.im_emb_dim,
-        text_dim=cfg.text_emb_dim, seed=cfg.seed)
+        text_dim=cfg.text_emb_dim, seed=cfg.seed, **kw)
+    return splits, table, ids, synthetic_dictionary(128) if tokens else {}
 
 
 def _specs(cfg: Config, text_dim: int, tokens: bool):
@@ -180,14 +199,22 @@ def main(cfg: Config, device: DeviceLike = None) -> dict:
 
 def _run(cfg: Config, dev: torch.device, writer: MetricWriter,
          results_path: str) -> dict:
-    splits, image_table, image_ids = _load_data(cfg)
+    splits, image_table, image_ids, dictionary = _load_data(cfg)
     run_dir = os.path.join(cfg.log_dir, "runs", writer.run_name)
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "config.json"), "w") as f:
         json.dump(dataclasses.asdict(cfg), f, indent=1, default=str)
+    if cfg.text_encoder in TOKEN_TEXT_ENCODERS and dictionary:
+        # the vocabulary ships with the run, so serving rebuilds the
+        # encoder without the dataset (the trained table is in the
+        # checkpoint)
+        with open(os.path.join(run_dir, "vocab.json"), "w") as f:
+            json.dump(dict(dictionary), f)
+    if cfg.model == "clip":
+        return _run_clip(cfg, dev, writer, run_dir, splits, image_table)
 
     steps = make_steps(cfg, torch.Generator().manual_seed(cfg.seed),
-                       device=dev)
+                       device=dev, dictionary=dictionary)
     train_s, val_s, test_s = _samplers(cfg, splits, image_table, image_ids,
                                        dev)
 
@@ -248,6 +275,32 @@ def _run(cfg: Config, dev: torch.device, writer: MetricWriter,
     writer.log({f"test/{k}": v for k, v in scalars.items()})
     _save_predictions_csv(cfg, writer, results_path, test_m)
     return {f"test/{k}": v for k, v in scalars.items()}
+
+
+def _run_clip(cfg: Config, dev: torch.device, writer: MetricWriter,
+              run_dir: str, splits, image_table) -> dict:
+    """CLIP: restore ``--checkpoint``, train unless ``--evaluate``, then
+    the retrieval test pass; returns ``{"test/acc": acc}``."""
+    model, params = clip_loop.make_clip(
+        cfg, torch.Generator().manual_seed(cfg.seed))
+    params = {k: v.to(dev) for k, v in params.items()}
+    opt = init_optim(cfg.optim, cfg.lr, cfg.weight_decay, cfg.momentum)
+    data = {s: (supervised_from_class_set(splits[s]), image_table)
+            for s in ("train", "val", "test")}
+    if cfg.checkpoint:
+        ckpt_dir = ckpt_lib.resolve_checkpoint(
+            cfg.checkpoint, cfg.model, entity=cfg.wandb_entity,
+            project=cfg.wandb_project)
+        params, _, _ = ckpt_lib.load_checkpoint(ckpt_dir, params,
+                                                opt.init(params), best=True)
+    if not cfg.evaluate:
+        params = clip_loop.training_run(
+            cfg, model, params, opt, data["train"], data["val"], writer,
+            run_dir, np.random.RandomState(cfg.seed))
+    test_acc = clip_loop.evaluate(cfg, model, params, data["test"])
+    print(f"\n TEST: test acc: {test_acc}")
+    writer.log({"test/acc": test_acc})
+    return {"test/acc": test_acc}
 
 
 def cli(argv=None) -> dict:

@@ -20,7 +20,8 @@ class Episode(NamedTuple):
     """A meta-batch of few-shot episodes.
 
     - ``support_im``:   (B, N*K, D) fp32 image embeddings.
-    - ``support_text``: (B, N*K, E) fp32 precomputed text embeddings.
+    - ``support_text``: (B, N*K, E) fp32 precomputed text embeddings, or
+      (B, N*K, T) int32 token ids for a token text encoder.
     - ``support_text_mask``: always None on the samplers (kept so the
       fields match the JAX package's).
     - ``support_ids``:  (B, N*K) int32 raw image ids.

@@ -51,7 +51,7 @@ class SamplerTables(NamedTuple):
     image_ids: torch.Tensor  # (num_images,) int32
     class_rows: torch.Tensor  # (C, max_count) int32
     class_counts: torch.Tensor  # (C,) int32
-    text_features: torch.Tensor  # (C, E)
+    text_features: torch.Tensor  # (C, E) fp32, or (C, T) int32 tokens
 
 
 def episode_from_noise(tables: SamplerTables, spec: EpisodeSpec,
@@ -119,7 +119,7 @@ def episode_from_noise(tables: SamplerTables, spec: EpisodeSpec,
         support_im = support_im * (1.0 + aug_noise)
 
     # per-class text repeated per shot, class-major like the targets
-    text_cls = tables.text_features[class_idx]  # (B, N, E)
+    text_cls = tables.text_features[class_idx]  # (B, N, E|T)
     return Episode(
         support_im=support_im,
         support_text=text_cls.repeat_interleave(K, dim=1),

@@ -1,11 +1,12 @@
 """Synthetic episodic data for tests and benchmarks.
 
 A copy of the embedding-table part of ``fumi_tpu/data/synthetic.py``
-(pure numpy; ``tests/test_torch_sampler.py`` holds it equal to the
-original). Class-clustered Gaussian image embeddings with text features
-correlated to the class mean, so few-shot learners have real signal to
-adapt to. Raw-image sets wait for the raw-image backbones (ROADMAP.md
-Queue 1, item 7).
+and its token dictionary (pure numpy; ``tests/test_torch_sampler.py`` and
+``tests/test_torch_text_encoders.py`` hold it equal to the original).
+Class-clustered Gaussian image embeddings with text features correlated
+to the class mean (or random token ids), so few-shot learners have real
+signal to adapt to. Raw-image sets wait for the raw-image backbones
+(ROADMAP.md Queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -61,6 +62,14 @@ def synthetic_class_set(num_classes: int = 20,
         descriptions=[f"synthetic class {i}" for i in range(C)],
     )
     return cs, image_table, image_ids
+
+
+def synthetic_dictionary(vocab_size: int = 128):
+    """Token dictionary for synthetic token-text datasets (PAD = 0)."""
+    d = {"<PAD>": 0}
+    for i in range(1, vocab_size):
+        d[f"w{i}"] = i
+    return d
 
 
 def synthetic_splits(num_classes: int = 32, images_per_class: int = 64,

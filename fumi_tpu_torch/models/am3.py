@@ -6,8 +6,9 @@ encoder (the ``precomputed`` and ``resnet`` branches, both one Linear in
 the reference):
 
 - ``image_encoder``: Linear(im_emb_dim → prototype_dim);
-- a text encoder plugin (identity for BERT/precomputed, or the ``rand``
-  encoder's fresh ``2·U(0,1)−1`` noise at every forward);
+- a text encoder plugin (identity for BERT/precomputed, word-embedding
+  pooling or a biLSTM over tokens, or the ``rand`` encoder's fresh
+  ``2·U(0,1)−1`` noise at every forward);
 - ``g``: text → prototype space, Linear-ReLU-Dropout-Linear;
 - ``h``: text prototype → λ, Linear-ReLU-Dropout-Linear and a sigmoid.
 
@@ -76,7 +77,8 @@ class AM3:
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The support forward pass.
 
-        text: (B, NK, E) precomputed embeddings; im: (B, NK, im_emb_dim).
+        text: (B, NK, E) precomputed embeddings or (B, NK, T) int tokens;
+        im: (B, NK, im_emb_dim).
         Returns ``(im_embeddings, text_embeddings, lamda)`` of shapes
         (B, NK, P), (B, NK, P) and (B, NK, 1)."""
         im_embeddings = self.encode_image(params, im)

@@ -104,8 +104,8 @@ class FUMI:
         """Per-class text encoding = encoding of the FIRST support sample of
         each class.
 
-        text: (..., NK, E) float embeddings; targets: (..., NK) int class
-        ids. Returns (..., n_way, E). The ``rand`` encoder draws its noise
+        text: (..., NK, E) float embeddings or (..., NK, T) int tokens;
+        targets: (..., NK) int class ids. Returns (..., n_way, E). The ``rand`` encoder draws its noise
         from ``gen`` (one generator per episode: callers with a batch of
         episodes call this once per episode)."""
         if self.text_encoder.kind == "rand":

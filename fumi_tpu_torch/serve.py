@@ -1,7 +1,7 @@
 """Few-shot serving: adapt on a request's support set, classify its queries.
 
 The PyTorch counterpart of ``fumi_tpu/serve.py``'s ``FewShotClassifier``
-for the episodic families on precomputed embeddings (fp32):
+and ``ClipRetrieval`` on precomputed image embeddings (fp32):
 
 - ``episode_logits`` / ``episode_logits_batch``: adapt AND classify in one
   call. For MAML and FuMI, where the fused kernel applies (a CUDA device,
@@ -17,7 +17,19 @@ for the episodic families on precomputed embeddings (fp32):
   MatchingNet's logits are ``log(probs + 1e-8)``, so every return mode
   renders its probabilities.
 - ``from_checkpoint`` / ``reload``: weights from a run dir the port's
-  driver wrote (``train/checkpoint.py``).
+  driver wrote (``train/checkpoint.py``); a token-encoder run's
+  ``vocab.json`` rebuilds its encoder (:func:`serving_dictionary`).
+- Token text encoders (glove, w2v, RNN, RNNhid): ``support_text`` is
+  (..., NK, T) int token ids, padded with the dictionary's PAD id where
+  the descriptions differ in length. FuMI and AM3 requests without it
+  raise :class:`RequestError`, and so do ids outside the embedding table
+  (the JAX package clamps them; an out-of-range index on the card would
+  fail the CUDA context, and every later request with it). The JAX
+  package pads T up to a power of two to reuse compiled programs; the
+  port compiles nothing per shape and takes every T as it comes.
+- :class:`ClipRetrieval`: CLIP serving, a gallery indexed once and
+  ranked against many texts; a text or image batch of another width
+  raises :class:`RequestError`.
 
 Request shapes keep the JAX package's power-of-two bucketing of the
 episode axis R and the query axis M, and its request errors, so served
@@ -32,11 +44,16 @@ Usage::
     logits = clf.episode_logits(s_im, s_y, q_im, support_text=s_text)
     clf.adapt(s_im, s_text, s_y)
     labels = clf.classify(q_im)
+
+    clip = ClipRetrieval.from_checkpoint(clip_run_dir, cfg)
+    clip.index(gallery_im)
+    indices, scores = clip.retrieve(texts, top_k=5)
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
 import re
 import time
@@ -49,9 +66,12 @@ from fumi_tpu_torch.core.config import Config, TOKEN_TEXT_ENCODERS
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.metalearn.inner_loop import sgd_inner_update
 from fumi_tpu_torch.models import mlp
+from fumi_tpu_torch.models.text_encoders import EMBED
 from fumi_tpu_torch.ops import fewshot, kernels
 from fumi_tpu_torch.train import checkpoint as ckpt_lib
+from fumi_tpu_torch.train.clip_loop import make_clip
 from fumi_tpu_torch.train.loop import eval_view
+from fumi_tpu_torch.train.optim import init_optim
 from fumi_tpu_torch.train.steps import (build_family, embed_images,
                                         image_prototypes, make_opt,
                                         plain_full_gd_adaptation)
@@ -141,6 +161,22 @@ def _check_support_y(cfg: Config, support_y) -> None:
             "ids to 0..N-1 per episode")
 
 
+def _check_tokens(tokens: np.ndarray, vocab_size: int) -> None:
+    """Reject token ids outside the embedding table's rows [0, V)."""
+    if tokens.size and (tokens.min() < 0 or tokens.max() >= vocab_size):
+        raise RequestError(
+            f"support_text token ids must lie in [0, {vocab_size}) for "
+            f"this model's {vocab_size}-row embedding table (got range "
+            f"[{tokens.min()}, {tokens.max()}])")
+
+
+def _check_width(x: np.ndarray, width: int, name: str) -> None:
+    """Reject a batch that is not (rows, ``width``)."""
+    if x.ndim != 2 or x.shape[1] != width:
+        raise RequestError(f"{name} must be (rows, {width}) for this "
+                           f"model; got shape {x.shape}")
+
+
 def _check_slice(cfg: Config) -> None:
     """Reject the serving configs the port does not serve yet. The model
     configs the port lacks are rejected by ``build_family``, each naming
@@ -153,14 +189,19 @@ def _check_slice(cfg: Config) -> None:
 
 def serving_dictionary(cfg: Config, run_dir: Optional[str] = None):
     """The token dictionary a glove/w2v/RNN/RNNhid model is served with;
-    ``None`` for the other text encoders. The token encoders are not
-    ported yet, so those raise."""
+    ``None`` for the other text encoders. The run dir's ``vocab.json``
+    (the driver writes one with every token-encoder run; the trained
+    embedding table itself is in the checkpoint) comes first, else the
+    driver's dataset (``cli/main.py:_load_data``)."""
     if cfg.text_encoder not in TOKEN_TEXT_ENCODERS:
         return None
-    raise NotImplementedError(
-        f"not ported to the PyTorch package yet — --text_encoder "
-        f"{cfg.text_encoder} (the token text encoders and their "
-        "vocabulary): Queue 1, item 5 in ROADMAP.md")
+    if run_dir is not None:
+        path = os.path.join(run_dir, "vocab.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                return json.load(f)
+    from fumi_tpu_torch.cli.main import _load_data
+    return _load_data(cfg)[3]
 
 
 def find_seed_exports(run_dir: str) -> List[str]:
@@ -187,17 +228,18 @@ class FewShotClassifier:
 
     ``params`` is the model's state dict (``fumi_tpu_torch/bridge.py``
     carries JAX weights over); None serves the family's own seeded init.
-    ``device`` defaults to the current CUDA device; pass ``"cpu"`` to run
-    on the CPU.
+    ``dictionary`` is the token dictionary of a glove/w2v/RNN/RNNhid
+    model. ``device`` defaults to the current CUDA device; pass ``"cpu"``
+    to run on the CPU.
     """
 
     def __init__(self, cfg: Config, params: Optional[Dict] = None,
-                 device: DeviceLike = None):
+                 dictionary=None, device: DeviceLike = None):
         cfg = cfg.validate()
         _check_slice(cfg)
         self.cfg = cfg
         self.family = build_family(
-            cfg, torch.Generator().manual_seed(cfg.seed))
+            cfg, torch.Generator().manual_seed(cfg.seed), dictionary)
         self.device = resolve_device(device)
         src = params if params is not None else self.family.params
         self.params = {k: torch.as_tensor(v, dtype=torch.float32).to(
@@ -213,10 +255,11 @@ class FewShotClassifier:
                         ) -> "FewShotClassifier":
         """A classifier on the weights of a run dir written by the port's
         driver (``best/``, or ``ckpt/`` with ``best=False``), on
-        ``device`` (default the current CUDA device)."""
+        ``device`` (default the current CUDA device). A token-encoder
+        model without ``dictionary`` reads the run's ``vocab.json``."""
         if dictionary is None:
-            serving_dictionary(cfg, run_dir)  # token encoders raise
-        self = cls(cfg, None, device=device)
+            dictionary = serving_dictionary(cfg, run_dir)
+        self = cls(cfg, None, dictionary, device=device)
         self.params = self._load(run_dir, best)
         return self
 
@@ -231,9 +274,11 @@ class FewShotClassifier:
 
     def reload(self, run_dir: str, best: bool = True) -> None:
         """Swap in the weights of a run dir without a rebuild: the request
-        paths take the params as an argument. The adapted state was derived
-        from the old weights, so it is dropped, and ``classify`` raises
-        until ``adapt`` runs again."""
+        paths take the params as an argument, and a token encoder keeps
+        its dictionary (the new run must share it: the embedding table's
+        shape is checked at load). The adapted state was derived from the
+        old weights, so it is dropped, and ``classify`` raises until
+        ``adapt`` runs again."""
         self.params = self._load(run_dir, best)
         self._state = None
         self._classify_fn = None
@@ -398,7 +443,7 @@ class FewShotClassifier:
             out = fn(self.params, _tensor(s_im, np.float32, dev),
                      _tensor(s_y, np.int32, dev),
                      _tensor(q_im, np.float32, dev),
-                     _tensor(s_text, np.float32, dev), seeds)
+                     _tensor(s_text, self.text_dtype, dev), seeds)
         return out.cpu().numpy()
 
     def _episode_request(self, s_im, s_y, q_im, s_text, seeds):
@@ -407,11 +452,32 @@ class FewShotClassifier:
         return self._run_episodes(self._episode_fn, s_im, s_y, q_im, s_text,
                                   seeds)
 
+    @property
+    def text_is_tokens(self) -> bool:
+        """True when the wire format of ``support_text`` is int token ids
+        (glove/w2v/RNN/RNNhid) rather than float embeddings."""
+        return self.cfg.text_encoder in TOKEN_TEXT_ENCODERS
+
+    @property
+    def text_dtype(self):
+        """``support_text``'s dtype on the wire and on the device."""
+        return np.int32 if self.text_is_tokens else np.float32
+
     def _prep_text(self, support_text, *fill_shape: int):
-        """Precomputed float text embeddings (zeros when absent)."""
+        """``support_text`` as the encoder takes it: int32 tokens for a
+        token encoder, each a row of its embedding table, else float
+        embeddings (zeros when absent). A token FuMI or AM3 model needs
+        it: zeros would be all-PAD text."""
         if support_text is None:
-            return np.zeros(fill_shape + (1,), np.float32)
-        return np.asarray(support_text, dtype=np.float32)
+            if self.text_is_tokens and self.cfg.model in ("am3", "fumi"):
+                raise RequestError(
+                    f"--text_encoder {self.cfg.text_encoder} models need "
+                    "support_text (int token ids)")
+            return np.zeros(fill_shape + (1,), self.text_dtype)
+        text = np.asarray(support_text, dtype=self.text_dtype)
+        if EMBED in self.params:
+            _check_tokens(text, self.params[EMBED].shape[0])
+        return text
 
     def episode_logits(self, support_im, support_y, query_im,
                        support_text=None, seed: int = 0) -> np.ndarray:
@@ -458,7 +524,8 @@ class FewShotClassifier:
         with torch.no_grad():
             state = adapt_fn(self.params, _tensor(support_im[None],
                                                   np.float32, dev),
-                             _tensor(support_text[None], np.float32, dev),
+                             _tensor(support_text[None], self.text_dtype,
+                                     dev),
                              _tensor(np.asarray(support_y)[None], np.int32,
                                      dev), [int(seed)])
         self._state = (self.cfg.model, state)
@@ -484,12 +551,113 @@ class FewShotClassifier:
         return np.argmax(logits, axis=-1).astype(np.int32)
 
 
-def warmup(clf: FewShotClassifier, r_buckets=(1,), num_queries=16) -> None:
+class ClipRetrieval:
+    """CLIP serving: index a gallery once, rank many queries against it.
+
+    ``index(images)`` projects and normalises the gallery through the
+    image head once and keeps it on the device; ``retrieve(text, top_k)``
+    projects the query texts and ranks the whole gallery with one matmul
+    and ``torch.topk``; ``similarity(text, images)`` is the stateless
+    one-shot form, the model's own ``forward``. Answers come back as host
+    numpy. ``params`` is CLIP's state dict (None: the seeded init);
+    ``device`` defaults to the current CUDA device, ``"cpu"`` for the
+    CPU. Of equal scores, ``torch.topk`` on the card returns them in no
+    promised order (``jax.lax.top_k`` gives the lower index first).
+    """
+
+    def __init__(self, cfg: Config, params: Optional[Dict] = None,
+                 device: DeviceLike = None):
+        cfg = cfg.validate()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model, init = make_clip(
+            cfg, torch.Generator().manual_seed(cfg.seed))
+        src = params if params is not None else init
+        self.params = {k: torch.as_tensor(v, dtype=torch.float32).to(
+            self.device) for k, v in src.items()}
+        self._gallery = None  # (G, latent) normalised image embeddings
+
+    @classmethod
+    def from_checkpoint(cls, run_dir: str, cfg: Config, best: bool = True,
+                        device: DeviceLike = None) -> "ClipRetrieval":
+        """A retrieval server on the weights of a CLIP run dir written by
+        the port's driver."""
+        self = cls(cfg, None, device=device)
+        self.params = self._load(run_dir, best)
+        return self
+
+    def _load(self, run_dir: str, best: bool) -> Dict[str, torch.Tensor]:
+        """The params of ``run_dir``, restored with the driver's CLIP
+        optimizer state as the template."""
+        cfg = self.cfg
+        opt = init_optim(cfg.optim, cfg.lr, cfg.weight_decay, cfg.momentum)
+        params, _, _ = ckpt_lib.load_checkpoint(
+            run_dir, self.params, opt.init(self.params), best=best)
+        return params
+
+    def reload(self, run_dir: str, best: bool = True) -> None:
+        """Swap in a run dir's weights. The gallery was embedded under the
+        old weights, so it is dropped: ``index`` must run again before
+        ``retrieve``."""
+        self.params = self._load(run_dir, best)
+        self._gallery = None
+
+    @property
+    def gallery_size(self) -> int:
+        return 0 if self._gallery is None else int(self._gallery.shape[0])
+
+    def index(self, images) -> int:
+        """Project and normalise a gallery of (G, im_emb_dim) image
+        embeddings; returns the gallery size."""
+        images = self._batch(images, self.cfg.im_emb_dim, "images")
+        with torch.no_grad():
+            self._gallery = self.model.encode_image(self.params, images)
+        return self.gallery_size
+
+    def retrieve(self, text, top_k: int = 5):
+        """(M, text_emb_dim) texts -> (indices (M, k) int32, scores (M, k))
+        against the indexed gallery, highest cosine first."""
+        if self._gallery is None:
+            raise RuntimeError("call index(images) before retrieve")
+        text = self._batch(text, self.cfg.text_emb_dim, "text")
+        with torch.no_grad():
+            t = self.model.encode_text(self.params, text)
+            scores = t @ self._gallery.T
+            k = min(int(top_k), scores.shape[-1])
+            top_scores, top_idx = torch.topk(scores, k, dim=-1)
+        return (top_idx.to(torch.int32).cpu().numpy(),
+                top_scores.cpu().numpy())
+
+    def similarity(self, text, images) -> np.ndarray:
+        """Stateless (Nt, Ni) cosine-similarity matrix."""
+        text = self._batch(text, self.cfg.text_emb_dim, "text")
+        images = self._batch(images, self.cfg.im_emb_dim, "images")
+        with torch.no_grad():
+            return self.model.forward(self.params, text,
+                                      images).cpu().numpy()
+
+    def _batch(self, x, width: int, name: str) -> torch.Tensor:
+        """A (rows, ``width``) request batch on the device; another shape
+        raises :class:`RequestError` (the JAX package's projection raises
+        a ``TypeError`` there)."""
+        x = np.asarray(x, dtype=np.float32)
+        _check_width(x, width, name)
+        return _tensor(x, np.float32, self.device)
+
+
+def warmup(clf, r_buckets=(1,), num_queries=16,
+           text_len: int = 8) -> None:
     """Run synthetic requests through the serving paths before traffic
     arrives (first-use costs such as the kernel build land here, not on a
     live request): the stateful adapt+classify pair, and the episode path
     at each requested R bucket and at the M bucket(s) covering
-    ``num_queries``. A live adapted state survives the warm-up."""
+    ``num_queries``. A live adapted state survives the warm-up. A token
+    model's dummy descriptions are ``text_len`` copies of token 1. A
+    :class:`ClipRetrieval` is skipped with a notice, as in the JAX
+    package."""
+    if isinstance(clf, ClipRetrieval):
+        print("warmup: skipped (CLIP gallery shapes are data-dependent)")
+        return
     cfg = clf.cfg
     NK = cfg.num_ways * cfg.num_shots
     rng = np.random.RandomState(0)
@@ -499,8 +667,14 @@ def warmup(clf: FewShotClassifier, r_buckets=(1,), num_queries=16) -> None:
     q_ims = [rng.randn(m, cfg.im_emb_dim).astype(np.float32)
              for m in num_queries]
     s_y = np.repeat(np.arange(cfg.num_ways), cfg.num_shots).astype(np.int32)
-    s_text = (rng.randn(NK, cfg.text_emb_dim).astype(np.float32)
-              if cfg.model in ("am3", "fumi") else None)
+    if clf.text_is_tokens:
+        # token id 1, not PAD: an all-PAD row pools to 0/0 = NaN under
+        # mean pooling
+        s_text = np.full((NK, text_len), 1, np.int32)
+    elif cfg.model in ("am3", "fumi"):
+        s_text = rng.randn(NK, cfg.text_emb_dim).astype(np.float32)
+    else:
+        s_text = None
 
     saved = (clf._state, clf._classify_fn)
     t0 = time.perf_counter()

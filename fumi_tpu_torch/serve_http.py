@@ -1,9 +1,9 @@
 """HTTP serving front-end: few-shot-as-a-service over JSON.
 
-The PyTorch counterpart of ``fumi_tpu/serve_http.py`` for the episodic
-families (``ClipService`` waits for CLIP, ROADMAP.md Queue 1, item 5). It
-puts :class:`fumi_tpu_torch.serve.FewShotClassifier` behind a wire
-protocol using only the standard library's ``http.server``.
+The PyTorch counterpart of ``fumi_tpu/serve_http.py``. It puts
+:class:`fumi_tpu_torch.serve.FewShotClassifier` (the episodic families)
+or :class:`fumi_tpu_torch.serve.ClipRetrieval` (``--model clip``) behind a
+wire protocol using only the standard library's ``http.server``.
 
 Endpoints (JSON in / JSON out), as the JAX package's:
 
@@ -23,9 +23,21 @@ Endpoints (JSON in / JSON out), as the JAX package's:
 - ``POST /v1/classify``: classify queries against it (409 before any
   adapt). Body: ``{"query_im": [[...]], "return": ...?}``.
 - ``POST /v1/reload``: swap in the weights of a run dir without a
-  rebuild; drops the adapted state. Body: ``{"checkpoint": "<run dir>",
-  "best": true?}``. A reference ``.pth.tar`` file answers 400: its import
-  is not ported (item 4b).
+  rebuild; drops the adapted state (CLIP: the indexed gallery). Body:
+  ``{"checkpoint": "<run dir>", "best": true?}``. A reference ``.pth.tar``
+  file answers 400: its import is not ported (item 4b).
+
+A token-encoder model (glove, w2v, RNN, RNNhid) takes ``support_text`` as
+int token ids; FuMI and AM3 requests without it answer 400.
+
+With ``--model clip`` the server exposes the retrieval routes instead
+(:class:`ClipService`): ``POST /v1/clip/index`` (``{"images": [[...]]}``:
+project and normalise a gallery once, kept on the card), ``POST
+/v1/clip/retrieve`` (``{"text": [[...]], "top_k": 5?}``: top-k gallery
+indices and cosine scores; 409 before any index), ``POST
+/v1/clip/similarity`` (``{"text": ..., "images": ...}``: the stateless
+cosine matrix) and ``POST /v1/reload``; ``/healthz`` reports the gallery
+size.
 
 Status codes: 400 for a missing or malformed field and other request
 errors, 409 for classify before adapt, 404 for an unknown route, 500 for a
@@ -60,8 +72,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fumi_tpu_torch.serve import (FewShotClassifier, RequestError,
-                                  _np_softmax, find_seed_exports, warmup)
+from fumi_tpu_torch.serve import (ClipRetrieval, FewShotClassifier,
+                                  RequestError, _np_softmax,
+                                  find_seed_exports, serving_dictionary,
+                                  warmup)
 
 
 class Metrics:
@@ -163,7 +177,7 @@ def _array(body: dict, key: str, dtype=np.float32,
         return None
     try:
         return np.asarray(body[key], dtype=dtype)
-    except (TypeError, ValueError) as e:
+    except (TypeError, ValueError, OverflowError) as e:
         raise ServeError(400, f"field {key!r} is not a numeric array: {e}")
 
 
@@ -181,16 +195,14 @@ def _render(logits, mode: str) -> list:
     return np.asarray(out).tolist()
 
 
-class FewShotService:
-    """The endpoint logic, apart from the HTTP plumbing."""
+class _Service:
+    """What both services share: one lock over the served object, the
+    request metrics, health and ``/v1/reload``."""
 
-    def __init__(self, clf: FewShotClassifier):
+    def __init__(self, clf):
         self.clf = clf
         self.lock = threading.Lock()
         self.metrics = Metrics()
-
-    def _text(self, body: dict) -> Optional[np.ndarray]:
-        return _array(body, "support_text", required=False)
 
     def healthz(self) -> dict:
         dev = self.clf.device
@@ -198,6 +210,35 @@ class FewShotService:
                 "backend": dev.type,
                 "devices": (torch.cuda.device_count() if dev.type == "cuda"
                             else 1)}
+
+    def reload(self, body: dict) -> dict:
+        """Swap in a run dir's weights; any adapted state (CLIP: the
+        gallery) is dropped. Body: ``{"checkpoint": "<run dir>", "best":
+        true?}``."""
+        path = body.get("checkpoint")
+        if not isinstance(path, str) or not path:
+            raise ServeError(400, "missing field 'checkpoint' "
+                                  "(run dir or .pth.tar)")
+        if not (os.path.isdir(path) or os.path.isfile(path)):
+            raise ServeError(400, f"checkpoint not found: {path!r}")
+        with self.lock:
+            try:
+                self.clf.reload(path, best=bool(body.get("best", True)))
+            except (ValueError, FileNotFoundError, NotImplementedError) as e:
+                # a structure mismatch, missing files, or a format whose
+                # import is not ported: the request's problem
+                raise ServeError(400, str(e))
+        return {"ok": True, "checkpoint": path}
+
+
+class FewShotService(_Service):
+    """The endpoint logic, apart from the HTTP plumbing."""
+
+    def _text(self, body: dict) -> Optional[np.ndarray]:
+        # a token model's support_text is int ids on the wire: float32
+        # would break the embedding lookup
+        return _array(body, "support_text", dtype=self.clf.text_dtype,
+                      required=False)
 
     def episode(self, body: dict) -> dict:
         s_im = _array(body, "support_im")
@@ -242,31 +283,50 @@ class FewShotService:
                 raise ServeError(409, str(e))
         return {"result": _render(logits, mode)}
 
-    def reload(self, body: dict) -> dict:
-        """Swap in a run dir's weights; any adapted state is dropped. Body:
-        ``{"checkpoint": "<run dir>", "best": true?}``."""
-        path = body.get("checkpoint")
-        if not isinstance(path, str) or not path:
-            raise ServeError(400, "missing field 'checkpoint' "
-                                  "(run dir or .pth.tar)")
-        if not (os.path.isdir(path) or os.path.isfile(path)):
-            raise ServeError(400, f"checkpoint not found: {path!r}")
-        with self.lock:
-            try:
-                self.clf.reload(path, best=bool(body.get("best", True)))
-            except (ValueError, FileNotFoundError, NotImplementedError) as e:
-                # a structure mismatch, missing files, or a format whose
-                # import is not ported: the request's problem
-                raise ServeError(400, str(e))
-        return {"ok": True, "checkpoint": path}
-
     ROUTES = {"/v1/episode": episode, "/v1/episode_batch": episode_batch,
               "/v1/adapt": adapt, "/v1/classify": classify,
-              "/v1/reload": reload}
+              "/v1/reload": _Service.reload}
+
+
+class ClipService(_Service):
+    """CLIP retrieval endpoints (``--model clip``): index a gallery of
+    image embeddings once, rank texts against it; plus the stateless
+    similarity matrix. Serves :class:`fumi_tpu_torch.serve.ClipRetrieval`
+    under one lock, as :class:`FewShotService` serves its classifier."""
+
+    def healthz(self) -> dict:
+        return {**super().healthz(), "gallery": self.clf.gallery_size}
+
+    def index(self, body: dict) -> dict:
+        images = _array(body, "images")
+        with self.lock:
+            size = self.clf.index(images)
+        return {"ok": True, "gallery_size": size}
+
+    def retrieve(self, body: dict) -> dict:
+        text = _array(body, "text")
+        top_k = int(body.get("top_k", 5))
+        with self.lock:
+            if self.clf.gallery_size == 0:
+                raise ServeError(409, "call /v1/clip/index before "
+                                      "/v1/clip/retrieve")
+            idx, scores = self.clf.retrieve(text, top_k)
+        return {"indices": idx.tolist(), "scores": scores.tolist()}
+
+    def similarity(self, body: dict) -> dict:
+        text = _array(body, "text")
+        images = _array(body, "images")
+        with self.lock:
+            sim = self.clf.similarity(text, images)
+        return {"similarity": sim.tolist()}
+
+    ROUTES = {"/v1/clip/index": index, "/v1/clip/retrieve": retrieve,
+              "/v1/clip/similarity": similarity,
+              "/v1/reload": _Service.reload}
 
 
 class _Handler(BaseHTTPRequestHandler):
-    service: FewShotService  # set by make_server
+    service: _Service  # set by make_server
 
     def log_message(self, fmt, *args):  # quiet by default
         pass
@@ -328,12 +388,14 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(status, payload)
 
 
-def make_server(clf: FewShotClassifier, host: str = "127.0.0.1",
+def make_server(clf, host: str = "127.0.0.1",
                 port: int = 0) -> ThreadingHTTPServer:
-    """Build (but do not start) the HTTP server; ``port=0`` picks a free
-    port, ``server.server_address[1]`` is the one bound."""
-    handler = type("Handler", (_Handler,),
-                   {"service": FewShotService(clf)})
+    """Build (but do not start) the HTTP server for a
+    :class:`FewShotClassifier` or a :class:`ClipRetrieval`; ``port=0``
+    picks a free port, ``server.server_address[1]`` is the one bound."""
+    service = (ClipService(clf) if isinstance(clf, ClipRetrieval)
+               else FewShotService(clf))
+    handler = type("Handler", (_Handler,), {"service": service})
     return ThreadingHTTPServer((host, port), handler)
 
 
@@ -354,15 +416,16 @@ def build_net_parser() -> argparse.ArgumentParser:
     return net
 
 
-def build_classifier(cfg, run_dir: Optional[str]) -> FewShotClassifier:
-    """The classifier ``main`` serves: from a run dir, or the family's own
-    seeded init without one. CLIP and seed-sweep run dirs raise, each
-    naming its ROADMAP item."""
+def build_classifier(cfg, run_dir: Optional[str]):
+    """What ``main`` serves: a :class:`ClipRetrieval` for ``--model clip``,
+    else a :class:`FewShotClassifier`; from a run dir, or the seeded init
+    without one (a token model's dictionary then comes from the driver's
+    dataset). Seed-sweep run dirs raise, naming their ROADMAP item."""
     device = "cpu" if cfg.disable_cuda else None
     if cfg.model == "clip":
-        raise NotImplementedError(
-            "not ported to the PyTorch package yet — --model clip "
-            "(ClipRetrieval and its service): Queue 1, item 5 in ROADMAP.md")
+        if run_dir:
+            return ClipRetrieval.from_checkpoint(run_dir, cfg, device=device)
+        return ClipRetrieval(cfg, None, device=device)
     if run_dir and find_seed_exports(run_dir):
         raise NotImplementedError(
             f"not ported to the PyTorch package yet — serving the seed "
@@ -371,7 +434,8 @@ def build_classifier(cfg, run_dir: Optional[str]) -> FewShotClassifier:
     if run_dir:
         return FewShotClassifier.from_checkpoint(run_dir, cfg,
                                                  device=device)
-    return FewShotClassifier(cfg, None, device=device)
+    return FewShotClassifier(cfg, None, serving_dictionary(cfg),
+                             device=device)
 
 
 def main(argv=None) -> None:
@@ -394,7 +458,7 @@ def main(argv=None) -> None:
 
     server = make_server(clf, net_args.host, net_args.port)
     host, port = server.server_address[:2]
-    routes = ", ".join(FewShotService.ROUTES)
+    routes = ", ".join(server.RequestHandlerClass.service.ROUTES)
     print(f"serving {cfg.model} on http://{host}:{port} on {clf.device} "
           f"(POST {routes})", flush=True)
     try:

@@ -1,0 +1,196 @@
+"""CLIP supervised training and retrieval evaluation.
+
+The counterpart of ``fumi_tpu/train/clip_loop.py``:
+
+- per-batch class dedupe (``np.unique(batch_ids, return_index=True)``) on
+  the host, repadded to the batch size, so every step has one shape;
+- the symmetric cross-entropy on the cosine-similarity matrix with arange
+  labels, masked to the valid rows and columns (``NEG_INF`` on the invalid
+  columns): the same function as the loss of the deduped batch sliced out;
+- evaluation: sliding windows of ``n_ways`` images against the window's
+  first text over a shuffled pass, with stride ``n_ways`` while
+  ``shot_i + n_ways < valid_n``; all windows scored in one call;
+- the epoch harness: an initial validation pass seeds ``best_acc``, then
+  per epoch a validation pass on a fresh window draw, a checkpoint,
+  best-accuracy tracking and patience, and ``best/`` reloaded at the end.
+
+The batches come from numpy with the JAX package's seeds, so the windows
+and dedupes are the JAX package's bit for bit. The optimizer is
+``train/optim.py:init_optim`` with no schedule masking, as the JAX driver
+builds it. Multi-device CLIP (``mesh``) is ROADMAP.md Queue 1, item 9.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fumi_tpu_torch.core.config import Config
+from fumi_tpu_torch.data.supervised import SupervisedSet, epoch_batches
+from fumi_tpu_torch.models.clip import CLIP
+from fumi_tpu_torch.train import checkpoint as ckpt_lib
+from fumi_tpu_torch.train import optim
+from fumi_tpu_torch.train.logging import MetricWriter
+
+NEG_INF = -1e9
+
+
+def make_clip(cfg: Config, gen: torch.Generator):
+    """The CLIP spec at the config's widths and its params, drawn from
+    ``gen`` on the CPU."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"not ported to the PyTorch package yet — --tpu_compute_dtype "
+            f"{cfg.compute_dtype}: Queue 1, item 8 (bf16 policy) in "
+            "ROADMAP.md")
+    model = CLIP(text_input_dim=cfg.text_emb_dim,
+                 image_input_dim=cfg.im_emb_dim,
+                 latent_dim=cfg.clip_latent_dim)
+    return model, model.init_params(gen)
+
+
+def masked_symmetric_ce(model: CLIP, params, text: torch.Tensor,
+                        image: torch.Tensor, valid_n: int) -> torch.Tensor:
+    """Symmetric CE over the first ``valid_n`` (deduped) rows and columns
+    of a (B, B) similarity matrix: the loss of the batch sliced to
+    ``valid_n``, at a static shape."""
+    sim = model.forward(params, text, image)  # (B, B)
+    valid = torch.arange(sim.shape[0], device=sim.device) < valid_n
+
+    def masked_ce(logits):
+        logits = torch.where(valid.unsqueeze(0), logits, NEG_INF)
+        nll = -torch.diagonal(F.log_softmax(logits, dim=-1))
+        return torch.where(valid, nll, 0.0).sum() / max(valid_n, 1)
+
+    return (masked_ce(sim) + masked_ce(sim.T)) / 2.0
+
+
+def dedupe_batch(image: np.ndarray, text: np.ndarray, ids: np.ndarray,
+                 valid_n: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """First-occurrence class dedupe, repadded with the first kept row."""
+    _, unique_idx = np.unique(ids[:valid_n], return_index=True)
+    u = len(unique_idx)
+    B = image.shape[0]
+    pad = np.concatenate([unique_idx,
+                          np.repeat(unique_idx[:1], B - u)])
+    return image[pad], text[pad], u
+
+
+def _device_of(params) -> torch.device:
+    return next(iter(params.values())).device
+
+
+def _put(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+
+def train_step(model: CLIP, opt: optim.Optimizer, params, opt_state,
+               text: torch.Tensor, image: torch.Tensor, valid_n: int):
+    """One optimizer step on a deduped batch of ``valid_n`` valid rows:
+    ``(params, opt_state, loss)``."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        loss = masked_symmetric_ce(model, leaves, text, image, valid_n)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+    with torch.no_grad():
+        updates, opt_state = opt.update(grads, opt_state, params)
+        return optim.apply_updates(params, updates), opt_state, loss.detach()
+
+
+def train_epoch(cfg: Config, model: CLIP, opt: optim.Optimizer, params,
+                opt_state, train_data: Tuple[SupervisedSet, np.ndarray],
+                rng: np.random.RandomState):
+    """One shuffled pass over the train split: each batch deduped on the
+    host, copied to the params' device and stepped. Returns ``(params,
+    opt_state, steps)``."""
+    train_ds, image_table = train_data
+    dev = _device_of(params)
+    n = 0
+    for image, text, ids, valid_n in epoch_batches(
+            train_ds, image_table, cfg.batch_size, rng):
+        image, text, u = dedupe_batch(image, text, ids, valid_n)
+        params, opt_state, _ = train_step(
+            model, opt, params, opt_state, _put(text, dev), _put(image, dev),
+            u)
+        n += 1
+    return params, opt_state, n
+
+
+def training_run(cfg: Config, model: CLIP, params, opt: optim.Optimizer,
+                 train_data: Tuple[SupervisedSet, np.ndarray],
+                 val_data: Tuple[SupervisedSet, np.ndarray],
+                 writer: MetricWriter, run_dir: str,
+                 rng: np.random.RandomState, mesh=None):
+    """The CLIP epoch loop on the params' device. Returns the params of
+    ``best/`` where one was written, else the last ones."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "not ported to the PyTorch package yet — multi-device CLIP "
+            "(a mesh): Queue 1, item 9 (scale-out) in ROADMAP.md")
+    opt_state = opt.init(params)
+    best_acc = evaluate(cfg, model, params, val_data)
+    best_epoch = 0
+    print("init val_acc", best_acc)
+
+    for epoch in range(cfg.epochs):
+        params, opt_state, _ = train_epoch(cfg, model, opt, params,
+                                           opt_state, train_data, rng)
+        # a fresh validation window draw each epoch, as the reference's
+        # shuffling val DataLoader draws one per pass
+        val_acc = evaluate(cfg, model, params, val_data,
+                           eval_seed=cfg.seed + 1 + epoch)
+        print("epoch", epoch, "val_acc", val_acc)
+        writer.log({"val/acc": val_acc}, step=epoch)
+        is_best = val_acc > best_acc
+        if is_best:
+            best_acc = val_acc
+            best_epoch = epoch
+        ckpt_lib.save_checkpoint(run_dir, params, opt_state, epoch,
+                                 best_acc, is_best,
+                                 extra_meta={"model": "clip",
+                                             "args": dataclasses.asdict(cfg)})
+        if cfg.patience > 0 and epoch - best_epoch > cfg.patience:
+            break
+
+    if os.path.exists(os.path.join(run_dir, "best")):
+        params, _, _ = ckpt_lib.load_checkpoint(run_dir, params, opt_state,
+                                                best=True)
+    return params
+
+
+def evaluate(cfg: Config, model: CLIP, params,
+             data: Tuple[SupervisedSet, np.ndarray],
+             eval_seed: Optional[int] = None) -> float:
+    """Sliding-window retrieval accuracy over one shuffled pass.
+
+    The shuffle is seeded from ``cfg.seed`` (or ``eval_seed``; the epoch
+    loop passes one per epoch), so a run's draw is deterministic and a
+    different draw per seed and epoch, as in the JAX package. Accuracy is
+    the count of wins times the fp32 reciprocal of the window count, as
+    XLA lowers ``jnp.mean``, so it is the JAX package's bit for bit when
+    the wins agree."""
+    ds, image_table = data
+    n_ways = cfg.num_ways
+    texts, windows = [], []
+    seed = cfg.seed if eval_seed is None else eval_seed
+    rng = np.random.RandomState(np.uint32(seed))
+    for image, text, ids, valid_n in epoch_batches(
+            ds, image_table, cfg.batch_size, rng, shuffle=True):
+        shot_i = 0
+        while shot_i + n_ways < valid_n:
+            texts.append(text[shot_i])
+            windows.append(image[shot_i:shot_i + n_ways])
+            shot_i += n_ways
+    if not windows:
+        return 0.0
+    dev = _device_of(params)
+    with torch.no_grad():
+        scores = model.retrieval_scores(params, _put(np.stack(texts), dev),
+                                        _put(np.stack(windows), dev))
+        return float(scores.sum() * (1.0 / scores.numel()))

@@ -4,8 +4,10 @@ The counterpart of ``fumi_tpu/train/steps.py`` on precomputed embeddings,
 fp32, ``--tpu_meta_grad explicit``, ``--tpu_adapt_params all``, for the
 five episodic families: MAML and FuMI (an inner loop), AM3, ProtoNet and
 MatchingNet (prototypes or attention over the support set, no inner
-loop). Each family is built once as a :class:`Family` of episode-level
-functions:
+loop). FuMI and AM3 take precomputed text embeddings or, with a token
+dictionary, token text through ``models/text_encoders.py`` (glove, w2v,
+RNN, RNNhid), frozen unless ``--fine_tune``. Each family is built once as
+a :class:`Family` of episode-level functions:
 
 - ``train_loss(params, episode, gen) -> (loss, aux)``, differentiable;
 - ``eval_raw(params, episode, gen) -> dict``, the test-time adaptation
@@ -129,7 +131,8 @@ def _check_slice(cfg: Config) -> None:
 # Family builders
 # ---------------------------------------------------------------------------
 
-def build_maml_family(cfg: Config, gen: torch.Generator) -> Family:
+def build_maml_family(cfg: Config, gen: torch.Generator,
+                      dictionary=None) -> Family:
     """PureImageNetwork over precomputed embeddings + the MAML engine."""
     _check_slice(cfg)
     params = mlp.init(gen, cfg.im_emb_dim, cfg.num_ways, cfg.im_hid_dim)
@@ -162,11 +165,18 @@ def build_maml_family(cfg: Config, gen: torch.Generator) -> Family:
                   eval_reduce=dict(EVAL_REDUCE))
 
 
-def build_fumi_family(cfg: Config, gen: torch.Generator) -> Family:
-    """FuMI hypernet + headless image MLP + the joint inner loop."""
+def _make_text_encoder(cfg: Config, gen: torch.Generator, dictionary):
+    return text_encoders.make_text_encoder(
+        cfg.text_encoder, gen, cfg.text_emb_dim, dictionary=dictionary,
+        pooling_strat=cfg.pooling_strat, fine_tune=cfg.fine_tune)
+
+
+def build_fumi_family(cfg: Config, gen: torch.Generator,
+                      dictionary=None) -> Family:
+    """FuMI hypernet + headless image MLP + the joint inner loop. A token
+    text encoder (glove/w2v/RNN/RNNhid) needs ``dictionary``."""
     _check_slice(cfg)
-    enc = text_encoders.make_text_encoder(cfg.text_encoder, gen,
-                                          cfg.text_emb_dim, cfg.fine_tune)
+    enc = _make_text_encoder(cfg, gen, dictionary)
     model = fumi_mod.FUMI(
         n_way=cfg.num_ways, im_emb_dim=cfg.im_emb_dim,
         im_hid_dim=tuple(cfg.im_hid_dim), text_encoder=enc,
@@ -203,13 +213,14 @@ def build_fumi_family(cfg: Config, gen: torch.Generator) -> Family:
                   eval_reduce=dict(EVAL_REDUCE), model=model)
 
 
-def build_am3_family(cfg: Config, gen: torch.Generator) -> Family:
+def build_am3_family(cfg: Config, gen: torch.Generator,
+                     dictionary=None) -> Family:
     """AM3's prototypical episode. Metrics come from the meta-batch's
     confusion matrix (``sum``-reducible), from which accuracy and the
-    sklearn-macro P/R/F1 follow."""
+    sklearn-macro P/R/F1 follow. A token text encoder needs
+    ``dictionary``."""
     _check_slice(cfg)
-    enc = text_encoders.make_text_encoder(cfg.text_encoder, gen,
-                                          cfg.text_emb_dim, cfg.fine_tune)
+    enc = _make_text_encoder(cfg, gen, dictionary)
     model = am3_mod.AM3(
         im_emb_dim=cfg.im_emb_dim, prototype_dim=cfg.prototype_dim,
         text_encoder=enc, text_emb_dim=enc.out_dim,
@@ -294,7 +305,8 @@ def _no_inner_loop_family(name: str, params, raw_fn) -> Family:
                   eval_reduce=dict(EVAL_REDUCE))
 
 
-def build_protonet_family(cfg: Config, gen: torch.Generator) -> Family:
+def build_protonet_family(cfg: Config, gen: torch.Generator,
+                          dictionary=None) -> Family:
     """Prototypical Networks (Snell et al. 2017): class means of the
     embedded support set, the queries' prototypical cross-entropy."""
     _check_slice(cfg)
@@ -310,7 +322,8 @@ def build_protonet_family(cfg: Config, gen: torch.Generator) -> Family:
                                  raw)
 
 
-def build_matchingnet_family(cfg: Config, gen: torch.Generator) -> Family:
+def build_matchingnet_family(cfg: Config, gen: torch.Generator,
+                             dictionary=None) -> Family:
     """Matching Networks (Vinyals et al. 2016, without full context
     embeddings): queries attend over the support samples with softmaxed
     cosine similarity and sum their one-hot labels."""
@@ -335,13 +348,16 @@ FAMILY_BUILDERS = {"maml": build_maml_family, "fumi": build_fumi_family,
                    "matchingnet": build_matchingnet_family}
 
 
-def build_family(cfg: Config, gen: torch.Generator) -> Family:
+def build_family(cfg: Config, gen: torch.Generator,
+                 dictionary=None) -> Family:
     builder = FAMILY_BUILDERS.get(cfg.model)
     if builder is None:
         raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (ROADMAP.md Queue 1, "
-            "item 5: the other families)")
-    return builder(cfg, gen)
+            f"model {cfg.model!r} has no episodic family (have "
+            f"{sorted(FAMILY_BUILDERS)}; CLIP uses "
+            "fumi_tpu_torch.train.clip_loop and serve.ClipRetrieval); a "
+            "registry of further families is ROADMAP.md Queue 1, item 5")
+    return builder(cfg, gen, dictionary)
 
 
 # ---------------------------------------------------------------------------
@@ -463,11 +479,12 @@ def _train_metrics(family: Family, loss, aux, episode, grads=None) -> Dict:
 
 
 def make_steps(cfg: Config, gen: torch.Generator,
-               device: DeviceLike = None) -> FamilySteps:
+               device: DeviceLike = None, dictionary=None) -> FamilySteps:
     """The family's steps with its params on ``device`` (default the
-    current CUDA device; ``"cpu"`` for the CPU)."""
+    current CUDA device; ``"cpu"`` for the CPU); ``dictionary`` for a
+    token text encoder."""
     dev = resolve_device(device)
-    family = build_family(cfg, gen)
+    family = build_family(cfg, gen, dictionary)
     family = family._replace(params={k: v.to(dev)
                                      for k, v in family.params.items()})
     return steps_from_family(family, make_opt(cfg))

@@ -698,6 +698,146 @@ def test_http_on_card(cuda_device):
         server.server_close()
 
 
+# ---------------------------------------------------------------------------
+# CLIP and the token text encoders on the card
+# ---------------------------------------------------------------------------
+
+def test_clip_encode_and_loss_on_card_match_cpu(cuda_device):
+    """CLIP at the parser's widths (text 768, image 2048, latent 512), card
+    against CPU from the same weights: the normalised embeddings and the
+    similarity matrix within 1e-5, the masked loss of a batch of 64 with 19
+    valid rows within 1e-5 of itself and each gradient within 1e-4 of its
+    largest entry (fp32 on both sides, IEEE, summed in other orders)."""
+    from fumi_tpu_torch.train import clip_loop
+    cfg = Config(model="clip", dataset="synthetic", seed=0)
+    model, p_host = clip_loop.make_clip(cfg, torch.Generator().manual_seed(0))
+    p_card = {k: v.to(cuda_device) for k, v in p_host.items()}
+    rng = np.random.RandomState(0)
+    text = torch.from_numpy(rng.randn(64, 768).astype(np.float32))
+    image = torch.from_numpy(rng.randn(64, 2048).astype(np.float32))
+    for enc, x in (("encode_text", text), ("encode_image", image)):
+        got = getattr(model, enc)(p_card, x.to(cuda_device)).cpu()
+        np.testing.assert_allclose(got.numpy(), getattr(model, enc)(
+            p_host, x).numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        model.forward(p_card, text.to(cuda_device),
+                      image.to(cuda_device)).cpu().numpy(),
+        model.forward(p_host, text, image).numpy(), rtol=1e-5, atol=1e-5)
+
+    def loss_and_grads(p, dev):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        loss = clip_loop.masked_symmetric_ce(model, leaves, text.to(dev),
+                                             image.to(dev), 19)
+        return float(loss.detach()), torch.autograd.grad(
+            loss, list(leaves.values()))
+    l_card, g_card = loss_and_grads(p_card, cuda_device)
+    l_host, g_host = loss_and_grads(p_host, "cpu")
+    assert abs(l_card - l_host) <= 1e-5 * abs(l_host)
+    for a, b in zip(g_card, g_host):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max()) + 1e-9
+
+
+@pytest.mark.parametrize("variant", ["output", "hidden"])
+def test_masked_bilstm_on_card_matches_cpu(cuda_device, variant):
+    """The biLSTM at its full width (300-wide embeddings, 384 a direction)
+    over 100 descriptions of T=12 tokens padded to every length 1..12,
+    card against CPU: 12 dependent fp32 cell steps summed in other
+    orders, within 1e-5 of the output's scale."""
+    from fumi_tpu_torch.data.synthetic import synthetic_dictionary
+    from fumi_tpu_torch.models import text_encoders
+    enc = text_encoders.make_text_encoder(
+        "RNN" if variant == "output" else "RNNhid",
+        torch.Generator().manual_seed(0), 768, synthetic_dictionary(128))
+    rng = np.random.RandomState(1)
+    toks = rng.randint(1, 128, size=(100, 12)).astype(np.int32)
+    toks[np.arange(12) >= (1 + np.arange(100) % 12)[:, None]] = 0
+    host = enc.apply(enc.params, torch.from_numpy(toks))
+    card = enc.apply({k: v.to(cuda_device) for k, v in enc.params.items()},
+                     torch.from_numpy(toks).to(cuda_device)).cpu()
+    assert card.shape == (100, 768) and bool(torch.isfinite(card).all())
+    scale = float(host.abs().max())
+    assert float((card - host).abs().max()) <= 1e-5 * max(scale, 1.0)
+
+
+@pytest.mark.parametrize("encoder", ["RNN", "glove"])
+def test_token_fumi_served_through_the_kernel(cuda_device, encoder):
+    """A token FuMI request with descriptions padded to mixed lengths: one
+    ``fused_adapt`` launch, within 1e-4 of the autograd engine with the
+    same argmax."""
+    from fumi_tpu_torch.data.synthetic import synthetic_dictionary
+    vocab = synthetic_dictionary(32)
+    cfg = Config(model="fumi", dataset="synthetic", im_emb_dim=128,
+                 text_emb_dim=32, im_hid_dim=(64, 16), text_hid_dim=32,
+                 num_ways=5, num_shots=3, num_test_adapt_steps=30,
+                 step_size=0.05, dropout=0.0, text_encoder=encoder, seed=1)
+    clf = FewShotClassifier(cfg, None, vocab)
+    engine = FewShotClassifier(cfg, clf.params, vocab)
+    engine._episode_fn = engine._build_episode_fn(force_engine=True)
+    rng = np.random.RandomState(2)
+    s_im = rng.randn(2, 15, 128).astype(np.float32)
+    s_tx = rng.randint(1, 32, size=(2, 15, 9)).astype(np.int32)
+    s_tx[..., np.arange(9) >= (1 + np.arange(15) % 9)[:, None]] = 0
+    s_y = np.tile(np.repeat(np.arange(5), 3), (2, 1)).astype(np.int32)
+    q_im = rng.randn(2, 20, 128).astype(np.float32)
+    before = kernels.fused_adapt.launches
+    got = clf.episode_logits_batch(s_im, s_y, q_im, support_text=s_tx)
+    assert kernels.fused_adapt.launches == before + 1
+    want = engine.episode_logits_batch(s_im, s_y, q_im, support_text=s_tx)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_token_id_outside_the_table_answers_400_on_card(cuda_device):
+    """A token FuMI server on the card: a request with a token id outside
+    the 32-row embedding table answers 400 before the lookup (which would
+    fail the CUDA context and every later request), and the next valid
+    request answers 200 with the logits it gave before."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+    from fumi_tpu_torch import serve_http
+    from fumi_tpu_torch.data.synthetic import synthetic_dictionary
+    cfg = Config(model="fumi", dataset="synthetic", im_emb_dim=128,
+                 text_emb_dim=32, im_hid_dim=(64, 16), text_hid_dim=32,
+                 num_ways=5, num_shots=3, num_test_adapt_steps=30,
+                 step_size=0.05, dropout=0.0, text_encoder="RNN", seed=1)
+    clf = FewShotClassifier(cfg, None, synthetic_dictionary(32))
+    server = serve_http.make_server(clf, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def call(body):
+        req = urllib.request.Request(url + "/v1/episode",
+                                     data=json.dumps(body).encode())
+        try:
+            with opener.open(req, timeout=120) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+    try:
+        rng = np.random.RandomState(3)
+        s_tx = rng.randint(1, 32, size=(15, 9))
+        s_tx[np.arange(9) >= (1 + np.arange(15) % 9)[:, None]] = 0
+        body = {"support_im": rng.randn(15, 128).tolist(),
+                "support_y": np.repeat(np.arange(5), 3).tolist(),
+                "query_im": rng.randn(20, 128).tolist(),
+                "support_text": s_tx.tolist(), "return": "logits"}
+        status, first = call(body)
+        assert status == 200
+        for bad_id in (32, -1):
+            bad = s_tx.copy()
+            bad[2, 0] = bad_id
+            status, err = call({**body, "support_text": bad.tolist()})
+            assert status == 400 and "token ids" in err["error"]
+        assert call(body) == (200, first)
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
 if __name__ == "__main__":
     sys.exit(pytest.main([__file__, "-m", "cuda", "-q", "--noconftest",
                           "-p", "no:cacheprovider"]))

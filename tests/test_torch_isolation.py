@@ -201,3 +201,62 @@ def test_the_server_defaults_to_cuda(monkeypatch, tmp_path):
     clf = serve_http.build_classifier(cfg.replace(disable_cuda=True), None)
     assert clf.device.type == "cpu"
     assert serve_http.FewShotService(clf).healthz()["backend"] == "cpu"
+
+
+def test_the_clip_and_token_encoder_modules_are_among_those_checked():
+    """CLIP, its loop, the supervised data copy and the token encoders are
+    walked by the import checks above: no JAX and nothing of fumi_tpu at
+    run time."""
+    assert {"fumi_tpu_torch.models.clip", "fumi_tpu_torch.train.clip_loop",
+            "fumi_tpu_torch.data.supervised",
+            "fumi_tpu_torch.models.text_encoders"} <= set(port_modules())
+
+
+@pytest.mark.parametrize("shuffle", [True, False])
+def test_supervised_copy_equals_the_original(shuffle):
+    """``data/supervised.py`` is a copy of the JAX package's numpy module:
+    the same tables from a class set, the same padded batches from the
+    same seed."""
+    import fumi_tpu.data.supervised as jax_sup
+    from fumi_tpu_torch.data import supervised
+    cs, table, _ = synthetic.synthetic_class_set(
+        num_classes=6, images_per_class=5, im_dim=8, text_dim=4, seed=2)
+    cs.class_counts = np.array([5, 3, 5, 1, 4, 5], np.int32)  # ragged
+    ours = supervised.supervised_from_class_set(cs)
+    theirs = jax_sup.supervised_from_class_set(cs)
+    assert ours.num_items == theirs.num_items == 23
+    for f in dataclasses.fields(theirs):
+        a, b = getattr(ours, f.name), getattr(theirs, f.name)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    got = list(supervised.epoch_batches(ours, table, 7,
+                                        np.random.RandomState(1), shuffle))
+    want = list(jax_sup.epoch_batches(theirs, table, 7,
+                                      np.random.RandomState(1), shuffle))
+    assert [g[3] for g in got] == [w[3] for w in want] == [7, 7, 7, 2]
+    for g, w in zip(got, want):
+        for a, b in zip(g[:3], w[:3]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_the_clip_server_and_token_steps_default_to_cuda(monkeypatch):
+    """``ClipRetrieval`` and token-encoder steps ask for CUDA and raise
+    where it is missing, unless given device='cpu'."""
+    from fumi_tpu_torch.data.synthetic import synthetic_dictionary
+    from fumi_tpu_torch.serve import ClipRetrieval
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    clip = port_config.Config(model="clip", dataset="synthetic",
+                              im_emb_dim=8, text_emb_dim=4,
+                              clip_latent_dim=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClipRetrieval(clip)
+    assert ClipRetrieval(clip, device="cpu").device.type == "cpu"
+    cfg = port_config.Config(model="fumi", dataset="synthetic", im_emb_dim=8,
+                             text_emb_dim=4, im_hid_dim=(4, 4),
+                             text_hid_dim=4, num_ways=2, text_encoder="RNN")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                         dictionary=synthetic_dictionary(8))
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0), "cpu",
+                          dictionary=synthetic_dictionary(8))
+    assert all(t.device.type == "cpu" for t in st.params.values())

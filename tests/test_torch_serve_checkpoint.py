@@ -13,6 +13,7 @@ CPU.
   ``rand`` encoder at λ fixed to 1, where its noise does not enter.
 """
 
+import dataclasses
 import glob
 import os
 
@@ -26,6 +27,7 @@ from fumi_tpu.serve import FewShotClassifier as JaxClassifier
 from fumi_tpu_torch import bridge
 from fumi_tpu_torch.cli import main as cli_main
 from fumi_tpu_torch.core.config import Config, config_from_args
+from fumi_tpu_torch.data.synthetic import synthetic_dictionary
 from fumi_tpu_torch.serve import FewShotClassifier, serving_dictionary
 from fumi_tpu_torch.train import checkpoint, steps
 
@@ -130,8 +132,13 @@ def test_reload_and_from_checkpoint_reject_what_is_not_ported(runs,
     with pytest.raises(ValueError, match="cannot restore"):
         clf.reload(str(tmp_path))  # no ckpt/ or best/
     assert serving_dictionary(cfg) is None
+    # a token model's dictionary comes from vocab.json or the driver's
+    # dataset; a dataset whose loader is not ported names item 5
+    assert serving_dictionary(cfg.replace(text_encoder="glove"), run) == \
+        synthetic_dictionary(128)
     with pytest.raises(NotImplementedError, match="item 5"):
-        serving_dictionary(cfg.replace(text_encoder="glove"))
+        serving_dictionary(cfg.replace(text_encoder="glove",
+                                       dataset="cub"))
     other = cfg.replace(im_hid_dim=(8, 8))  # the run was written at (8, 4)
     with pytest.raises(ValueError, match="cannot restore"):
         FewShotClassifier.from_checkpoint(run, other, device="cpu")
@@ -220,3 +227,101 @@ def test_am3_rand_noise_depends_on_the_episode_seed_only():
     np.testing.assert_allclose(small, big[:3], rtol=1e-6, atol=1e-6)
     other = clf.episode_logits_batch(s_im[:3], s_y[:3], q_im[:3], seed=8)
     assert not np.allclose(small, other)
+
+
+# ---------------------------------------------------------------------------
+# token text encoders served from the port's run dirs
+# ---------------------------------------------------------------------------
+
+TOKEN_RUNS = [("fumi", "RNN"), ("am3", "glove"), ("fumi", "w2v"),
+              ("am3", "RNNhid")]
+
+
+@pytest.fixture(scope="module")
+def token_runs(tmp_path_factory):
+    """(model, encoder) -> (config, run dir) of a token-encoder run the
+    port's driver wrote, ``vocab.json`` included."""
+    out = {}
+    for model, enc in TOKEN_RUNS:
+        log_dir = tmp_path_factory.mktemp(f"{model}-{enc}")
+        argv = driver_argv(log_dir, model)
+        argv[argv.index("precomputed")] = enc
+        cli_main.cli(argv)
+        (run,) = glob.glob(os.path.join(str(log_dir), "runs", "*"))
+        out[(model, enc)] = (config_from_args(argv), run)
+    return out
+
+
+def token_request(seed, T=6):
+    """A request whose support descriptions are token ids padded with PAD
+    (0) to mixed lengths 1..T."""
+    s_im, s_y, q_im, _ = request(seed)
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(1, 128, size=(N * K, T))
+    lengths = 1 + np.arange(N * K) % T
+    s_tx = np.where(np.arange(T) < lengths[:, None], toks, 0).astype(
+        np.int32)
+    return s_im, s_y, q_im, s_tx
+
+
+@pytest.mark.parametrize("model,enc", TOKEN_RUNS,
+                         ids=[f"{m}-{e}" for m, e in TOKEN_RUNS])
+def test_token_serving_from_a_run_dir_matches_the_jax_classifier(
+        token_runs, model, enc):
+    """``from_checkpoint`` rebuilds the encoder from the run's
+    ``vocab.json``; every request path answers as
+    ``fumi_tpu.serve.FewShotClassifier`` on the same weights and
+    dictionary (1e-4, same argmax). A request without ``support_text``
+    raises ``RequestError``; the warm-up's token-1 descriptions stay
+    finite."""
+    from fumi_tpu_torch.serve import RequestError, warmup
+    cfg, run = token_runs[(model, enc)]
+    vocab = serving_dictionary(cfg, run)
+    assert vocab == synthetic_dictionary(128)
+    clf = FewShotClassifier.from_checkpoint(run, cfg, device="cpu")
+    assert clf.text_is_tokens
+    jc = JaxClassifier(JaxConfig(**dataclasses.asdict(cfg)),
+                       bridge.params_to_numpy(clf.params, model), vocab)
+    s_im, s_y, q_im, s_tx = token_request(6)
+    same(clf.episode_logits(s_im, s_y, q_im, support_text=s_tx),
+         jc.episode_logits(s_im, s_y, q_im, support_text=s_tx))
+    b = tuple(np.stack([a, a[::-1].copy()]) for a in (s_im, s_y, q_im,
+                                                      s_tx))
+    same(clf.episode_logits_batch(*b[:3], support_text=b[3]),
+         jc.episode_logits_batch(*b[:3], support_text=b[3]))
+    clf.adapt(s_im, s_tx, s_y)
+    jc.adapt(s_im, s_tx, s_y)
+    same(clf.logits(q_im), jc.logits(q_im))
+    with pytest.raises(RequestError, match="support_text"):
+        clf.episode_logits(s_im, s_y, q_im)
+    warmup(clf)
+    clf.reload(run, best=False)
+    assert np.isfinite(clf.episode_logits(s_im, s_y, q_im,
+                                          support_text=s_tx)).all()
+
+
+@pytest.mark.parametrize("model,enc", TOKEN_RUNS[:2],
+                         ids=[f"{m}-{e}" for m, e in TOKEN_RUNS[:2]])
+def test_token_ids_outside_the_table_raise(token_runs, model, enc):
+    """A token id outside the embedding table's rows [0, V) raises
+    ``RequestError`` on every request path before the encoder sees it (on
+    the card the lookup would fail the CUDA context); the next request
+    answers bitwise as before."""
+    from fumi_tpu_torch.serve import RequestError
+    cfg, run = token_runs[(model, enc)]
+    clf = FewShotClassifier.from_checkpoint(run, cfg, device="cpu")
+    s_im, s_y, q_im, s_tx = token_request(7)
+    want = clf.episode_logits(s_im, s_y, q_im, support_text=s_tx)
+    for bad_id in (128, -1, 2 ** 20):
+        bad = s_tx.copy()
+        bad[3, 0] = bad_id
+        with pytest.raises(RequestError, match="token ids"):
+            clf.episode_logits(s_im, s_y, q_im, support_text=bad)
+        with pytest.raises(RequestError, match="token ids"):
+            clf.episode_logits_batch(s_im[None], s_y[None], q_im[None],
+                                     support_text=bad[None])
+        with pytest.raises(RequestError, match="token ids"):
+            clf.adapt(s_im, bad, s_y)
+    np.testing.assert_array_equal(
+        clf.episode_logits(s_im, s_y, q_im, support_text=s_tx), want)
+

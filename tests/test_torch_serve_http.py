@@ -301,8 +301,12 @@ def test_net_parser_flags_equal_the_jax_servers():
 
 def test_main_refuses_what_is_not_ported(tmp_path):
     cfg = Config(**cfg_kw("fumi"), disable_cuda=True)
+    # CLIP and the token encoders serve since they were ported; a token
+    # model's dictionary from a dataset whose loader is not ported names
+    # item 5
     with pytest.raises(NotImplementedError, match="item 5"):
-        serve_http.build_classifier(cfg.replace(model="clip"), None)
+        serve_http.build_classifier(
+            cfg.replace(text_encoder="glove", dataset="cub"), None)
     sweep = tmp_path / "sweep"
     os.makedirs(sweep / "seed0" / "best")
     with pytest.raises(NotImplementedError, match="item 9"):
@@ -312,3 +316,108 @@ def test_main_refuses_what_is_not_ported(tmp_path):
                          "someone/project/run", "--disable_cuda"])
     clf = serve_http.build_classifier(cfg, None)
     assert clf.device.type == "cpu" and clf.cfg.model == "fumi"
+
+
+# ---------------------------------------------------------------------------
+# token text encoders: both servers on the same bodies
+# ---------------------------------------------------------------------------
+
+TOKEN_MODELS = [("fumi", "RNN"), ("am3", "glove")]
+
+
+@pytest.fixture(scope="module")
+def token_servers():
+    """(model, encoder) -> (JAX url, port url), the same weights and the
+    synthetic dictionary."""
+    from fumi_tpu_torch.data.synthetic import synthetic_dictionary
+    vocab = synthetic_dictionary(32)
+    out, started = {}, []
+    for model, enc in TOKEN_MODELS:
+        kw = cfg_kw(model, text_encoder=enc)
+        jc = JaxClassifier(JaxConfig(**kw), None, vocab)
+        params = bridge.params_from_jax(
+            jax.tree_util.tree_map(np.asarray, jc.params), model,
+            device="cpu")
+        tc = FewShotClassifier(Config(**kw), params, vocab, device="cpu")
+        js, j_url = serve(jc, jax_make_server)
+        ts, t_url = serve(tc, serve_http.make_server)
+        started += [js, ts]
+        out[(model, enc)] = (j_url, t_url)
+    yield out
+    for server in started:
+        server.shutdown()
+        server.server_close()
+
+
+def token_bodies(seed, R=None, T=5):
+    """Bodies whose support descriptions are int token ids padded with PAD
+    (0) to mixed lengths 1..T."""
+    body = bodies(seed, R)
+    rng = np.random.RandomState(seed)
+    lead = () if R is None else (R,)
+    toks = rng.randint(1, 32, size=lead + (N * K, T))
+    lengths = rng.randint(1, T + 1, size=lead + (N * K, 1))
+    body["support_text"] = np.where(np.arange(T) < lengths, toks,
+                                    0).tolist()
+    return body
+
+
+@pytest.mark.parametrize("model,enc", TOKEN_MODELS,
+                         ids=[f"{m}-{e}" for m, e in TOKEN_MODELS])
+def test_token_models_answer_as_the_jax_server(token_servers, model, enc):
+    """``/v1/episode``, ``/v1/episode_batch`` and adapt-then-classify with
+    token text: logits within 1e-4, labels equal; a request without
+    ``support_text`` answers 400 on both."""
+    j_url, t_url = token_servers[(model, enc)]
+    for path, body in (("/v1/episode", token_bodies(0)),
+                       ("/v1/episode_batch", token_bodies(1, R=3))):
+        body = {**body, "return": "logits"}
+        (js, jr), (ts, tr) = call(j_url, path, body), call(t_url, path, body)
+        assert js == ts == 200
+        got, want = np.asarray(tr["result"]), np.asarray(jr["result"])
+        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    body = token_bodies(2)
+    support = {k: body[k] for k in ("support_im", "support_text",
+                                    "support_y")}
+    for url in (j_url, t_url):
+        assert call(url, "/v1/adapt", support) == (200, {"ok": True})
+    labels = [call(u, "/v1/classify", {"query_im": body["query_im"]})
+              for u in (j_url, t_url)]
+    assert labels[0] == labels[1] and labels[0][0] == 200
+    no_text = {k: v for k, v in body.items() if k != "support_text"}
+    for path in ("/v1/episode", "/v1/adapt"):
+        (js, jr), (ts, tr) = (call(j_url, path, no_text),
+                              call(t_url, path, no_text))
+        assert js == ts == 400 and "support_text" in tr["error"]
+
+
+@pytest.mark.parametrize("bad_id", [32, -1])
+@pytest.mark.parametrize("model,enc", TOKEN_MODELS,
+                         ids=[f"{m}-{e}" for m, e in TOKEN_MODELS])
+def test_token_ids_outside_the_table_answer_400(token_servers, model, enc,
+                                                bad_id):
+    """A token id outside the 32-row embedding table answers 400 on the
+    port (the JAX server clamps the lookup and answers 200; on the card
+    the port's lookup would fail the CUDA context and every later
+    request), on ``/v1/episode`` and ``/v1/adapt``; the next valid request
+    still answers 200 with the logits it gave before, within 1e-4 of the
+    JAX server's."""
+    j_url, t_url = token_servers[(model, enc)]
+    body = {**token_bodies(3), "return": "logits"}
+    status, first = call(t_url, "/v1/episode", body)
+    assert status == 200
+    bad = np.asarray(body["support_text"])
+    bad[1, 0] = bad_id
+    for path in ("/v1/episode", "/v1/adapt"):
+        status, err = call(t_url, path, {**body, "support_text":
+                                         bad.tolist()})
+        assert status == 400 and "token ids" in err["error"]
+    assert call(j_url, "/v1/episode", {**body, "support_text":
+                                       bad.tolist()})[0] == 200
+    status, again = call(t_url, "/v1/episode", body)
+    assert status == 200 and again == first
+    np.testing.assert_allclose(
+        np.asarray(again["result"]),
+        np.asarray(call(j_url, "/v1/episode", body)[1]["result"]), **TOL)
+
