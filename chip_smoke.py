@@ -84,6 +84,27 @@ fails:
    embedding table, the next request still answered as before); train
    episodes/s beside the BERT runs, the encoder's device ms a meta-batch,
    the busy share;
+7g. the real datasets' layouts at their published scale, on fixture
+   files written here: the driver on ``--dataset cub`` (200 classes,
+   11,788 x 2048 fp32, split 100/50/50) for MAML (one
+   ``gather_episode_rows`` a step and a meta-batch, one
+   ``fused_maml_adapt_batched`` a meta-batch) and ProtoNet, the CSV's
+   query rows from the test classes, train episodes/s through the
+   driver's loader and samplers; iNat-Anim (673 species, 195,605 images,
+   a BERT artifact, the 1.60 GB table on the card) built by the loader's
+   table-building part, FuMI training and eval through ``fused_adapt``
+   on the driver's samplers and steps, CLIP for one epoch of the
+   supervised split, ``prepare vectors`` on 300-wide GloVe text and FuMI
+   RNN on those vectors;
+7h. ANIL, Reptile, iMAML-MAML and iMAML-FuMI (``--dropout 0``): training
+   (one ``gather_episode_rows`` a step), the busy share, a train step
+   card against CPU, Reptile's eval through ``fused_maml_adapt_batched``
+   against the engine, the driver, a request served from its run dir
+   (Reptile through ``fused_adapt`` against the engine, the others
+   through the engine against the CPU);
+7i. a family registered by a module the driver imports
+   (``--tpu_import``), trained on the card and served through its
+   ``Family.serve`` hook;
 8. time each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, and each path; time a
    FuMI R=1 request through ``fused_adapt`` and through the autograd
@@ -99,7 +120,7 @@ fails:
 9. print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Every path of phases 4-7f sets the kernels' launch counts to 0 just before
+Every path of phases 4-7i sets the kernels' launch counts to 0 just before
 it runs and reads them just after; it fails if it did not launch each
 kernel it runs, as many times as the path runs it.
 
@@ -164,6 +185,27 @@ CLIP_TEXTS, CLIP_TOP_K, CLIP_HTTP_ROWS, CLIP_TOL = 100, 5, 256, 1e-5
 TOKEN_LEN, TOKEN_VOCAB, TOKEN_CHUNK = 12, 128, 20
 TOKEN_CASES = (("fumi", "RNN"), ("am3", "RNN"), ("fumi", "glove"),
                ("am3", "glove"), ("fumi", "RNNhid"), ("am3", "w2v"))
+# phase 7g, the real datasets' layouts at their published scale: CUB_200_2011
+# (200 classes, 11,788 images, split 100/50/50) and iNat-Anim (673 species,
+# 195,605 images, the paper's counts); train chunks of 20 steps; 300-wide
+# GloVe vectors for FuMI RNN, 5 train steps
+CUB_CLASSES, CUB_ROWS, CUB_SPLIT = 200, 11788, (100, 50, 50)
+INAT_CLASSES, INAT_IMAGES = 673, 195605
+DATA_CHUNK, GLOVE_DIM, VECTOR_STEPS = 20, 300, 5
+# phase 7h, the meta-gradient variants: (name, family, config, driver flags);
+# their drivers at half phase 7's depth (11 train steps, 3 validation passes
+# of 2 meta-batches, a test pass of 3), as ANIL and iMAML evaluate through
+# the autograd engine's 100 steps
+VARIANT_EPOCHS, VARIANT_EVAL_FREQ, VARIANT_EP_TEST = 10, 5, 8
+VARIANTS = (
+    ("anil", "maml", {"adapt_params": "head"},
+     ("--tpu_adapt_params", "head")),
+    ("reptile", "maml", {"meta_grad": "reptile"},
+     ("--tpu_meta_grad", "reptile")),
+    ("imaml-maml", "maml", {"meta_grad": "imaml"},
+     ("--tpu_meta_grad", "imaml")),
+    ("imaml-fumi", "fumi", {"meta_grad": "imaml", "dropout": 0.0},
+     ("--tpu_meta_grad", "imaml", "--dropout", "0")))
 
 
 def fail(msg: str) -> None:
@@ -623,7 +665,8 @@ def train_cfg(Config, model: str, **kw):
                   pallas_gather=True, seed=0, **kw)
 
 
-def train_step_card_vs_cpu(cfg, smp, dev, episode=None, dictionary=None):
+def train_step_card_vs_cpu(cfg, smp, dev, episode=None, dictionary=None,
+                           label=None):
     """One train step on the card and on the CPU from the same weights on
     the same episode (``smp``'s, unless ``episode`` is given), dropout 0.
 
@@ -660,7 +703,8 @@ def train_step_card_vs_cpu(cfg, smp, dev, episode=None, dictionary=None):
                        {k: v.cpu() for k, v in st.params.items()},
                        {k: v.cpu() for k, v in new.items()})
     token = f" {cfg.text_encoder}" if dictionary is not None else ""
-    hold_step(f"train step {cfg.model}{token}", runs, LR, cfg.weight_decay)
+    hold_step(f"train step {label or cfg.model}{token}", runs, LR,
+              cfg.weight_decay)
 
 
 def hold_step(label: str, runs, lr: float, weight_decay: float) -> None:
@@ -1805,6 +1849,700 @@ def token_encoders(Config, dev, root, reset_counts, read_counts, by_path,
     return times
 
 
+
+# ---------------------------------------------------------------------------
+# Phases 7g-7i: the real datasets' layouts, the meta-gradient variants and
+# the family registry
+# ---------------------------------------------------------------------------
+
+def new_counts(**launches):
+    """Expected launch counts: every kernel 0 but those named."""
+    out = {name: 0 for name in KERNEL_NAMES}
+    out.update(launches)
+    return out
+
+
+def driver_batches(epochs: int, ep_test: int, val_passes: int = 3):
+    """(train steps, eval meta-batches) a driver run launches the episode
+    gather for: ``epochs + 1`` steps, ``val_passes`` validation passes of
+    ``ep_test // B // 2 + 1`` meta-batches and a test pass of
+    ``ep_test // B + 1``."""
+    return epochs + 1, (val_passes * (ep_test // B // 2 + 1)
+                        + ep_test // B + 1)
+
+
+def timed_train(st, smp, label, reset_counts, read_counts, by_path,
+                chunk=DATA_CHUNK):
+    """A warm chunk of ``make_chunked_train`` on ``smp``, then a timed one
+    (its launches under ``by_path[label]``: one ``gather_episode_rows`` a
+    step and no other kernel). Returns (episodes/s, the timed chunk's
+    state ``(run, params, opt state, generator, seconds a step)``)."""
+    import torch
+    from fumi_tpu_torch.train import steps
+    run = steps.make_chunked_train(st.family, st.opt, smp, chunk)
+    p, s, gen, warm = run(st.params, st.opt.init(st.params), smp.generator(1))
+    box = {}
+    reset_counts()
+    seconds = synced_s(lambda: box.update(out=run(p, s, gen)))
+    by_path[label] = counts = read_counts()
+    p2, _, _, ms = box["out"]
+    losses = torch.cat([warm["loss"], ms["loss"]])
+    moved = max(float((p2[k] - st.params[k]).abs().max()) for k in p2)
+    eps = chunk * B / seconds
+    print(f"main path, {label}: 2 chunks of {chunk} steps, loss "
+          f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f}, params moved "
+          f"up to {moved:.3e}; timed chunk {seconds:.3f} s = {eps:.1f} "
+          f"episodes/s; launches {counts}")
+    if not bool(torch.isfinite(losses).all()) or moved == 0.0:
+        fail(f"{label}: non-finite losses or params unmoved")
+    if counts != new_counts(gather_episode_rows=chunk):
+        fail(f"{label}: launches {counts}, expected {chunk} "
+             "gather_episode_rows")
+    return eps, (run, p, s, gen, seconds / chunk)
+
+
+def busy_line(label, state, card, steps_n=5):
+    """Device ms and operations a step (``torch.profiler`` over
+    ``steps_n`` steps) against the wall time a step of the timed chunk;
+    printed as phase 7f prints them. Returns (device ms, operations, wall
+    ms) a step, or None where the trace holds no device time."""
+    run, p, s, gen, step_s = state
+    traced = device_profile(lambda: run(p, s, gen, steps_n))
+    if traced is None:
+        print(f"{label}: device busy share not measured (the profiler "
+              f"recorded no device time) [{card}]")
+        return None
+    dev_ms, ops = traced[0] / steps_n, traced[1] / steps_n
+    print(f"{label}: device time {dev_ms:.3f} ms a step in {ops:.0f} device "
+          f"operations (torch.profiler, {steps_n} steps) against "
+          f"{1e3 * step_s:.3f} ms of wall time a step: busy "
+          f"{100 * dev_ms / (1e3 * step_s):.1f}% [{card}]")
+    return dev_ms, ops, 1e3 * step_s
+
+
+def cub_fixture(root: str, dev):
+    """``<root>/CUB`` at CUB_200_2011's scale, as ``prepare cub`` writes
+    it: 11,788 rows of 2048 fp32 (96.6 MB, N(0, 1) from a seed, drawn on
+    the card) in class order, 200 classes of 58 or 59 rows split
+    100/50/50 in class order (ids 1..200). Returns the test split's
+    rows."""
+    import numpy as np
+    import torch
+    out = os.path.join(root, "CUB")
+    os.makedirs(out)
+    counts = np.full(CUB_CLASSES, CUB_ROWS // CUB_CLASSES, np.int32)
+    counts[:CUB_ROWS % CUB_CLASSES] += 1
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    np.save(os.path.join(out, "image_embeddings.npy"),
+            torch.randn((CUB_ROWS, D), generator=gen, device=dev)
+            .cpu().numpy())
+    tabs, first = {}, 0
+    for split, n in zip(("train", "val", "test"), CUB_SPLIT):
+        cls = np.arange(first, first + n)
+        first += n
+        rows = np.zeros((n, counts.max()), np.int32)
+        for i, c in enumerate(cls):
+            rows[i, :counts[c]] = np.arange(starts[c], starts[c] + counts[c])
+        tabs[f"{split}_rows"] = rows
+        tabs[f"{split}_counts"] = counts[cls]
+        tabs[f"{split}_categories"] = (cls + 1).astype(np.int32)
+    np.savez(os.path.join(out, "class_image_rows.npz"), **tabs)
+    return tabs["test_rows"]
+
+
+def cub_phase(dev, root, card, reset_counts, read_counts, by_path) -> dict:
+    """Phase 7g (CUB): the driver, ``python -m fumi_tpu_torch.cli.main
+    --dataset cub``, for MAML (``--tpu_pallas_gather
+    --tpu_pallas_fused_eval``: one ``gather_episode_rows`` a step and a
+    meta-batch, one ``fused_maml_adapt_batched`` a meta-batch) and
+    ProtoNet (the gather only), phase 7's epochs on a CUB_200_2011-scale
+    ``<root>/CUB``; the test CSV's query rows from the test classes; then
+    train episodes/s through the driver's own loader, samplers and steps.
+    Returns the times."""
+    import csv
+    import glob
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.config import config_from_args
+    from fumi_tpu_torch.train import steps
+    times = {}
+    t0 = time.perf_counter()
+    test_rows = set(cub_fixture(root, dev).ravel().tolist())
+    times["cub fixture s"] = time.perf_counter() - t0
+    train_n, eval_n = driver_batches(DRIVER_EPOCHS, DRIVER_EP_TEST)
+    for model in ("maml", "protonet"):
+        log_dir = os.path.join(root, f"cub-{model}")
+        args = ["--model", model, "--dataset", "cub", "--data_dir", root,
+                "--tpu_pallas_gather", "--epochs", str(DRIVER_EPOCHS),
+                "--eval_freq", str(DRIVER_EVAL_FREQ), "--num_ep_test",
+                str(DRIVER_EP_TEST), "--seed", "0", "--wandb_offline",
+                "--log_dir", log_dir]
+        if model == "maml":
+            args.append("--tpu_pallas_fused_eval")
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli_main.cli(args)
+        torch.cuda.synchronize()
+        wall = times[f"driver {model} cub s"] = time.perf_counter() - t0
+        by_path[f"driver {model} cub"] = counts = read_counts()
+        (csv_path,) = glob.glob(os.path.join(log_dir, "results", "run_*.csv"))
+        with open(csv_path) as f:
+            table = list(csv.reader(f))
+        col = table[0].index("query_idx")
+        queries = {i for r in table[1:] for i in json.loads(r[col])}
+        expect = new_counts(gather_episode_rows=train_n + eval_n)
+        if model == "maml":
+            expect["fused_maml_adapt_batched"] = eval_n
+        finite = all(np.isfinite(v) for v in out.values())
+        print(f"main path, driver {model} --dataset cub: TEST {out}; "
+              f"{len(table) - 1} CSV rows, query rows of the test classes: "
+              f"{queries <= test_rows}; {wall:.3f} s of wall time; launches "
+              f"{counts} [{card}]")
+        if not (finite and queries and queries <= test_rows
+                and len(table) - 1 == (DRIVER_EP_TEST // B + 1) * B):
+            fail(f"driver {model} --dataset cub: non-finite test metrics "
+                 "or a CSV of other rows")
+        if counts != expect:
+            fail(f"driver {model} --dataset cub: launches {counts}, "
+                 f"expected {expect}")
+        cfg = config_from_args(args)
+        splits, table_np, ids, _ = cli_main._load_data(cfg)
+        train_s = cli_main._samplers(cfg, splits, table_np, ids, dev)[0]
+        st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        times[f"train {model} cub eps"], _ = timed_train(
+            st, train_s, f"train {model} cub", reset_counts, read_counts,
+            by_path)
+    print(f"cub (200 classes, {CUB_ROWS} x {D} fp32, split "
+          f"{'/'.join(map(str, CUB_SPLIT))}): fixture "
+          f"{times['cub fixture s']:.3f} s; driver maml "
+          f"{times['driver maml cub s']:.3f} s, protonet "
+          f"{times['driver protonet cub s']:.3f} s; train episodes/s maml "
+          f"{times['train maml cub eps']:.1f}, protonet "
+          f"{times['train protonet cub eps']:.1f} [{card}]")
+    return times
+
+
+
+def inat_fixture(root: str):
+    """``<root>/inat_anim.json`` at the paper's scale, 673 species and
+    195,605 images (290 or 291 a species, ids assigned to species in a
+    seeded shuffle), with descriptions of 12 to 47 words (a quarter of
+    them stop words) from a seeded 5000-word vocabulary, and the BERT
+    artifact ``text_embeddings_bert_description.npy`` (673 x 768, N(0,
+    1)). Returns the annotations."""
+    import numpy as np
+    rng = np.random.RandomState(12)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    pool = np.array(sorted({"".join(rng.choice(letters, rng.randint(4, 10)))
+                            for _ in range(5000)}))
+    stop = np.array(["the", "a", "of", "in", "and", "with", "its", "is",
+                     "on", "at"])
+
+    def words(n):
+        picked = np.where(rng.rand(n) < 0.25,
+                          stop[rng.randint(0, len(stop), n)],
+                          pool[rng.randint(0, len(pool), n)])
+        return " ".join(picked.tolist())
+    cats = [{"id": i, "name": words(2), "common_name": words(2),
+             "description": words(rng.randint(12, 48))}
+            for i in range(INAT_CLASSES)]
+    counts = np.full(INAT_CLASSES, INAT_IMAGES // INAT_CLASSES)
+    counts[:INAT_IMAGES % INAT_CLASSES] += 1
+    labels = np.repeat(np.arange(INAT_CLASSES), counts)
+    rng.shuffle(labels)
+    ann = {"categories": cats,
+           "images": [{"id": i} for i in range(INAT_IMAGES)],
+           "annotations": [{"category_id": int(c)} for c in labels]}
+    with open(os.path.join(root, "inat_anim.json"), "w") as f:
+        json.dump(ann, f)
+    np.save(os.path.join(root, "text_embeddings_bert_description.npy"),
+            rng.randn(INAT_CLASSES, E).astype(np.float32))
+    return ann
+
+
+def inat_phase(Config, dev, root, card, reset_counts, read_counts,
+               by_path) -> dict:
+    """Phase 7g (iNat-Anim): the loader's table-building part
+    (``inat_anim_from_annotations``: the card's machine has no h5py for
+    the HDF5 read) on a paper-scale fixture and a 195,605 x 2048 fp32
+    table (1.60 GB, N(0, 1) drawn on the card), then the driver's samplers
+    (the table resident on the card) and steps: FuMI training (one
+    ``gather_episode_rows`` a step) and eval through ``fused_adapt``; CLIP
+    on the supervised split for one epoch through the driver's CLIP run
+    (no kernel); ``prepare vectors`` on a GloVe text file of 300-wide
+    vectors over the fixture's vocabulary, then FuMI RNN on those vectors
+    (the embedding table holds them): train steps and an eval meta-batch.
+    Returns the times."""
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.data import inat_anim, prepare
+    from fumi_tpu_torch.data.vectors import Vocabulary, vectors_for_encoder
+    from fumi_tpu_torch.models.text_encoders import EMBED
+    from fumi_tpu_torch.train import steps
+    from fumi_tpu_torch.train.logging import MetricWriter
+    times = {}
+    t0 = time.perf_counter()
+    ann = inat_fixture(root)
+    times["fixture s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    table = torch.randn((INAT_IMAGES, D), generator=gen, device=dev) \
+        .cpu().numpy()
+    times["table s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = inat_anim.inat_anim_from_annotations(ann, table, root,
+                                                text_encoder="BERT")
+    times["build s"] = time.perf_counter() - t0
+    sizes = {k: v.num_classes for k, v in data.splits.items()}
+    per = data.splits["train"].class_counts
+    print(f"inat-anim fixture: {INAT_CLASSES} species, {INAT_IMAGES} "
+          f"images ({per.min()}-{per.max()} a species), splits {sizes}; "
+          f"json and artifact {times['fixture s']:.3f} s, the "
+          f"{table.nbytes / 1e9:.2f} GB table {times['table s']:.3f} s, "
+          f"inat_anim_from_annotations "
+          f"{times['build s']:.3f} s [{card}]")
+    if sizes != {"train": 403, "val": 135, "test": 135} or \
+            data.splits["train"].text_features.shape[1] != E:
+        fail(f"inat-anim fixture: splits {sizes}")
+
+    # FuMI through the driver's samplers and steps
+    cfg = train_cfg(Config, "fumi").replace(
+        dataset="inat-anim", data_dir=root, text_encoder="BERT",
+        pallas_fused_eval=True)
+    t0 = time.perf_counter()
+    train_s, _, test_s = cli_main._samplers(cfg, data.splits,
+                                            data.image_table,
+                                            data.image_ids, dev)
+    torch.cuda.synchronize()
+    times["to card s"] = time.perf_counter() - t0
+    resident = train_s.tables.image_table
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0), device=dev)
+    times["train fumi eps"], state = timed_train(
+        st, train_s, "train fumi inat-anim", reset_counts, read_counts,
+        by_path)
+    times["busy"] = busy_line("train fumi inat-anim", state, card)
+    run = steps.make_chunked_eval(st.family, test_s)
+    run(state[1], test_s.generator(99), 1)  # warm
+    box = {}
+    reset_counts()
+    seconds = synced_s(lambda: box.update(
+        out=run(state[1], test_s.generator(3), EVAL_BATCHES)))
+    by_path["eval fumi inat-anim"] = counts = read_counts()
+    times["eval fumi eps"] = EVAL_BATCHES * B / seconds
+    loss = box["out"][1]["loss"]
+    print(f"main path, eval fumi inat-anim through fused_adapt: "
+          f"{EVAL_BATCHES} meta-batches, loss {float(loss.mean()):.4f}; "
+          f"{times['eval fumi eps']:.1f} episodes/s; the table on the card "
+          f"{tuple(resident.shape)} {resident.dtype} "
+          f"({resident.numel() * resident.element_size() / 1e9:.2f} GB, "
+          f"moved in {times['to card s']:.3f} s); launches {counts} "
+          f"[{card}]")
+    if not bool(torch.isfinite(loss).all()) or counts != new_counts(
+            gather_episode_rows=EVAL_BATCHES, fused_adapt=EVAL_BATCHES):
+        fail(f"eval fumi inat-anim: non-finite loss or launches {counts}")
+    del train_s, test_s, resident, st, run, state, box
+    torch.cuda.empty_cache()
+
+    # CLIP on the supervised split, one epoch, through the driver's run
+    ccfg = Config(model="clip", dataset="supervised-inat-anim",
+                  data_dir=root, text_encoder="BERT", im_emb_dim=D,
+                  text_emb_dim=E, batch_size=CLIP_BATCH, epochs=1,
+                  lr=CLIP_LR, seed=0, wandb_offline=True,
+                  log_dir=os.path.join(root, "clip"))
+    results = os.path.join(ccfg.log_dir, "results")
+    os.makedirs(results)
+    writer = MetricWriter(results, use_wandb=False, offline=True)
+    run_dir = os.path.join(ccfg.log_dir, "runs", writer.run_name)
+    os.makedirs(run_dir)
+    items = int(data.splits["train"].class_counts.sum())
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cli_main._run_clip(ccfg, dev, writer, run_dir, data.splits,
+                             data.image_table)
+    torch.cuda.synchronize()
+    times["clip epoch s"] = time.perf_counter() - t0
+    writer.finish()
+    by_path["clip supervised-inat-anim"] = counts = read_counts()
+    n_steps = -(-items // CLIP_BATCH)
+    print(f"main path, clip supervised-inat-anim: one epoch of {items} "
+          f"items ({n_steps} steps of {CLIP_BATCH}), validation and the "
+          f"test pass in {times['clip epoch s']:.3f} s; TEST {out}; "
+          f"launches {counts} [{card}]")
+    if not 0.0 <= out["test/acc"] <= 1.0 or counts != new_counts():
+        fail(f"clip supervised-inat-anim: TEST {out}, launches {counts}")
+
+    # prepare vectors on a GloVe text file, then FuMI RNN on the vectors
+    words = sorted({w for c in ann["categories"] for k in (
+        "name", "common_name", "description") for w in c[k].split()})
+    vrng = np.random.RandomState(14)
+    src = os.path.join(root, "glove.300d.txt")
+    t0 = time.perf_counter()
+    with open(src, "w") as f:
+        for w in words[:-5]:  # five words stay out of vocabulary
+            f.write(w + " " + " ".join(
+                f"{v:.5f}" for v in vrng.randn(GLOVE_DIM)) + "\n")
+    rc = prepare.main(["vectors", "--src", src, "--kind", "glove",
+                       "--data_dir", root])
+    times["vectors s"] = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"prepare vectors: exit code {rc}")
+    rdata = inat_anim.inat_anim_from_annotations(ann, table, root,
+                                                 text_encoder="RNN")
+    vectors = vectors_for_encoder("RNN", root)
+    vocab = Vocabulary(rdata.dictionary.token2id, vectors)
+    cfg = train_cfg(Config, "fumi").replace(
+        dataset="inat-anim", data_dir=root, text_encoder="RNN",
+        pallas_fused_eval=True)
+    train_s, _, test_s = cli_main._samplers(cfg, rdata.splits,
+                                            rdata.image_table,
+                                            rdata.image_ids, dev)
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0), device=dev,
+                          dictionary=vocab)
+    word = words[0]
+    pretrained = np.array_equal(
+        st.params[EMBED][vocab[word]].cpu().numpy(), vectors[word])
+    reset_counts()
+    t0 = time.perf_counter()
+    p, s, gen, ms = steps.make_chunked_train(st.family, st.opt, train_s,
+                                             VECTOR_STEPS)(
+        st.params, st.opt.init(st.params), train_s.generator(1))
+    _, em = steps.make_chunked_eval(st.family, test_s)(
+        p, test_s.generator(2), 1)
+    torch.cuda.synchronize()
+    times["fumi RNN s"] = time.perf_counter() - t0
+    by_path["train and eval fumi RNN inat-anim glove"] = counts = \
+        read_counts()
+    T = rdata.splits["train"].text_features.shape[1]
+    print(f"main path, fumi RNN on inat-anim with prepare vectors' "
+          f"{len(vectors)} x {GLOVE_DIM} glove artifact "
+          f"({times['vectors s']:.3f} s; the embedding table holds the "
+          f"pretrained vectors: {pretrained}; descriptions padded to {T} "
+          f"tokens): {VECTOR_STEPS} train steps, loss "
+          f"{[round(float(x), 4) for x in ms['loss']]}, an eval meta-batch "
+          f"through fused_adapt, loss {float(em['loss'][0]):.4f}; "
+          f"{times['fumi RNN s']:.3f} s; launches {counts} [{card}]")
+    if not (pretrained and bool(torch.isfinite(ms["loss"]).all())
+            and bool(torch.isfinite(em["loss"]).all())):
+        fail("fumi RNN on inat-anim glove: the vectors did not reach the "
+             "encoder, or non-finite losses")
+    if counts != new_counts(gather_episode_rows=VECTOR_STEPS + 1,
+                            fused_adapt=1):
+        fail(f"fumi RNN on inat-anim glove: launches {counts}")
+    del train_s, test_s, st
+    torch.cuda.empty_cache()
+    return times
+
+
+
+def engine_fp64(clf, s_im, s_y, q_im, s_tx):
+    """(M, N) logits of one request through ``clf``'s autograd engine (the
+    masked steps or the proximal solve it serves with) in fp64 on the
+    CPU, from its weights."""
+    import numpy as np
+    import torch
+    adapt_fn, classify_fn = clf._engine_fns()
+    p = {k: v.double().cpu() for k, v in clf.params.items()}
+
+    def d(a):
+        return torch.from_numpy(np.asarray(a)).double()[None]
+    text = d(s_tx) if s_tx is not None else torch.zeros((1, len(s_im), 1),
+                                                        dtype=torch.float64)
+    with torch.no_grad():
+        state = adapt_fn(p, d(s_im), text, torch.from_numpy(s_y)[None], [0])
+        return classify_fn(p, state, d(q_im))[0].numpy()
+
+
+def variants_phase(Config, dev, root, card, train_smp, eval_smp, request,
+                   reset_counts, read_counts, by_path) -> dict:
+    """Phase 7h: the meta-gradient variants at the flagship training
+    config, ANIL (``--tpu_adapt_params head``), Reptile, iMAML-MAML and
+    iMAML-FuMI (``--tpu_meta_grad reptile|imaml``, FuMI with ``--dropout
+    0``). For each: training on phase 5's sampler (one
+    ``gather_episode_rows`` a step), the busy share of a step, one train
+    step card against CPU (``hold_step``'s tolerances), the driver
+    (``VARIANT_*`` depth; Reptile evaluates through
+    ``fused_maml_adapt_batched``, the others through the autograd engine)
+    and a served request from its run dir (Reptile through
+    ``fused_adapt`` against the engine; ANIL and iMAML through the engine,
+    card against CPU; each within 1e-3 or no farther than twice the other
+    side from the same steps in fp64).
+    Reptile's eval through the batched kernel against
+    the engine, as phase 6 holds MAML's. Returns the times."""
+    import glob
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.config import config_from_args
+    from fumi_tpu_torch.serve import FewShotClassifier
+    from fumi_tpu_torch.train import steps
+    s_im, s_y, q_im, s_tx = request
+    times = {"train eps": {}, "busy": {}, "driver s": {}, "request ms": {}}
+    train_n, eval_n = driver_batches(VARIANT_EPOCHS, VARIANT_EP_TEST)
+    for name, model, kw, flags in VARIANTS:
+        cfg = train_cfg(Config, model).replace(**kw)
+        st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        eps, state = timed_train(st, train_smp, f"train {name}",
+                                 reset_counts, read_counts, by_path)
+        times["train eps"][name] = eps
+        times["busy"][name] = busy_line(f"train {name}", state, card)
+        train_step_card_vs_cpu(cfg, train_smp, dev, label=name)
+
+        if name == "reptile":
+            out = {}
+            for path, fused in (("fused kernel", True),
+                                ("autograd engine", False)):
+                fam = steps.build_family(cfg.replace(pallas_fused_eval=fused),
+                                         torch.Generator().manual_seed(0))
+                run = steps.make_chunked_eval(fam, eval_smp)
+                reset_counts()
+                out[path] = run(state[1], eval_smp.generator(3),
+                                EVAL_BATCHES)[1]
+                counts = read_counts()
+                if fused:
+                    by_path["eval reptile"] = counts
+                expect = new_counts(gather_episode_rows=EVAL_BATCHES)
+                if fused:
+                    expect["fused_maml_adapt_batched"] = EVAL_BATCHES
+                if counts != expect:
+                    fail(f"eval reptile through the {path}: launches "
+                         f"{counts}, expected {expect}")
+            k, e = out["fused kernel"], out["autograd engine"]
+            loss_diff = float((k["loss"] - e["loss"]).abs().max())
+            acc_diff = float((k["acc"] - e["acc"]).abs().max())
+            per_query = 1.0 / (B * WAYS * EVAL_Q)
+            print(f"main path, eval reptile through fused_maml_adapt_batched"
+                  f" vs the autograd engine: {EVAL_BATCHES} meta-batches, "
+                  f"loss max|diff| {loss_diff:.3e} (tolerance 1e-3), acc "
+                  f"max|diff| {acc_diff:.4f} (tolerance one query, "
+                  f"{per_query:.4f}); launches {by_path['eval reptile']}")
+            if not (bool(torch.isfinite(k["loss"]).all())
+                    and loss_diff <= 1e-3 and acc_diff <= per_query + 1e-6):
+                fail("eval reptile: fused kernel and engine disagree")
+
+        # the driver, then a request served from its run dir
+        log_dir = os.path.join(root, f"variant-{name}")
+        args = ["--model", model, "--dataset", "synthetic",
+                "--tpu_pallas_gather", "--tpu_pallas_fused_eval",
+                "--epochs", str(VARIANT_EPOCHS), "--eval_freq",
+                str(VARIANT_EVAL_FREQ), "--num_ep_test", str(VARIANT_EP_TEST),
+                "--seed", "0", "--wandb_offline", "--log_dir", log_dir,
+                *flags]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = cli_main.cli(args)
+        torch.cuda.synchronize()
+        times["driver s"][name] = time.perf_counter() - t0
+        by_path[f"driver {name}"] = counts = read_counts()
+        expect = new_counts(gather_episode_rows=train_n + eval_n)
+        if name == "reptile":
+            expect["fused_maml_adapt_batched"] = eval_n
+        print(f"main path, driver {name}: TEST {res}; "
+              f"{times['driver s'][name]:.3f} s of wall time; launches "
+              f"{counts}")
+        if not all(np.isfinite(v) for v in res.values()) or counts != expect:
+            fail(f"driver {name}: non-finite test metrics or launches "
+                 f"{counts}, expected {expect}")
+        (run,) = glob.glob(os.path.join(log_dir, "runs", "*"))
+        rcfg = config_from_args(args)
+        text = s_tx if model == "fumi" else None
+        clf = FewShotClassifier.from_checkpoint(run, rcfg, device=dev)
+        reset_counts()
+        got = clf.episode_logits(s_im, s_y, q_im, support_text=text)
+        by_path[f"serve {name} from checkpoint"] = counts = read_counts()
+        times["request ms"][name] = host_ms(lambda: clf.episode_logits(
+            s_im, s_y, q_im, support_text=text), reps=3)
+        if name == "reptile":
+            other = FewShotClassifier(rcfg, clf.params, device=dev)
+            other._episode_fn = other._build_episode_fn(force_engine=True)
+            versus = "the autograd engine on the card"
+            exact = served_exact("maml", clf, s_im[None], s_y[None],
+                                 q_im[None], None)[0]
+            expect = new_counts(fused_adapt=1)
+        else:
+            other = FewShotClassifier(
+                rcfg, {k: v.cpu() for k, v in clf.params.items()},
+                device="cpu")
+            versus = "the same engine on the CPU"
+            exact = engine_fp64(other, s_im, s_y, q_im, text)
+            expect = new_counts()
+        want = other.episode_logits(s_im, s_y, q_im, support_text=text)
+        # two fp32 evaluations of 100 steps summed in other orders: within
+        # 1e-3, or, where a ReLU near 0 flips on the way (the trajectory
+        # itself then moves by ~1e-3 in fp32), no farther than twice the
+        # other's distance from the same steps in fp64; an argmax may
+        # differ only on a near-tie that fp64 decides for this side
+        diff = float(np.abs(got - want).max())
+        g64 = float(np.abs(got - exact).max())
+        w64 = float(np.abs(want - exact).max())
+        flips, same = served_argmax(got[None], want[None], exact[None])
+        print(f"main path, serve {name} from its run dir: logits {got.shape}"
+              f" vs {versus}: max|diff| {diff:.3e} (tolerance 1e-3, or at "
+              f"most twice the other's distance from fp64); from the same "
+              f"steps in fp64: {g64:.3e} against {w64:.3e}; argmax differs "
+              f"on {flips} of {len(got)} queries, each a near-tie fp64 "
+              f"decides for this side: {same}; "
+              f"{times['request ms'][name]:.3f} ms a request; launches "
+              f"{counts}")
+        if not (np.isfinite(got).all() and (diff <= 1e-3 or g64 <= 2 * w64)
+                and same) or counts != expect:
+            fail(f"serve {name}: the answer or the launches differ "
+                 f"({counts}, expected {expect})")
+    print("meta-gradient variants: train episodes/s " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times["train eps"].items())
+        + "; busy share a step " + ", ".join(
+            f"{k} {100 * v[0] / v[2]:.1f}% ({v[1]:.0f} operations)"
+            for k, v in times["busy"].items() if v is not None)
+        + "; driver s " + ", ".join(
+            f"{k} {v:.3f}" for k, v in times["driver s"].items())
+        + "; request ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in times["request ms"].items())
+        + f" [{card}]")
+    return times
+
+
+REGISTRY_MODULE = """
+from fumi_tpu_torch.models import layers
+from fumi_tpu_torch.ops import fewshot
+from fumi_tpu_torch.train import steps
+
+
+@steps.register_family("card_centroids")
+def build(cfg, gen, dictionary=None):
+    w, b = layers.linear_init(gen, cfg.im_emb_dim, cfg.prototype_dim)
+
+    def embed(p, x):
+        return layers.linear(p["proj.weight"], p["proj.bias"], x)
+
+    def raw(p, ep):
+        protos = steps.image_prototypes(embed(p, ep.support_im),
+                                        ep.support_y, cfg.num_ways)
+        q = embed(p, ep.query_im)
+        preds = fewshot.predict_classes(protos, q)
+        return (fewshot.prototypical_loss(protos, q, ep.query_y), preds,
+                (preds == ep.query_y).float().mean())
+
+    def train_loss(p, ep, gen):
+        loss, preds, acc = raw(p, ep)
+        return loss, {"acc": acc, "preds": preds}
+
+    def eval_raw(p, ep, gen):
+        loss, preds, acc = raw(p, ep)
+        return {"loss": loss, "acc": acc, "preds": preds,
+                "targets": ep.query_y}
+
+    def serve(cfg, family):
+        def adapt_fn(p, s_im, s_text, s_y, seeds):
+            return steps.image_prototypes(embed(p, s_im), s_y, cfg.num_ways)
+
+        def classify_fn(p, protos, q_im):
+            return fewshot.prototype_logits(protos, embed(p, q_im))
+        return adapt_fn, classify_fn
+
+    return steps.Family(name="card_centroids",
+                        params={"proj.weight": w, "proj.bias": b},
+                        train_loss=train_loss, eval_raw=eval_raw,
+                        eval_finalize=lambda raw: raw,
+                        eval_reduce=dict(steps.EVAL_REDUCE), serve=serve)
+"""
+
+
+def registry_phase(dev, root, card, request, reset_counts, read_counts,
+                   by_path) -> dict:
+    """Phase 7i: a module written to ``root`` registers the family
+    ``card_centroids`` (a linear embedding and class centroids) with a
+    ``Family.serve`` hook; the driver runs it by ``--tpu_import`` for a
+    few steps on the card (one ``gather_episode_rows`` a step and a
+    meta-batch), and a request from its run dir goes through the hook,
+    against the same hook on the CPU. Returns the times."""
+    import glob
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.config import config_from_args
+    from fumi_tpu_torch.serve import FewShotClassifier
+    s_im, s_y, q_im, _ = request
+    mod_dir = os.path.join(root, "plugins")
+    os.makedirs(mod_dir)
+    with open(os.path.join(mod_dir, "card_centroids_family.py"), "w") as f:
+        f.write(REGISTRY_MODULE)
+    sys.path.insert(0, mod_dir)
+    epochs, ep_test = 6, 8
+    log_dir = os.path.join(root, "registry")
+    args = ["--model", "card_centroids", "--tpu_import",
+            "card_centroids_family", "--dataset", "synthetic",
+            "--tpu_pallas_gather", "--epochs", str(epochs), "--eval_freq",
+            "3", "--num_ep_test", str(ep_test), "--seed", "0",
+            "--wandb_offline", "--log_dir", log_dir]
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = cli_main.cli(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_path["driver card_centroids (--tpu_import)"] = counts = \
+            read_counts()
+        train_n, eval_n = driver_batches(epochs, ep_test)
+        (run,) = glob.glob(os.path.join(log_dir, "runs", "*"))
+        cfg = config_from_args(args)
+        clf = FewShotClassifier.from_checkpoint(run, cfg, device=dev)
+        reset_counts()
+        got = clf.episode_logits(s_im, s_y, q_im)
+        served = read_counts()
+        ms = host_ms(lambda: clf.episode_logits(s_im, s_y, q_im))
+        want = FewShotClassifier(
+            cfg, {k: v.cpu() for k, v in clf.params.items()},
+            device="cpu").episode_logits(s_im, s_y, q_im)
+    finally:
+        sys.path.remove(mod_dir)
+    diff = float(np.abs(got - want).max() / max(np.abs(want).max(), 1.0))
+    print(f"main path, registry: driver --tpu_import card_centroids_family "
+          f"--model card_centroids: TEST {res}; {wall:.3f} s of wall time; "
+          f"launches {counts}; a request through its Family.serve hook: "
+          f"logits {got.shape}, against the hook on the CPU max|diff| "
+          f"{diff:.3e} of the largest logit (tolerance 1e-4), "
+          f"{ms:.3f} ms; launches {served} [{card}]")
+    if not all(np.isfinite(v) for v in res.values()) or counts != new_counts(
+            gather_episode_rows=train_n + eval_n):
+        fail(f"registry driver: non-finite test metrics or launches "
+             f"{counts}")
+    if got.shape != (len(q_im), WAYS) or diff > 1e-4 or \
+            served != new_counts():
+        fail("registry: the hook's answer differs from the CPU's")
+    return {"driver s": wall, "request ms": ms}
+
+
+
+LATE_PHASES = ("cub", "inat", "variants", "registry")
+
+
+def late_phases(names, Config, dev, root, card, samplers, request,
+                reset_counts, read_counts, by_path) -> None:
+    """Phases 7g (``cub``, ``inat``), 7h (``variants``) and 7i
+    (``registry``), each in its own directory under ``root``; ``samplers``
+    is phase 5's train and phase 6's eval sampler."""
+    for name in names:
+        where = os.path.join(root, f"phase-{name}")
+        os.makedirs(where)
+        t0 = time.perf_counter()
+        if name == "cub":
+            cub_phase(dev, where, card, reset_counts, read_counts, by_path)
+        elif name == "inat":
+            inat_phase(Config, dev, where, card, reset_counts, read_counts,
+                       by_path)
+        elif name == "variants":
+            variants_phase(Config, dev, where, card, *samplers, request,
+                           reset_counts, read_counts, by_path)
+        else:
+            registry_phase(dev, where, card, request, reset_counts,
+                           read_counts, by_path)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2158,6 +2896,10 @@ def main() -> int:
         token_times = token_encoders(
             Config, dev, driver_root, reset_counts, read_counts, by_path,
             {"fumi": train_eps["fumi"], "am3": fam_eps["train am3"]})
+        # ---- 7g-7i. datasets, meta-gradient variants, the registry -------
+        late_phases(LATE_PHASES, Config, dev, driver_root, card,
+                    (train_smp, eval_smp), request, reset_counts,
+                    read_counts, by_path)
     finally:
         shutil.rmtree(driver_root, ignore_errors=True)
 

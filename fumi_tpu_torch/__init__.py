@@ -14,6 +14,11 @@ eval on the device sampler (:mod:`fumi_tpu_torch.train.steps`), and the
 experiment driver (``python -m fumi_tpu_torch.cli.main``); CLIP through
 its trainer (:mod:`fumi_tpu_torch.train.clip_loop`), the driver and
 retrieval serving (:class:`fumi_tpu_torch.serve.ClipRetrieval`, over HTTP
-too); with every kernel of the JAX package's ``ops/pallas_kernels.py``
-written by hand for the card (:mod:`fumi_tpu_torch.ops.kernels`).
+too); the datasets (``data/inat_anim.py``, ``data/cub.py``, pretrained
+word vectors in ``data/vectors.py``, the offline ``python -m
+fumi_tpu_torch.data.prepare``); the family registry (``--tpu_import``);
+the meta-gradient variants ANIL, Reptile and iMAML
+(:mod:`fumi_tpu_torch.metalearn`); with every kernel of the JAX package's
+``ops/pallas_kernels.py`` written by hand for the card
+(:mod:`fumi_tpu_torch.ops.kernels`).
 """

@@ -1,8 +1,12 @@
 """Experiment driver: ``python -m fumi_tpu_torch.cli.main``.
 
 The counterpart of ``fumi_tpu/cli/main.py`` for the episodic families
-(MAML, FuMI, AM3, ProtoNet and MatchingNet) and CLIP on precomputed image
-embeddings. The flow is the JAX package's: validate the config, set up
+(MAML, FuMI, AM3, ProtoNet, MatchingNet and any family a ``--tpu_import``
+module registers) and CLIP on precomputed image embeddings. The datasets
+are ``inat-anim`` and ``supervised-inat-anim`` (``data/inat_anim.py``;
+a token text encoder on ``inat-anim`` takes its pretrained vectors from
+``data/vectors.py``'s artifact), ``cub`` (``data/cub.py``) and
+``synthetic``. The flow is the JAX package's: validate the config, set up
 the run and its log, load the data, build the family's steps and three
 device samplers (train, val, test; ``--augment`` jitters the train support
 set only), restore ``--checkpoint`` or ``--tpu_auto_resume`` state, train
@@ -10,11 +14,11 @@ set only), restore ``--checkpoint`` or ``--tpu_auto_resume`` state, train
 the ``TEST`` line and the prediction CSV ``<log_dir>/results/run_*.csv``
 (with AM3's ``support_lamda`` column). Each run writes its config to
 ``<log_dir>/runs/<run>/config.json`` and its checkpoints beside it; a
-token-encoder run (``--text_encoder glove|w2v|RNN|RNNhid``: synthetic
-token text and its dictionary) writes the dictionary to ``vocab.json``
-there too. ``--model clip`` runs ``train/clip_loop.py`` instead: restore
-``--checkpoint``, train unless ``--evaluate``, the retrieval test pass and
-``TEST: test acc: ...``.
+token-encoder run (``--text_encoder glove|w2v|RNN|RNNhid``) writes the
+dictionary to ``vocab.json`` there too. ``--model clip`` runs
+``train/clip_loop.py`` instead, on ``supervised-inat-anim`` or
+``synthetic``: restore ``--checkpoint``, train unless ``--evaluate``, the
+retrieval test pass and ``TEST: test acc: ...``.
 
 Device: the driver runs on the card; ``--disable_cuda`` selects the CPU
 (the reference's meaning of the flag). Without CUDA and without it, the
@@ -22,10 +26,9 @@ driver raises. Random streams are the loop's (``train/loop.py``); model
 init draws from a CPU generator seeded with ``--seed``.
 
 Not ported yet, each rejected with ``NotImplementedError`` naming its
-ROADMAP.md Queue 1 item: the datasets other than ``synthetic`` and the
-family registry (item 5), the host samplers (item 4b), raw-image
-backbones (item 7), multi-device and sweep modes (item 9), and the
-training extensions (item 10).
+ROADMAP.md Queue 1 item: the host samplers (item 4b), raw-image backbones
+(item 7), the bf16 policy (item 8), multi-device and sweep modes (item 9),
+and the training extensions (item 10).
 """
 
 from __future__ import annotations
@@ -45,17 +48,20 @@ from fumi_tpu_torch.core.config import (Config, TOKEN_TEXT_ENCODERS,
                                         config_from_args)
 from fumi_tpu_torch.core.episode import EpisodeSpec
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
+from fumi_tpu_torch.data.cub import load_cub
+from fumi_tpu_torch.data.inat_anim import load_inat_anim
 from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler
 from fumi_tpu_torch.data.supervised import supervised_from_class_set
 from fumi_tpu_torch.data.synthetic import (synthetic_dictionary,
                                            synthetic_splits)
+from fumi_tpu_torch.data.vectors import Vocabulary, vectors_for_encoder
 from fumi_tpu_torch.train import checkpoint as ckpt_lib
 from fumi_tpu_torch.train import clip_loop
 from fumi_tpu_torch.train.logging import MetricWriter
 from fumi_tpu_torch.train.loop import (TEST, eval_view, stream_generator,
                                        test_loop, training_run)
 from fumi_tpu_torch.train.optim import init_optim
-from fumi_tpu_torch.train.steps import FAMILY_BUILDERS, make_steps
+from fumi_tpu_torch.train.steps import make_steps
 from fumi_tpu_torch.utils.profiling import profile_trace
 
 
@@ -67,20 +73,25 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _check_driver(cfg: Config) -> None:
     """Reject what the driver does not run yet, before any work."""
-    if cfg.model not in FAMILY_BUILDERS and cfg.model != "clip":
-        raise _not_ported(f"--model {cfg.model}", "item 5: the other families")
-    if cfg.dataset != "synthetic":
-        raise _not_ported(f"--dataset {cfg.dataset} (its loader and files)",
-                          "item 5: the host data code")
-    if cfg.model == "clip" and cfg.text_encoder in TOKEN_TEXT_ENCODERS:
-        raise ValueError(
-            "--model clip reads precomputed text embeddings (--text_encoder "
-            f"BERT or precomputed), not {cfg.text_encoder} tokens")
+    if cfg.model == "clip":
+        if cfg.dataset not in ("supervised-inat-anim", "synthetic"):
+            raise NotImplementedError(
+                "CLIP requires --dataset supervised-inat-anim")
+        if cfg.dataset == "supervised-inat-anim" and \
+                cfg.text_encoder != "BERT":
+            # ref: data.py:61-62 — the supervised path is BERT-only
+            raise NotImplementedError(
+                "supervised-inat-anim supports only --text_encoder BERT")
+        if cfg.text_encoder in TOKEN_TEXT_ENCODERS:
+            raise ValueError(
+                "--model clip reads precomputed text embeddings "
+                f"(--text_encoder BERT or precomputed), not "
+                f"{cfg.text_encoder} tokens")
+    if cfg.im_encoder in ("conv4", "resnet12"):
+        raise _not_ported(f"--im_encoder {cfg.im_encoder}",
+                          "item 7: raw-image backbones")
     if not cfg.device_sampler:
         raise _not_ported("--tpu_host_sampler", "item 4b: the host samplers")
-    if cfg.import_modules:
-        raise _not_ported("--tpu_import (a family registry)",
-                          "item 5: the other families")
     if cfg.seed_sweep > 1 or cfg.mesh_dp > 1 or cfg.mesh_mp > 1 or \
             cfg.dist_coordinator is not None or cfg.dist_num_processes > 0:
         raise _not_ported("--tpu_seed_sweep/--tpu_mesh_*/--tpu_dist_*",
@@ -95,14 +106,37 @@ def _check_driver(cfg: Config) -> None:
 
 
 def _load_data(cfg: Config):
-    """``({"train", "val", "test"} -> ClassSet, image_table, image_ids,
-    dictionary)`` of the synthetic dataset: 32 classes of 64 images, the
-    JAX package's ``synthetic_splits`` at the config's widths and seed;
-    for a token text encoder, 12 random tokens a class from a vocabulary
-    of 128 and its dictionary (``{}`` otherwise)."""
+    """Dataset dispatch, the JAX package's (ref: data.py:25-86): ``({"train",
+    "val", "test"} -> ClassSet, image_table, image_ids, dictionary)``.
+
+    - ``inat-anim`` / ``supervised-inat-anim``: :func:`load_inat_anim`; on
+      ``inat-anim`` a token text encoder's dictionary carries the
+      pretrained vectors of ``prepare vectors``' artifact (an actionable
+      error without one);
+    - ``cub``: :func:`load_cub` (image-only, no dictionary);
+    - ``synthetic``: 32 classes of 64 images, the JAX package's
+      ``synthetic_splits`` at the config's widths and seed; for a token
+      text encoder, 12 random tokens a class from a vocabulary of 128 and
+      its dictionary (``{}`` otherwise)."""
+    if cfg.dataset in ("inat-anim", "supervised-inat-anim"):
+        data = load_inat_anim(
+            cfg.data_dir, text_encoder=cfg.text_encoder,
+            text_type=cfg.text_type,
+            remove_stop_words=cfg.remove_stop_words,
+            image_embedding_model=cfg.image_embedding_model)
+        dictionary = (data.dictionary.token2id
+                      if data.dictionary is not None else {})
+        if cfg.dataset == "inat-anim" and \
+                cfg.text_encoder in TOKEN_TEXT_ENCODERS:
+            dictionary = Vocabulary(
+                dictionary,
+                vectors_for_encoder(cfg.text_encoder, cfg.data_dir))
+        return data.splits, data.image_table, data.image_ids, dictionary
+    if cfg.dataset == "cub":
+        splits, table, ids = load_cub(cfg.data_dir)
+        return splits, table, ids, {}
     if cfg.dataset != "synthetic":
-        raise _not_ported(f"--dataset {cfg.dataset} (its loader and files)",
-                          "item 5: the host data code")
+        raise NotImplementedError(f"dataset {cfg.dataset!r}")
     tokens = cfg.text_encoder in TOKEN_TEXT_ENCODERS
     kw = dict(text_tokens=True, vocab_size=128, text_len=12) \
         if tokens else {}

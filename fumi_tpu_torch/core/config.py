@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import typing
 from typing import Optional, Tuple
@@ -27,10 +28,6 @@ TOKEN_TEXT_ENCODERS = ("glove", "w2v", "RNN", "RNNhid")
 TEXT_TYPES = ("label", "description", "common_name")
 MODELS = ("maml", "fumi", "am3", "clip")
 OPTIMIZERS = ("adam", "SGD", "adamw", "adamw_lin_schedule")
-# families the JAX package registers beside MODELS (its train/steps.py
-# register_family); the port accepts their names and its entry points
-# reject them until they are ported (ROADMAP.md Queue 1, item 5)
-REGISTERED_FAMILIES = ("protonet", "matchingnet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,11 +149,9 @@ class Config:
         return int(self.num_ep_test / self.batch_size)
 
     def validate(self) -> "Config":
-        """The JAX package's argument validation, check for check.
-
-        The one difference: the port has no family registry, so a model
-        outside ``MODELS`` and the JAX package's ``REGISTERED_FAMILIES``
-        is rejected."""
+        """The JAX package's argument validation, check for check. A model
+        outside ``MODELS`` must be in the family registry
+        (``train/steps.py:FAMILY_REGISTRY``)."""
         if "inat" in self.dataset and \
                 self.im_encoder not in ("conv4", "resnet12"):
             if self.image_embedding_model not in ("resnet-152", "resnet-34"):
@@ -173,9 +168,14 @@ class Config:
                 raise ValueError(
                     "Resnet-34 outputs 512-dimensional embeddings, hence "
                     "--im_emb_dim should be set to 512")
-        if self.model not in MODELS + REGISTERED_FAMILIES:
-            raise ValueError(f"unknown model {self.model!r}; one of "
-                             f"{MODELS + REGISTERED_FAMILIES}")
+        if self.model not in MODELS:
+            # registered episodic families (train/steps.py register_family)
+            # are first-class citizens of the CLI
+            from fumi_tpu_torch.train.steps import FAMILY_REGISTRY
+            if self.model not in FAMILY_REGISTRY:
+                raise ValueError(
+                    f"unknown model {self.model!r}; one of "
+                    f"{MODELS + tuple(sorted(FAMILY_REGISTRY))}")
         if self.text_encoder not in TEXT_ENCODERS:
             raise NameError(
                 f"{self.text_encoder} not allowed as text encoder")
@@ -458,10 +458,12 @@ def _is_tuple_field(field: dataclasses.Field) -> bool:
 
 
 def config_from_args(argv=None) -> Config:
-    """Parse ``argv`` into a validated Config. Unlike the JAX package, it
-    imports nothing for ``--tpu_import`` (the port has no family registry
-    to extend; its driver rejects the flag)."""
+    """Parse ``argv`` into a validated Config. The ``--tpu_import`` modules
+    are imported first, so their ``register_family`` calls land before
+    ``validate`` checks ``--model`` against the registry."""
     args = vars(build_parser().parse_args(argv))
+    for mod in args["tpu_import"]:
+        importlib.import_module(mod)
     kwargs = {}
     for field in dataclasses.fields(Config):
         if field.name == "device_sampler":

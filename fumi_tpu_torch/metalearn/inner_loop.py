@@ -1,7 +1,8 @@
 """The inner-loop meta-gradient engine.
 
 The counterpart of ``fumi_tpu/metalearn/inner_loop.py``'s
-``sgd_inner_update``, ``maml_episode_loss`` and ``fumi_episode_loss``.
+``sgd_inner_update``, ``head_only_mask``, ``maml_episode_loss`` and
+``fumi_episode_loss``.
 
 - The B tasks of a meta-batch are a leading axis on per-task weights,
   ``expand``ed from the shared params (the JAX package ``vmap``s one
@@ -15,11 +16,14 @@ The counterpart of ``fumi_tpu/metalearn/inner_loop.py``'s
   graph, as ``stop_gradient`` does.
 - ``differentiable=False`` runs the loop with no outer graph at all (eval:
   each step detaches, so nothing is retained across the steps).
+- ``adapt_mask`` (ANIL, ``--tpu_adapt_params head``) restricts the inner
+  updates to the marked leaves; only their inner gradients are taken.
 
 The JAX package rematerialises long horizons (``jax.checkpoint``); that
 changes memory only, never the numbers. The port stores the graph;
 ``torch.utils.checkpoint`` for long horizons is ROADMAP.md Queue 1,
-item 10. The masked (ANIL) update is item 6.
+item 10. The meta-gradient variants that do not differentiate through the
+loop are ``metalearn/reptile.py`` and ``metalearn/implicit.py``.
 """
 
 from __future__ import annotations
@@ -32,12 +36,28 @@ import torch.nn.functional as F
 from fumi_tpu_torch.core.episode import Episode
 
 Params = Dict[str, torch.Tensor]
+Mask = Optional[Dict[str, bool]]
 
 
-def sgd_inner_update(params: Params, grads: Params,
-                     step_size: float) -> Params:
-    """θ' = θ − α·∇ℓ, leaf by leaf."""
-    return {k: p - step_size * grads[k] for k, p in params.items()}
+def sgd_inner_update(params: Params, grads: Params, step_size: float,
+                     mask: Mask = None) -> Params:
+    """θ' = θ − α·∇ℓ, leaf by leaf. ``mask`` (ANIL) restricts the update to
+    the leaves it marks True; the others keep their value and need no
+    gradient."""
+    return {k: p - step_size * grads[k] if mask is None or mask.get(k)
+            else p for k, p in params.items()}
+
+
+def head_only_mask(params: Params) -> Dict[str, bool]:
+    """ANIL's adapt-mask: True only on the network's head, the MLP's last
+    layer ``net.lin_final``. The raw-image backbones' layout (an explicit
+    ``head`` entry) comes with them."""
+    if "net.lin_final.weight" not in params:
+        raise NotImplementedError(
+            "head_only_mask covers the embedding MLP only; the raw-image "
+            "backbones' layout is not ported to the PyTorch package yet — "
+            "Queue 1, item 7 (raw-image backbones) in ROADMAP.md")
+    return {k: k.startswith("net.lin_final.") for k in params}
 
 
 def task_cross_entropy(logits: torch.Tensor,
@@ -61,28 +81,31 @@ def per_task(params: Params, keys, B: int) -> Params:
 
 def adapt(theta: Params, support_loss: Callable[[Params, int], torch.Tensor],
           n_steps: int, step_size: float, *, differentiable: bool,
-          first_order: bool = False) -> Params:
-    """``n_steps`` of θ ← θ − α·∇ support_loss(θ, step).
+          first_order: bool = False, mask: Mask = None) -> Params:
+    """``n_steps`` of θ ← θ − α·∇ support_loss(θ, step) on the leaves
+    ``mask`` marks (all without one).
 
     ``support_loss`` returns the per-task support losses summed over the
     tasks. ``differentiable`` keeps the outer graph (second order unless
     ``first_order``); otherwise every step detaches."""
+    adapted = [k for k in theta if mask is None or mask.get(k)]
     for step in range(n_steps):
         if differentiable:
             loss = support_loss(theta, step)
-            grads = torch.autograd.grad(loss, list(theta.values()),
+            grads = torch.autograd.grad(loss, [theta[k] for k in adapted],
                                         create_graph=not first_order)
-            theta = sgd_inner_update(theta, dict(zip(theta, grads)),
-                                     step_size)
+            theta = sgd_inner_update(theta, dict(zip(adapted, grads)),
+                                     step_size, mask)
             continue
         with torch.enable_grad():
-            leaves = {k: v.detach().requires_grad_()
+            leaves = {k: v.detach().requires_grad_(k in adapted)
                       for k, v in theta.items()}
             grads = torch.autograd.grad(support_loss(leaves, step),
-                                        list(leaves.values()))
+                                        [leaves[k] for k in adapted])
         with torch.no_grad():
-            theta = sgd_inner_update(leaves, dict(zip(leaves, grads)),
-                                     step_size)
+            theta = sgd_inner_update(
+                {k: v.detach() for k, v in leaves.items()},
+                dict(zip(adapted, grads)), step_size, mask)
     return theta
 
 
@@ -100,13 +123,14 @@ def _outer(q_logits: torch.Tensor, query_y: torch.Tensor):
 
 def maml_episode_loss(apply_fn: Callable, params: Params, episode: Episode,
                       *, n_steps: int, step_size: float, first_order: bool,
-                      differentiable: bool = True):
+                      differentiable: bool = True, adapt_mask: Mask = None):
     """Mean outer loss over the meta-batch.
 
     Each task adapts a private copy of every param for ``n_steps`` inner
     SGD steps on its support set, then contributes the query
-    cross-entropy. Returns ``(outer_loss, {"acc", "preds"})``; the loss is
-    differentiable w.r.t. ``params`` (second order unless
+    cross-entropy; ``adapt_mask`` restricts the inner updates to the leaves
+    it marks (ANIL). Returns ``(outer_loss, {"acc", "preds"})``; the loss
+    is differentiable w.r.t. ``params`` (second order unless
     ``first_order``) when ``differentiable``."""
     B = episode.support_im.shape[0]
     s_x, s_y = episode.support_im, episode.support_y
@@ -116,7 +140,7 @@ def maml_episode_loss(apply_fn: Callable, params: Params, episode: Episode,
 
     theta = adapt(per_task(params, params.keys(), B), support_loss, n_steps,
                   step_size, differentiable=differentiable,
-                  first_order=first_order)
+                  first_order=first_order, mask=adapt_mask)
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         return _outer(apply_fn(theta, episode.query_im), episode.query_y)
 

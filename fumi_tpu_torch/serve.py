@@ -9,9 +9,12 @@ and ``ClipRetrieval`` on precomputed image embeddings (fp32):
   ops/kernels.py:MIN_FUSED_STEPS``) the whole adaptation runs in one
   launch of ``ops/kernels.py:fused_adapt``; otherwise, and for AM3,
   ProtoNet and MatchingNet, the engine runs: MAML/FuMI as a loop of
-  ``torch.autograd.grad`` SGD steps with no outer graph, AM3 and ProtoNet
-  to the class prototypes, MatchingNet to the embedded support set and
-  its labels.
+  ``torch.autograd.grad`` SGD steps with no outer graph (the head alone
+  under ANIL, the proximal solve of ``metalearn/implicit.py`` under
+  iMAML, as they were trained), AM3 and ProtoNet to the class prototypes,
+  MatchingNet to the embedded support set and its labels. A family a
+  ``--tpu_import`` module registers serves through its ``Family.serve``
+  hook.
 - ``adapt`` then ``logits`` / ``classify``: the stateful pair, adapted by
   the engine (the kernel returns logits, not adapted weights).
   MatchingNet's logits are ``log(probs + 1e-8)``, so every return mode
@@ -64,7 +67,9 @@ import torch
 
 from fumi_tpu_torch.core.config import Config, TOKEN_TEXT_ENCODERS
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
-from fumi_tpu_torch.metalearn.inner_loop import sgd_inner_update
+from fumi_tpu_torch.metalearn.implicit import (fumi_proximal_adapt,
+                                               proximal_adapt)
+from fumi_tpu_torch.metalearn.inner_loop import adapt, head_only_mask
 from fumi_tpu_torch.models import mlp
 from fumi_tpu_torch.models.text_encoders import EMBED
 from fumi_tpu_torch.ops import fewshot, kernels
@@ -224,7 +229,8 @@ def _tensor(x, dtype, device) -> torch.Tensor:
 
 class FewShotClassifier:
     """Adapt-once / classify-many wrapper over a trained episodic model
-    (MAML, FuMI, AM3, ProtoNet or MatchingNet).
+    (MAML, FuMI, AM3, ProtoNet, MatchingNet or a registered family with a
+    ``Family.serve`` hook).
 
     ``params`` is the model's state dict (``fumi_tpu_torch/bridge.py``
     carries JAX weights over); None serves the family's own seeded init.
@@ -304,31 +310,33 @@ class FewShotClassifier:
         cfg = self.cfg
         n_steps, step = cfg.num_test_adapt_steps, cfg.step_size
 
-        def sgd_steps(theta, loss_of):
-            """n_steps of θ ← θ − α·∇loss(θ) with no outer graph."""
-            for _ in range(n_steps):
-                with torch.enable_grad():
-                    leaves = {k: v.detach().requires_grad_()
-                              for k, v in theta.items()}
-                    loss = loss_of(leaves)
-                    grads = torch.autograd.grad(loss, list(leaves.values()))
-                theta = sgd_inner_update(
-                    {k: v.detach() for k, v in leaves.items()},
-                    dict(zip(leaves, grads)), step)
-            return theta
+        def sgd_steps(theta, loss_of, mask=None):
+            """n_steps of θ ← θ − α·∇loss(θ) with no outer graph, on the
+            leaves ``mask`` marks (all without one)."""
+            return adapt(theta, lambda q, _: loss_of(q), n_steps, step,
+                         differentiable=False, mask=mask)
 
         def per_episode(p, keys, R):
             return {k: p[k].expand((R,) + tuple(p[k].shape)).clone()
                     for k in keys}
 
         if cfg.model == "maml":
+            # ANIL serves with the masked updates it trained with
+            mask = head_only_mask(self.params) \
+                if cfg.adapt_params == "head" else None
+
             def adapt_fn(p, s_im, s_text, s_y, seeds):
                 R = s_im.shape[0]
+                theta = per_episode(p, p.keys(), R)
+                if cfg.meta_grad == "imaml":
+                    # the proximal inner solve iMAML trained with
+                    return proximal_adapt(
+                        mlp.apply, theta, s_im, s_y, n_steps=n_steps,
+                        step_size=step, lam=cfg.imaml_lambda)
                 # sum of per-episode mean losses: each episode's gradient
                 # is its own loss's gradient
-                return sgd_steps(per_episode(p, p.keys(), R),
-                                 lambda q: fewshot.cross_entropy(
-                                     mlp.apply(q, s_im), s_y) * R)
+                return sgd_steps(theta, lambda q: fewshot.cross_entropy(
+                    mlp.apply(q, s_im), s_y) * R, mask)
 
             def classify_fn(p, state, q_im):
                 return mlp.apply(state, q_im)
@@ -342,6 +350,11 @@ class FewShotClassifier:
                 theta = per_episode(
                     p, [k for k in p if k.startswith("im_net.")], R)
                 theta["hyper"] = self._hyper0(p, s_text, s_y, seeds)
+                if cfg.meta_grad == "imaml":
+                    # the joint proximal solve iMAML-FuMI trained with
+                    return fumi_proximal_adapt(
+                        model, theta, s_im, s_y, n_steps=n_steps,
+                        step_size=step, lam=cfg.imaml_lambda)
                 return sgd_steps(theta, lambda q: fewshot.cross_entropy(
                     model.im_forward(q, q["hyper"], s_im, train=False),
                     s_y) * R)
@@ -384,19 +397,27 @@ class FewShotClassifier:
                 return fewshot.prototype_logits(protos, embed_images(p, q_im))
             return adapt_fn, classify_fn
 
-        # matchingnet
-        def adapt_fn(p, s_im, s_text, s_y, seeds):
-            """The embedded support set and its labels."""
-            return embed_images(p, s_im), s_y
+        if cfg.model == "matchingnet":
+            def adapt_fn(p, s_im, s_text, s_y, seeds):
+                """The embedded support set and its labels."""
+                return embed_images(p, s_im), s_y
 
-        def classify_fn(p, state, q_im):
-            s_emb, s_y = state
-            probs = fewshot.matching_probs(s_emb, s_y,
-                                           embed_images(p, q_im),
-                                           cfg.num_ways)
-            # log-probs as the logits: softmax(log p) = p
-            return torch.log(probs + 1e-8)
-        return adapt_fn, classify_fn
+            def classify_fn(p, state, q_im):
+                s_emb, s_y = state
+                probs = fewshot.matching_probs(s_emb, s_y,
+                                               embed_images(p, q_im),
+                                               cfg.num_ways)
+                # log-probs as the logits: softmax(log p) = p
+                return torch.log(probs + 1e-8)
+            return adapt_fn, classify_fn
+
+        if self.family.serve is not None:
+            # a registered family's serving hook (train/steps.py:Family)
+            return self.family.serve(cfg, self.family)
+        raise NotImplementedError(
+            f"episodic serving for model {cfg.model!r} (CLIP serves via "
+            "ClipRetrieval; registered families can provide a "
+            "Family.serve hook)")
 
     def _engine_fns(self):
         if self._engine is None:

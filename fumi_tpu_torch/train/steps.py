@@ -1,13 +1,16 @@
 """Model families, their episode losses, and the train and eval steps.
 
 The counterpart of ``fumi_tpu/train/steps.py`` on precomputed embeddings,
-fp32, ``--tpu_meta_grad explicit``, ``--tpu_adapt_params all``, for the
-five episodic families: MAML and FuMI (an inner loop), AM3, ProtoNet and
-MatchingNet (prototypes or attention over the support set, no inner
-loop). FuMI and AM3 take precomputed text embeddings or, with a token
-dictionary, token text through ``models/text_encoders.py`` (glove, w2v,
-RNN, RNNhid), frozen unless ``--fine_tune``. Each family is built once as
-a :class:`Family` of episode-level functions:
+fp32, for the five episodic families: MAML and FuMI (an inner loop), AM3,
+ProtoNet and MatchingNet (prototypes or attention over the support set, no
+inner loop). MAML's meta-gradient is explicit (second order through the
+inner loop), Reptile's (``metalearn/reptile.py``) or iMAML's
+(``metalearn/implicit.py``), and ``--tpu_adapt_params head`` adapts only
+its head (ANIL); FuMI's is explicit or iMAML's. FuMI and AM3 take
+precomputed text embeddings or, with a token dictionary, token text
+through ``models/text_encoders.py`` (glove, w2v, RNN, RNNhid), frozen
+unless ``--fine_tune``. Each family is built once as a :class:`Family` of
+episode-level functions:
 
 - ``train_loss(params, episode, gen) -> (loss, aux)``, differentiable;
 - ``eval_raw(params, episode, gen) -> dict``, the test-time adaptation
@@ -17,7 +20,14 @@ a :class:`Family` of episode-level functions:
   ``fused_maml_adapt_batched``);
 - ``eval_finalize(raw) -> metrics`` and ``eval_reduce``. AM3's raw dict
   holds the meta-batch's confusion matrix, from which its finalize derives
-  acc and the macro prec / rec / f1 (``ops/metrics.py``).
+  acc and the macro prec / rec / f1 (``ops/metrics.py``);
+- ``serve``, optional: ``(cfg, family) -> (adapt_fn, classify_fn)``, how
+  ``serve.FewShotClassifier`` serves a family it has no engine of its own
+  for.
+
+The families register themselves in :data:`FAMILY_REGISTRY`
+(:func:`register_family`); a module named by ``--tpu_import`` can register
+more, and :func:`build_family` dispatches through the registry.
 
 :func:`make_steps` wraps a family into train/eval steps;
 :func:`make_chunked_train` / :func:`make_chunked_eval` run ``chunk``
@@ -28,14 +38,17 @@ device-sampled steps per call and return the per-step metrics stacked to
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from fumi_tpu_torch.core.config import Config, TOKEN_TEXT_ENCODERS
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
+from fumi_tpu_torch.metalearn import implicit
 from fumi_tpu_torch.metalearn.inner_loop import (fumi_episode_loss,
+                                                 head_only_mask,
                                                  maml_episode_loss)
+from fumi_tpu_torch.metalearn.reptile import reptile_episode_loss
 from fumi_tpu_torch.models import am3 as am3_mod
 from fumi_tpu_torch.models import fumi as fumi_mod
 from fumi_tpu_torch.models import layers, mlp, text_encoders
@@ -56,6 +69,11 @@ class Family(NamedTuple):
     eval_finalize: Callable  # raw dict -> metrics dict
     eval_reduce: Dict[str, str]  # raw key -> "mean" | "sum" | "concat"
     model: Any = None
+    # serving hook of a registered family: (cfg, family) ->
+    # (adapt_fn(p, s_im, s_text, s_y, seeds) -> state,
+    #  classify_fn(p, state, q_im) -> logits), each batched over the
+    # request's R episodes (s_im (R, NK, D), q_im (R, M, D) -> (R, M, N))
+    serve: Optional[Callable] = None
 
 
 class FamilySteps(NamedTuple):
@@ -115,9 +133,6 @@ def _check_slice(cfg: Config) -> None:
     if cfg.im_encoder in RAW_IMAGE_ENCODERS:
         item = (f"--im_encoder {cfg.im_encoder}: Queue 1, item 7 "
                 "(raw-image backbones)")
-    elif cfg.meta_grad != "explicit" or cfg.adapt_params != "all":
-        item = (f"--tpu_meta_grad {cfg.meta_grad} / --tpu_adapt_params "
-                f"{cfg.adapt_params}: Queue 1, item 6 (iMAML, Reptile, ANIL)")
     elif cfg.compute_dtype != "float32":
         item = (f"--tpu_compute_dtype {cfg.compute_dtype}: Queue 1, item 8 "
                 "(bf16 policy)")
@@ -133,16 +148,36 @@ def _check_slice(cfg: Config) -> None:
 
 def build_maml_family(cfg: Config, gen: torch.Generator,
                       dictionary=None) -> Family:
-    """PureImageNetwork over precomputed embeddings + the MAML engine."""
+    """PureImageNetwork over precomputed embeddings + the MAML engine:
+    explicit, Reptile or iMAML meta-gradients, all params or (ANIL) the
+    head alone adapted. Eval adapts as training does, with no outer graph
+    (Reptile's test-time adaptation is plain full GD)."""
     _check_slice(cfg)
     params = mlp.init(gen, cfg.im_emb_dim, cfg.num_ways, cfg.im_hid_dim)
+    # ANIL: only the head adapts
+    adapt_mask = head_only_mask(params) if cfg.adapt_params == "head" \
+        else None
 
     def loss_for(n_steps, differentiable):
+        if cfg.meta_grad == "imaml":
+            def loss_fn(p, episode, gen):
+                return implicit.imaml_episode_loss(
+                    mlp.apply, p, episode, n_steps=n_steps,
+                    step_size=cfg.step_size, lam=cfg.imaml_lambda,
+                    cg_iters=cfg.imaml_cg_iters)
+            return loss_fn
+        if cfg.meta_grad == "reptile" and differentiable:
+            def loss_fn(p, episode, gen):
+                return reptile_episode_loss(
+                    mlp.apply, p, episode, n_steps=n_steps,
+                    step_size=cfg.step_size)
+            return loss_fn
+
         def loss_fn(p, episode, gen):
             return maml_episode_loss(
                 mlp.apply, p, episode, n_steps=n_steps,
                 step_size=cfg.step_size, first_order=cfg.first_order,
-                differentiable=differentiable)
+                differentiable=differentiable, adapt_mask=adapt_mask)
         return loss_fn
 
     eval_loss = loss_for(cfg.num_test_adapt_steps, False)
@@ -173,8 +208,9 @@ def _make_text_encoder(cfg: Config, gen: torch.Generator, dictionary):
 
 def build_fumi_family(cfg: Config, gen: torch.Generator,
                       dictionary=None) -> Family:
-    """FuMI hypernet + headless image MLP + the joint inner loop. A token
-    text encoder (glove/w2v/RNN/RNNhid) needs ``dictionary``."""
+    """FuMI hypernet + headless image MLP + the joint inner loop (explicit
+    or iMAML meta-gradients). A token text encoder (glove/w2v/RNN/RNNhid)
+    needs ``dictionary``."""
     _check_slice(cfg)
     enc = _make_text_encoder(cfg, gen, dictionary)
     model = fumi_mod.FUMI(
@@ -187,6 +223,14 @@ def build_fumi_family(cfg: Config, gen: torch.Generator,
     params = model.init_params(gen)
 
     def loss_for(n_steps, train, differentiable):
+        if cfg.meta_grad == "imaml":
+            def loss_fn(p, episode, gen):
+                return implicit.imaml_fumi_episode_loss(
+                    model, p, episode, n_steps=n_steps,
+                    step_size=cfg.step_size, gen=gen, lam=cfg.imaml_lambda,
+                    cg_iters=cfg.imaml_cg_iters)
+            return loss_fn
+
         def loss_fn(p, episode, gen):
             return fumi_episode_loss(
                 model, p, episode, n_steps=n_steps, step_size=cfg.step_size,
@@ -342,21 +386,40 @@ def build_matchingnet_family(cfg: Config, gen: torch.Generator,
                                  embedding_head_init(cfg, gen), raw)
 
 
-FAMILY_BUILDERS = {"maml": build_maml_family, "fumi": build_fumi_family,
-                   "am3": build_am3_family,
-                   "protonet": build_protonet_family,
-                   "matchingnet": build_matchingnet_family}
+# ---------------------------------------------------------------------------
+# Family registry
+# ---------------------------------------------------------------------------
+# A new episodic family registers itself and inherits the chunked drivers,
+# the loop, the driver and (through Family.serve) serving.
+
+FAMILY_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_family(name: str):
+    """Decorator: register a ``(cfg, gen, dictionary) -> Family``
+    builder under ``--model name``."""
+    def deco(fn):
+        FAMILY_REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+register_family("maml")(build_maml_family)
+register_family("fumi")(build_fumi_family)
+register_family("am3")(build_am3_family)
+register_family("protonet")(build_protonet_family)
+register_family("matchingnet")(build_matchingnet_family)
 
 
 def build_family(cfg: Config, gen: torch.Generator,
                  dictionary=None) -> Family:
-    builder = FAMILY_BUILDERS.get(cfg.model)
+    """The registered builder of ``cfg.model``."""
+    builder = FAMILY_REGISTRY.get(cfg.model)
     if builder is None:
         raise NotImplementedError(
-            f"model {cfg.model!r} has no episodic family (have "
-            f"{sorted(FAMILY_BUILDERS)}; CLIP uses "
-            "fumi_tpu_torch.train.clip_loop and serve.ClipRetrieval); a "
-            "registry of further families is ROADMAP.md Queue 1, item 5")
+            f"model {cfg.model!r} not registered (have "
+            f"{sorted(FAMILY_REGISTRY)}; CLIP uses "
+            "fumi_tpu_torch.train.clip_loop and serve.ClipRetrieval)")
     return builder(cfg, gen, dictionary)
 
 

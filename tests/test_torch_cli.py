@@ -236,18 +236,20 @@ def test_auto_resume_continues_the_counter_of_its_own_family(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # the token encoders and CLIP run since they were ported; on a
-    # dataset whose loader is not ported they wait for item 5's data code
-    (["--model", "am3", "--text_encoder", "glove", "--dataset", "cub"],
-     "item 5"),
-    (["--model", "clip", "--dataset", "cub"], "item 5"),
-    (["--model", "protonet", "--dataset", "cub"], "item 5"),
-    (["--dataset", "cub"], "item 5"),
+    # the datasets, the registry and the meta-gradient variants run since
+    # they were ported; on raw images or in bf16 they wait for items 7
+    # and 8
+    (["--model", "am3", "--text_encoder", "glove", "--im_encoder",
+      "conv4"], "item 7"),
+    (["--model", "maml", "--tpu_meta_grad", "reptile", "--im_encoder",
+      "resnet12"], "item 7"),
+    (["--model", "protonet", "--tpu_compute_dtype", "bfloat16"], "item 8"),
+    (["--dataset", "cub", "--tpu_debug_nans"], "item 10"),
     (["--tpu_host_sampler"], "item 4"), (["--tpu_seed_sweep", "2"],
                                          "item 9"),
     (["--tpu_mesh_mp", "2"], "item 9"), (["--tpu_ema", "0.9"], "item 10"),
     (["--tpu_profile_dir", "trace"], "item 9"),
-    (["--tpu_import", "os"], "item 5"),
+    (["--tpu_import", "os", "--tpu_watch"], "item 9"),
     (["--checkpoint", "someone/proj/run1"], "item 4"),
 ])
 def test_what_is_not_ported_raises_naming_its_item(tmp_path, extra, item):

@@ -473,3 +473,196 @@ def test_driver_runs_the_family_on_the_cpu(tmp_path, model):
         assert again == out
     else:  # ProtoNet and MatchingNet test their last params
         assert all(np.isfinite(v) for v in again.values())
+
+
+# ---------------------------------------------------------------------------
+# the family registry (--tpu_import, register_family, Family.serve)
+# ---------------------------------------------------------------------------
+
+PORT_FAMILY = '''
+from fumi_tpu_torch.models import layers
+from fumi_tpu_torch.ops import fewshot
+from fumi_tpu_torch.train import steps
+
+
+@steps.register_family("{name}")
+def build(cfg, gen, dictionary=None):
+    w, b = layers.linear_init(gen, cfg.im_emb_dim, cfg.prototype_dim)
+
+    def embed(p, x):
+        return layers.linear(p["proj.weight"], p["proj.bias"], x)
+
+    def raw(p, ep):
+        protos = steps.image_prototypes(embed(p, ep.support_im),
+                                        ep.support_y, cfg.num_ways)
+        q = embed(p, ep.query_im)
+        preds = fewshot.predict_classes(protos, q)
+        return (fewshot.prototypical_loss(protos, q, ep.query_y), preds,
+                (preds == ep.query_y).float().mean())
+
+    def train_loss(p, ep, gen):
+        loss, preds, acc = raw(p, ep)
+        return loss, {{"acc": acc, "preds": preds}}
+
+    def eval_raw(p, ep, gen):
+        loss, preds, acc = raw(p, ep)
+        return {{"loss": loss, "acc": acc, "preds": preds,
+                "targets": ep.query_y}}
+
+    def serve(cfg, family):
+        def adapt_fn(p, s_im, s_text, s_y, seeds):
+            return steps.image_prototypes(embed(p, s_im), s_y, cfg.num_ways)
+
+        def classify_fn(p, protos, q_im):
+            return fewshot.prototype_logits(protos, embed(p, q_im))
+        return adapt_fn, classify_fn
+
+    return steps.Family(name="{name}",
+                        params={{"proj.weight": w, "proj.bias": b}},
+                        train_loss=train_loss, eval_raw=eval_raw,
+                        eval_finalize=lambda raw: raw,
+                        eval_reduce=dict(steps.EVAL_REDUCE), serve=serve)
+'''
+
+JAX_FAMILY = '''
+import jax.numpy as jnp
+
+from fumi_tpu.models import layers
+from fumi_tpu.ops import fewshot
+from fumi_tpu.train import steps
+
+
+@steps.register_family("{name}")
+def build(cfg, key, dictionary=None):
+    def embed(p, x):
+        return layers.linear(p, x)
+
+    def protos_of(p, s_im, s_y):
+        e = embed(p, s_im)
+        lam = jnp.ones(e.shape[:-1] + (1,), e.dtype)
+        return fewshot.get_prototypes(e, e, lam, s_y, cfg.num_ways)
+
+    def raw(p, ep):
+        protos = protos_of(p, ep.support_im, ep.support_y)
+        q = embed(p, ep.query_im)
+        preds = fewshot.predict_classes(protos, q)
+        return (fewshot.prototypical_loss(protos, q, ep.query_y), preds,
+                jnp.mean((preds == ep.query_y).astype(jnp.float32)))
+
+    def train_loss(p, ep, rng):
+        loss, preds, acc = raw(p, ep)
+        return loss, {{"acc": acc, "preds": preds}}
+
+    def eval_raw(p, ep, rng):
+        loss, preds, acc = raw(p, ep)
+        return {{"loss": loss, "acc": acc, "preds": preds,
+                "targets": ep.query_y}}
+
+    def serve(cfg, family):
+        def adapt_fn(p, s_im, s_text, s_y, rng):
+            return protos_of(p, s_im[None], s_y[None])[0]
+
+        def classify(p, protos, q):
+            return fewshot.prototype_logits(protos[None], embed(p, q)[None])[0]
+        return adapt_fn, classify
+
+    return steps.Family(
+        name="{name}", params=layers.linear_init(key, cfg.im_emb_dim,
+                                                 cfg.prototype_dim),
+        train_loss=train_loss, eval_raw=eval_raw,
+        eval_finalize=lambda raw: raw,
+        eval_reduce={{"loss": "mean", "acc": "mean", "preds": "concat",
+                     "targets": "concat"}}, serve=serve)
+'''
+
+
+def _family_module(tmp_path, monkeypatch, template, mod_name, family):
+    (tmp_path / f"{mod_name}.py").write_text(template.format(name=family))
+    monkeypatch.syspath_prepend(str(tmp_path))
+    return mod_name
+
+
+def test_a_registered_family_trains_and_serves_in_both_packages(
+        tmp_path, monkeypatch):
+    """A module named by ``--tpu_import`` registers a family with a
+    ``Family.serve`` hook: the config validates only once it is imported,
+    the port's driver trains and tests it on the CPU (the JAX driver does
+    the same with its twin module), and both packages serve the port's
+    trained weights through their hooks: logits to 1e-4, the same
+    argmax."""
+    from fumi_tpu.core import config as jax_config
+    from fumi_tpu.serve import FewShotClassifier as JaxClassifier
+    from fumi_tpu_torch.serve import FewShotClassifier
+    name = "centroids_registry_test"
+    port_mod = _family_module(tmp_path, monkeypatch, PORT_FAMILY,
+                              "port_centroids_family", name)
+    jax_mod = _family_module(tmp_path, monkeypatch, JAX_FAMILY,
+                             "jax_centroids_family", name)
+    argv = ["--model", name, "--dataset", "synthetic", "--im_emb_dim",
+            str(D), "--prototype_dim", str(P), "--num_ways", str(N),
+            "--num_shots", str(K), "--num_shots_test", str(Q),
+            "--batch_size", str(B), "--num_ep_test", "4", "--epochs", "4",
+            "--eval_freq", "2", "--lr", "0.01", "--seed", "0",
+            "--wandb_offline"]
+    with pytest.raises(ValueError, match="unknown model"):
+        config_from_args(argv)
+    assert name not in steps.FAMILY_REGISTRY
+    out = cli_main.cli(argv + ["--tpu_import", port_mod, "--disable_cuda",
+                               "--log_dir", str(tmp_path / "port")])
+    assert name in steps.FAMILY_REGISTRY
+    assert set(out) == {"test/loss", "test/acc", "test/acc_ci95",
+                        "test/loss_ci95"}
+    assert all(np.isfinite(v) for v in out.values())
+    jcfg = jax_config.config_from_args(
+        argv + ["--tpu_import", jax_mod, "--log_dir", str(tmp_path / "jax")])
+    assert set(jax_cli.main(jcfg)) == set(out)
+
+    (run,) = glob.glob(str(tmp_path / "port" / "runs" / "*"))
+    cfg = config_from_args(argv + ["--tpu_import", port_mod])
+    clf = FewShotClassifier.from_checkpoint(run, cfg, device="cpu")
+    jc = JaxClassifier(jcfg, {"w": clf.params["proj.weight"].numpy(),
+                              "b": clf.params["proj.bias"].numpy()})
+    rng = np.random.RandomState(0)
+    s_im = rng.randn(N * K, D).astype(np.float32)
+    s_y = np.repeat(np.arange(N), K).astype(np.int32)
+    q_im = rng.randn(5, D).astype(np.float32)
+    got = clf.episode_logits(s_im, s_y, q_im)
+    want = np.asarray(jc.episode_logits(s_im, s_y, q_im))
+    assert got.shape == (5, N)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    clf.adapt(s_im, None, s_y)
+    np.testing.assert_array_equal(clf.classify(q_im), want.argmax(-1))
+
+
+def test_the_registry_dispatches_and_serving_needs_a_hook():
+    """The built-in families register themselves, under the JAX
+    package's names; ``build_family`` dispatches through the registry; a
+    registered family without a ``serve`` hook is refused by serving,
+    naming the hook."""
+    from fumi_tpu_torch.serve import FewShotClassifier
+    builtin = {"maml", "fumi", "am3", "protonet", "matchingnet"}
+    assert builtin <= set(steps.FAMILY_REGISTRY)
+    assert builtin <= set(jax_steps.FAMILY_REGISTRY)
+    calls = []
+    name = "hookless_registry_test"
+
+    @steps.register_family(name)
+    def builder(cfg, gen, dictionary=None):
+        calls.append(cfg.model)
+        return steps.build_protonet_family(
+            cfg.replace(model="protonet"), gen)._replace(name=name)
+    try:
+        cfg = Config(**cfg_kw(name))
+        fam = steps.build_family(cfg, torch.Generator().manual_seed(0))
+        assert calls == [name] and fam.serve is None
+        with pytest.raises(NotImplementedError, match="Family.serve"):
+            FewShotClassifier(cfg, device="cpu").episode_logits(
+                np.zeros((N * K, D), np.float32),
+                np.repeat(np.arange(N), K), np.zeros((2, D), np.float32))
+    finally:
+        del steps.FAMILY_REGISTRY[name]
+    with pytest.raises(NotImplementedError, match="not registered"):
+        steps.build_family(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="unknown model"):
+        cfg.validate()

@@ -50,6 +50,37 @@ def test_importing_every_module_pulls_in_no_jax():
     assert len(port_modules()) >= 10
 
 
+def test_every_module_imports_without_h5py_pil_or_transformers():
+    """The card's machine has none of them: each port module imports with
+    the three blocked (``sys.modules[name] = None`` makes an import of it
+    raise), so they are imported only inside the functions that need
+    them."""
+    code = (
+        "import importlib, sys\n"
+        "for blocked in ('h5py', 'PIL', 'transformers'):\n"
+        "    sys.modules[blocked] = None\n"
+        f"for name in {port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import h5py\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    # every module imported; only the last line's own import failed
+    assert out.returncode == 1, out.stderr
+    assert out.stderr.strip().splitlines()[-1].startswith(
+        "ModuleNotFoundError: import of h5py halted"), out.stderr
+
+
+def test_the_data_and_meta_gradient_modules_are_among_those_checked():
+    """The host data code, the offline prep CLI and the meta-gradient
+    variants are walked by the import checks above."""
+    assert {"fumi_tpu_torch.data.vocab", "fumi_tpu_torch.data.inat_anim",
+            "fumi_tpu_torch.data.vectors", "fumi_tpu_torch.data.cub",
+            "fumi_tpu_torch.data.verify", "fumi_tpu_torch.data.prepare",
+            "fumi_tpu_torch.metalearn.reptile",
+            "fumi_tpu_torch.metalearn.implicit"} <= set(port_modules())
+
+
 def test_source_has_no_jax_or_fumi_tpu_import():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|fumi_tpu)(\.|\s|$)", re.M)

@@ -133,12 +133,12 @@ def test_reload_and_from_checkpoint_reject_what_is_not_ported(runs,
         clf.reload(str(tmp_path))  # no ckpt/ or best/
     assert serving_dictionary(cfg) is None
     # a token model's dictionary comes from vocab.json or the driver's
-    # dataset; a dataset whose loader is not ported names item 5
+    # dataset; a dataset whose files are absent names them
     assert serving_dictionary(cfg.replace(text_encoder="glove"), run) == \
         synthetic_dictionary(128)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        serving_dictionary(cfg.replace(text_encoder="glove",
-                                       dataset="cub"))
+    with pytest.raises(FileNotFoundError, match="CUB"):
+        serving_dictionary(cfg.replace(text_encoder="glove", dataset="cub",
+                                       data_dir=str(tmp_path)))
     other = cfg.replace(im_hid_dim=(8, 8))  # the run was written at (8, 4)
     with pytest.raises(ValueError, match="cannot restore"):
         FewShotClassifier.from_checkpoint(run, other, device="cpu")

@@ -302,11 +302,11 @@ def test_net_parser_flags_equal_the_jax_servers():
 def test_main_refuses_what_is_not_ported(tmp_path):
     cfg = Config(**cfg_kw("fumi"), disable_cuda=True)
     # CLIP and the token encoders serve since they were ported; a token
-    # model's dictionary from a dataset whose loader is not ported names
-    # item 5
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # model's dictionary from a dataset whose files are absent names them
+    with pytest.raises(FileNotFoundError, match="CUB"):
         serve_http.build_classifier(
-            cfg.replace(text_encoder="glove", dataset="cub"), None)
+            cfg.replace(text_encoder="glove", dataset="cub",
+                        data_dir=str(tmp_path)), None)
     sweep = tmp_path / "sweep"
     os.makedirs(sweep / "seed0" / "best")
     with pytest.raises(NotImplementedError, match="item 9"):
