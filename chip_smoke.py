@@ -105,6 +105,25 @@ fails:
 7i. a family registered by a module the driver imports
    (``--tpu_import``), trained on the card and served through its
    ``Family.serve`` hook;
+7j. the bf16 policy (``--tpu_compute_dtype bfloat16``) at the flagship
+   widths: the product's cuBLAS route (bf16 GEMM, fp32 output) against
+   the emulation; the table stored in bf16; FuMI, MAML and AM3 training
+   (one ``gather_episode_rows`` a step), FuMI and MAML steps card against
+   CPU, eval and a served FuMI request through the engine (the fused
+   kernels compute fp32 only), CLIP steps;
+7k. conv4 at 84×84×3 in fp32 and bf16: MAML training (B=4, 5
+   second-order steps) with its busy share, a step card against CPU, an
+   eval meta-batch and a served request through the engine; FuMI, AM3,
+   ProtoNet, and MAML under ``--augment`` (the flip and crop);
+7l. resnet12 (64, 160, 320, 640) at 84×84×3: MAML with ``--tpu_remat
+   auto`` and ``off``, the loss and meta-gradient equal, the peak memory
+   and episodes/s of each, a served request;
+7m. the raw iNat-Anim layout: 195,605 uint8 images of 84×84×3 (4.14
+   GB) through the loader's table-building part, ``gather_episode_rows``
+   past 2³¹ bytes bitwise, and the conv4 MAML driver on it (the stored
+   geometry adopted);
+7n. the driver for conv4 MAML and FuMI and for FuMI in bf16, their run
+   dirs served (card against CPU), one raw request over HTTP;
 8. time each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, and each path; time a
    FuMI R=1 request through ``fused_adapt`` and through the autograd
@@ -116,11 +135,13 @@ fails:
    launches it replaced, one ``index_select`` over the same rows and two;
    each beside its bound; and profile an augmented train step through the
    one launch and through the two launches it replaced, on the same
-   episodes (device time and operations a step);
+   episodes (device time and operations a step); time
+   ``gather_episode_rows`` on the bf16 table and on raw rows (fp32, bf16,
+   uint8) beside ``index_select`` and the bytes bound;
 9. print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Every path of phases 4-7i sets the kernels' launch counts to 0 just before
+Every path of phases 4-7n sets the kernels' launch counts to 0 just before
 it runs and reads them just after; it fails if it did not launch each
 kernel it runs, as many times as the path runs it.
 
@@ -131,6 +152,7 @@ repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -206,6 +228,17 @@ VARIANTS = (
      ("--tpu_meta_grad", "imaml")),
     ("imaml-fumi", "fumi", {"meta_grad": "imaml", "dropout": 0.0},
      ("--tpu_meta_grad", "imaml", "--dropout", "0")))
+# phases 7j-7n, the bf16 policy and the raw-image backbones at the JAX
+# package's defaults: 84x84x3 images (84·84·3 = 21,168 elements a row);
+# raw tables of 512 rows for the kernel holds; train chunks of 5 steps
+# (resnet12: 2); 20 queries in a raw request; 5 CLIP steps in bf16
+RAW_SIZE, RAW_CHANNELS = 84, 3
+RAW_ROW = RAW_SIZE * RAW_SIZE * RAW_CHANNELS
+RAW_TABLE_ROWS, RAW_CHUNK, RESNET_CHUNK = 512, 5, 2
+RAW_REQUEST_Q, CLIP_BF16_STEPS = 20, 5
+# the card against fp64 (hold_step_vs_fp64, served_vs_fp64): no farther
+# than twice the CPU plus this share of the scale
+FP64_SLACK = {"float32": 2e-2, "bfloat16": 5e-2}
 
 
 def fail(msg: str) -> None:
@@ -2543,6 +2576,763 @@ def late_phases(names, Config, dev, root, card, samplers, request,
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phases 7j-7n: the bf16 compute policy and the raw-image backbones
+# ---------------------------------------------------------------------------
+
+def widen_bytes(m: int, d: int, elem: int) -> int:
+    """Bytes a widening row gather must move: M rows of ``elem``-byte
+    elements read, M fp32 rows written, M int32 indices read."""
+    return m * d * (elem + 4) + 4 * m
+
+
+def raw_tables(dev, rows: int = 0):
+    """fp32, bf16 and uint8 raw tables (``rows`` or 512, 84, 84, 3) on
+    the card."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(21)
+    shape = (rows or RAW_TABLE_ROWS, RAW_SIZE, RAW_SIZE, RAW_CHANNELS)
+    f32 = torch.rand(shape, generator=gen, device=dev)
+    return {"fp32": f32, "bf16": f32.to(torch.bfloat16),
+            "uint8": torch.randint(0, 256, shape, generator=gen,
+                                   dtype=torch.uint8, device=dev)}
+
+
+def check_raw_gathers(dev) -> float:
+    """``gather_episode_rows`` on the contiguous (R, 84·84·3) view of raw
+    fp32, bf16 and uint8 tables at the train and eval episodes, bitwise
+    its plain version (the bf16 flagship table is held above). Returns
+    the largest |diff|."""
+    import torch
+    from fumi_tpu_torch.ops import kernels
+    gen = torch.Generator(device=dev).manual_seed(22)
+    for label, t in raw_tables(dev).items():
+        flat = t.reshape(t.shape[0], -1)
+        for use, q in (("train", TRAIN_Q), ("eval", EVAL_Q)):
+            rows = torch.randint(0, t.shape[0], (B, WAYS, SHOTS + q),
+                                 generator=gen, dtype=torch.int32,
+                                 device=dev)
+            got = kernels.gather_episode_rows(flat, rows, SHOTS)
+            want = kernels.gather_episode_rows_reference(flat, rows, SHOTS)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"gather_episode_rows on raw {label} rows ({use}) "
+                     "differs from its plain version")
+    print(f"kernel gather_episode_rows [raw fp32, bf16, uint8; "
+          f"{RAW_TABLE_ROWS}x{RAW_SIZE}x{RAW_SIZE}x{RAW_CHANNELS} as rows of "
+          f"{RAW_ROW}] vs plain: bitwise equal at the train and eval "
+          "episodes")
+    return 0.0
+
+
+def check_matmul_route(dev) -> float:
+    """The bf16 policy's matrix product on the card (cuBLAS's bf16 GEMM
+    with an fp32 output, ``layers._CublasBf16Matmul``) against the CPU's
+    route, the emulation (operands rounded to bf16, an fp32 product), run
+    on the card at the flagship shapes: the result within 1e-5 of its
+    scale (fp32 sums in another order) and never rounded to bf16; the
+    operands' gradients, rounded to bf16 on both routes, within one bf16
+    ulp (2⁻⁸) of their scale. Returns the result's largest |diff|."""
+    import torch
+    from fumi_tpu_torch.models import layers
+    gen = torch.Generator(device=dev).manual_seed(23)
+    worst = 0.0
+    for label, a_shape, b_shape in (
+            ("linear (4, 740, 2048) x (2048, 256)", (B, 740, D), (D, H1)),
+            ("generated head (4, 740, 64) x (4, 64, 5)", (B, 740, H2),
+             (B, H2, WAYS))):
+        a = torch.randn(a_shape, generator=gen, device=dev).requires_grad_()
+        b = torch.randn(b_shape, generator=gen, device=dev).requires_grad_()
+        g = torch.randn(a_shape[:-1] + b_shape[-1:], generator=gen,
+                        device=dev)
+        got = layers.matmul_f32acc(a, b, torch.bfloat16)
+        ga = torch.autograd.grad(got, (a, b), g)
+        emu = torch.matmul(a.to(torch.bfloat16).float(),
+                           b.to(torch.bfloat16).float())
+        ge = torch.autograd.grad(emu, (a, b), g)
+        got, emu = got.detach(), emu.detach()
+        err = float((got - emu).abs().max())
+        scale = float(emu.abs().max())
+        g_err = max(float((x - y).abs().max()) / float(y.abs().max())
+                    for x, y in zip(ga, ge))
+        unrounded = not torch.equal(got, got.to(torch.bfloat16).float())
+        print(f"bf16 matmul route {label}: cuBLAS bf16 GEMM with fp32 "
+              f"output vs the emulation: max|diff| {err:.3e} "
+              f"({err / scale:.2e} of the scale, tolerance 1e-5), result "
+              f"not rounded to bf16: {unrounded}; gradients "
+              f"{g_err:.2e} of their scale (tolerance 2^-8)")
+        if not (err <= 1e-5 * scale and unrounded and g_err <= 2.0 ** -8):
+            fail(f"bf16 matmul route {label} disagrees with the emulation")
+        worst = max(worst, err)
+    return worst
+
+
+def hold_step_vs_fp64(label, cfg, episode, dev):
+    """One train step's loss and meta-gradient on the card and on the CPU
+    from the same weights on the same episode, each held against the same
+    step in fp64 on the card (of the fp32 function, for a bf16 config):
+    the card no farther from it than twice the CPU plus ``FP64_SLACK`` of
+    its scale. Second order through batch-stat norms at 84×84 is
+    ill-conditioned: both fp32 sides sit percents of the gradient's scale
+    from fp64 after 5 inner steps (card 2.9%, CPU 6.9% in one run), and
+    the card's atomics move it from run to run, so a card-against-CPU
+    tolerance would hold rounding, not the port."""
+    import torch
+    from fumi_tpu_torch.core.episode import Episode
+    from fumi_tpu_torch.train import steps
+    out = {}
+    for where, device, dtype, c in (
+            ("card", dev, torch.float32, cfg),
+            ("cpu", "cpu", torch.float32, cfg),
+            ("fp64", dev, torch.float64,
+             cfg.replace(compute_dtype="float32"))):
+        fam = steps.build_family(c, torch.Generator().manual_seed(0))
+        p = {k: v.to(device, dtype) for k, v in fam.params.items()}
+        ep = Episode(*(None if t is None else t.to(device).to(
+            dtype if t.is_floating_point() else t.dtype) for t in episode))
+        (loss, _), grads = steps.value_and_grad(fam, p, ep, None)
+        out[where] = (float(loss), {k: v.double().cpu()
+                                    for k, v in grads.items()})
+    l64, g64 = out["fp64"]
+    scale = max(float(g.abs().max()) for g in g64.values())
+    slack = FP64_SLACK[cfg.compute_dtype]
+    dist = {w: (abs(out[w][0] - l64), max(float((out[w][1][k] - g).abs()
+                                                 .max())
+                                           for k, g in g64.items()))
+            for w in ("card", "cpu")}
+    print(f"{label} against fp64: loss card {out['card'][0]:.6f}, cpu "
+          f"{out['cpu'][0]:.6f}, fp64 {l64:.6f}; meta-gradient max|diff| "
+          f"to fp64 card {dist['card'][1]:.3e}, cpu {dist['cpu'][1]:.3e} "
+          f"(scale {scale:.3e}; the card within twice the CPU's distance "
+          f"+ {slack:.1e} of the scale)")
+    ok = all(dist["card"][i] <= 2 * dist["cpu"][i] + slack * s
+             for i, s in ((0, abs(l64)), (1, scale)))
+    if not ok:
+        fail(f"{label}: the card is farther from fp64 than the CPU")
+
+
+def served_vs_fp64(label, clf, request):
+    """A served request on the card and on the CPU (the classifier's
+    weights), each held against the same engine in fp64 on the card (of
+    the fp32 function, for a bf16 config): the card's logits no farther
+    from it than twice the CPU's plus ``FP64_SLACK`` of their scale, the
+    card's labels those of fp64 but for near-ties. 100 SGD steps through
+    a conv backbone's batch-stat norms carry fp32 rounding to ~1e-2 of
+    the logits' scale, a little more or less from run to run on either
+    device (:func:`hold_step_vs_fp64`). Returns the request's ms."""
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.serve import FewShotClassifier
+    cfg = clf.cfg
+    cpu = FewShotClassifier(cfg, {k: v.cpu() for k, v in
+                                  clf.params.items()}, device="cpu")
+    s_im, s_y, q_im, s_tx = request
+    got = clf.episode_logits(s_im, s_y, q_im, support_text=s_tx)
+    cpu_got = cpu.episode_logits(s_im, s_y, q_im, support_text=s_tx)
+    ref = FewShotClassifier(cfg.replace(compute_dtype="float32"),
+                            clf.params, device=clf.device)
+    adapt_fn, classify_fn = ref._engine_fns()
+    p64 = {k: v.double() for k, v in clf.params.items()}
+
+    def f64(a):
+        return torch.from_numpy(np.asarray(a, np.float64))[None].to(
+            clf.device)
+    with torch.no_grad():
+        state = adapt_fn(p64, f64(s_im), f64(s_tx),
+                         torch.from_numpy(s_y)[None].to(clf.device), [0])
+        want = classify_fn(p64, state, f64(q_im))[0].cpu().numpy()
+    scale = float(np.abs(want).max())
+    slack = FP64_SLACK[cfg.compute_dtype]
+    d_card = float(np.abs(got - want).max())
+    d_cpu = float(np.abs(cpu_got - want).max())
+    top = np.sort(want, axis=-1)
+    ties = top[:, -1] - top[:, -2] <= 2 * d_card
+    same = (got.argmax(-1) == want.argmax(-1)) | ties
+    ms = host_ms(lambda: clf.episode_logits(s_im, s_y, q_im,
+                                            support_text=s_tx))
+    print(f"served {label}: logits {got.shape}, max|diff| to fp64 card "
+          f"{d_card:.3e}, cpu {d_cpu:.3e} (scale {scale:.3e}; the card "
+          f"within twice the CPU's distance + {slack:.1e} of the scale), "
+          f"labels those of fp64 but for near-ties: {bool(same.all())}; a "
+          f"request {ms:.3f} ms")
+    if not (np.isfinite(got).all() and same.all()
+            and d_card <= 2 * d_cpu + slack * scale):
+        fail(f"served {label}: the card is farther from fp64 than the CPU")
+    return ms
+
+
+def bf16_phase(Config, dev, table, ids_np, cset, card, reset_counts,
+               read_counts, by_path) -> dict:
+    """Phase 7j: the bf16 policy at the flagship widths. The table stored
+    in bf16 (``table_storage``, 16 MiB) on the kernel gather: FuMI and
+    MAML training (chunks of 20, one ``gather_episode_rows`` a step), a
+    FuMI and a MAML step, card and CPU held against fp64
+    (:func:`hold_step_vs_fp64`), their eval (8 meta-batches through the
+    engine: the fused kernels compute fp32 only), a served FuMI request
+    through the engine card against CPU, AM3 training and CLIP steps.
+    Returns the times."""
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.core.episode import EpisodeSpec
+    from fumi_tpu_torch.data.sampler import (DeviceEpisodeSampler,
+                                             table_storage)
+    from fumi_tpu_torch.serve import FewShotClassifier
+    from fumi_tpu_torch.train import clip_loop, optim, steps
+    times = {"matmul route err": check_matmul_route(dev)}
+    bf = table_storage(table, "bfloat16")
+    train_s = DeviceEpisodeSampler(bf, ids_np, cset, EpisodeSpec(
+        B, WAYS, SHOTS, TRAIN_Q, D, E), use_pallas_gather=True, device=dev)
+    eval_s = DeviceEpisodeSampler(bf, ids_np, cset, EpisodeSpec(
+        B, WAYS, SHOTS, EVAL_Q, D, E), use_pallas_gather=True, device=dev)
+    print(f"bf16 table on the card: {tuple(bf.shape)} {bf.dtype} "
+          f"({bf.numel() * 2 / 2 ** 20:.0f} MiB) [{card}]")
+    for model in ("fumi", "maml", "am3"):
+        cfg = train_cfg(Config, model, compute_dtype="bfloat16",
+                        pallas_fused_eval=True)
+        if model == "am3":
+            cfg = cfg.replace(text_encoder="BERT", prototype_dim=64)
+        st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        times[f"train {model} eps"], state = timed_train(
+            st, train_s, f"train {model} bf16", reset_counts, read_counts,
+            by_path, chunk=DATA_CHUNK if model != "am3" else 5)
+        if model == "fumi":
+            times["busy"] = busy_line("train fumi bf16", state, card)
+        if model == "am3":
+            continue
+        hold_step_vs_fp64(f"train step {model} bf16", cfg.replace(
+            dropout=0.0), train_s.sample(train_s.generator(7)), dev)
+        run = steps.make_chunked_eval(st.family, eval_s)
+        run(state[1], eval_s.generator(99), 1)  # warm
+        box = {}
+        reset_counts()
+        seconds = synced_s(lambda: box.update(
+            out=run(state[1], eval_s.generator(3), EVAL_BATCHES)))
+        by_path[f"eval {model} bf16"] = counts = read_counts()
+        times[f"eval {model} eps"] = EVAL_BATCHES * B / seconds
+        loss = box["out"][1]["loss"]
+        print(f"main path, eval {model} bf16 through the engine: "
+              f"{EVAL_BATCHES} meta-batches, loss {float(loss.mean()):.4f}; "
+              f"{times[f'eval {model} eps']:.1f} episodes/s; launches "
+              f"{counts} [{card}]")
+        if not bool(torch.isfinite(loss).all()) or counts != new_counts(
+                gather_episode_rows=EVAL_BATCHES):
+            fail(f"eval {model} bf16: non-finite loss or launches {counts}")
+        if model == "fumi":
+            clf = FewShotClassifier(cfg.replace(dropout=0.0), state[1],
+                                    device=dev)
+            srng = np.random.RandomState(31)
+            request = (srng.randn(S, D).astype(np.float32),
+                       np.repeat(np.arange(WAYS), SHOTS).astype(np.int32),
+                       srng.randn(QN, D).astype(np.float32),
+                       srng.randn(S, E).astype(np.float32))
+            reset_counts()
+            times["request fumi ms"] = served_vs_fp64(
+                "fumi bf16 (the engine, 100 steps)", clf, request)
+            by_path["serve fumi bf16"] = counts = read_counts()
+            if counts["fused_adapt"]:
+                fail("a bf16 request launched the fp32 fused kernel")
+        del st, run, state, box
+    # CLIP in bf16: a few train steps on random deduped batches
+    ccfg = Config(model="clip", dataset="synthetic", compute_dtype="bfloat16",
+                  im_emb_dim=D, text_emb_dim=E, seed=0)
+    model, p = clip_loop.make_clip(ccfg, torch.Generator().manual_seed(0))
+    p = {k: v.to(dev) for k, v in p.items()}
+    opt = optim.init_optim(ccfg.optim, 1e-3, ccfg.weight_decay,
+                           ccfg.momentum)
+    o = opt.init(p)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    losses = []
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(CLIP_BF16_STEPS):
+        text = torch.randn((CLIP_BATCH, E), generator=gen, device=dev)
+        image = torch.randn((CLIP_BATCH, D), generator=gen, device=dev)
+        p, o, loss = clip_loop.train_step(model, opt, p, o, text, image,
+                                          CLIP_BATCH)
+        losses.append(float(loss))
+    times["clip steps/s"] = CLIP_BF16_STEPS / (time.perf_counter() - t0)
+    by_path["clip bf16"] = counts = read_counts()
+    print(f"clip bf16: {CLIP_BF16_STEPS} train steps, loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}, {times['clip steps/s']:.1f} steps/s; "
+          f"launches {counts} [{card}]")
+    if not np.isfinite(losses).all() or counts != new_counts():
+        fail("clip bf16: non-finite loss or a kernel launch")
+    del train_s, eval_s, bf
+    torch.cuda.empty_cache()
+    return times
+
+
+def raw_cfg(Config, model: str, encoder: str, **kw):
+    """The raw-image config at the JAX package's defaults: 84×84×3, 5-way
+    5-shot, 32 train queries a class, B=4, 5 second-order inner steps,
+    Adam; resnet12 at (64, 160, 320, 640); the kernel gather on."""
+    base = dict(model=model, im_encoder=encoder, im_size=RAW_SIZE,
+                im_channels=RAW_CHANNELS, text_encoder="precomputed",
+                text_emb_dim=E, text_hid_dim=TH, prototype_dim=64,
+                num_ways=WAYS, num_shots=SHOTS, num_shots_test=TRAIN_Q,
+                batch_size=B, num_train_adapt_steps=INNER_STEPS,
+                num_test_adapt_steps=STEPS, step_size=STEP_SIZE,
+                optim="adam", lr=LR, weight_decay=5e-4, dropout=0.0,
+                pallas_gather=True, seed=0)
+    base.update(kw)
+    return Config(**base)
+
+
+def raw_samplers(dev, queries=None, augment=False, compute_dtype="float32"):
+    """Samplers over the synthetic raw set at 84×84×3 (64 classes of 64
+    images, 347 MB fp32 on the card) with the kernel gather, one for each
+    of ``queries`` a class (default the train and eval episodes')."""
+    from fumi_tpu_torch.core.episode import EpisodeSpec
+    from fumi_tpu_torch.data.sampler import (DeviceEpisodeSampler,
+                                             table_storage)
+    from fumi_tpu_torch.data.synthetic import synthetic_raw_image_set
+    import torch
+    cs, table, ids = synthetic_raw_image_set(
+        num_classes=TABLE_CLASSES, images_per_class=TABLE_IMAGES,
+        im_size=RAW_SIZE, channels=RAW_CHANNELS, text_dim=E)
+    t = table_storage(torch.from_numpy(table), compute_dtype).to(dev)
+    return [DeviceEpisodeSampler(t, ids, cs, EpisodeSpec(
+        B, WAYS, SHOTS, q, RAW_SIZE, E), use_pallas_gather=True,
+        augment_scale=AUG_SCALE if augment else 0.0, device=dev)
+        for q in queries or (TRAIN_Q, EVAL_Q)]
+
+
+def raw_request(seed: int):
+    """A raw request: 5-way 5-shot support images and 20 queries."""
+    import numpy as np
+    m = RAW_REQUEST_Q
+    rng = np.random.RandomState(seed)
+    shape = (RAW_SIZE, RAW_SIZE, RAW_CHANNELS)
+    return (rng.rand(S, *shape).astype(np.float32),
+            np.repeat(np.arange(WAYS), SHOTS).astype(np.int32),
+            rng.rand(m, *shape).astype(np.float32),
+            rng.randn(S, E).astype(np.float32))
+
+
+def conv4_phase(Config, dev, card, reset_counts, read_counts,
+                by_path) -> dict:
+    """Phase 7k: conv4 at 84×84×3, fp32 and bf16. MAML training (B=4, 5
+    second-order steps, one ``gather_episode_rows`` a step) with its busy
+    share, a step card against CPU (on two tasks of 5+2 images a class),
+    an eval meta-batch through the engine (100 steps), a served request
+    card against CPU (:func:`hold_step_vs_fp64` says why the step is held
+    against fp64); in fp32 also FuMI, AM3 and ProtoNet steps and MAML
+    under ``--augment`` (the flip and crop, no kernel but the gather).
+    Returns the times."""
+    import torch
+    from fumi_tpu_torch.serve import FewShotClassifier
+    from fumi_tpu_torch.train import steps
+    times = {}
+    for dtype in ("float32", "bfloat16"):
+        tag = "conv4" if dtype == "float32" else "conv4 bf16"
+        train_s, eval_s = raw_samplers(dev, compute_dtype=dtype)
+        cfg = raw_cfg(Config, "maml", "conv4", compute_dtype=dtype)
+        st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        times[f"train maml {tag} eps"], state = timed_train(
+            st, train_s, f"train maml {tag}", reset_counts, read_counts,
+            by_path, chunk=RAW_CHUNK)
+        times[f"busy maml {tag}"] = busy_line(f"train maml {tag}", state,
+                                              card, steps_n=2)
+        small = raw_samplers(dev, queries=(2,), compute_dtype=dtype)[0]
+        small_cfg = cfg.replace(batch_size=2, num_shots_test=2)
+        episode = small.sample(small.generator(7))
+        episode = type(episode)(*(None if t is None else t[:2]
+                                  for t in episode))
+        hold_step_vs_fp64(f"train step maml {tag} (2 tasks, 5+2 a class)",
+                          small_cfg, episode, dev)
+        run = steps.make_chunked_eval(st.family, eval_s)
+        reset_counts()
+        box = {}
+        seconds = synced_s(lambda: box.update(
+            out=run(state[1], eval_s.generator(3), 1)))
+        by_path[f"eval maml {tag}"] = counts = read_counts()
+        times[f"eval maml {tag} s"] = seconds
+        loss = box["out"][1]["loss"]
+        print(f"main path, eval maml {tag}: a meta-batch through the engine "
+              f"({STEPS} steps), loss {float(loss[0]):.4f} in "
+              f"{seconds:.3f} s; launches {counts} [{card}]")
+        if not bool(torch.isfinite(loss).all()) or counts != new_counts(
+                gather_episode_rows=1):
+            fail(f"eval maml {tag}: non-finite loss or launches {counts}")
+        clf = FewShotClassifier(cfg, state[1], device=dev)
+        reset_counts()
+        times[f"request maml {tag} ms"] = served_vs_fp64(
+            f"maml {tag} (M={RAW_REQUEST_Q}, {STEPS} steps)", clf,
+            raw_request(33))
+        by_path[f"serve maml {tag}"] = read_counts()
+        del st, run, state, clf, small
+        if dtype == "float32":
+            for model in ("fumi", "am3", "protonet"):
+                mcfg = raw_cfg(Config, model, "conv4")
+                mst = steps.make_steps(mcfg, torch.Generator().manual_seed(0),
+                                       device=dev)
+                times[f"train {model} conv4 eps"], _ = timed_train(
+                    mst, train_s, f"train {model} conv4", reset_counts,
+                    read_counts, by_path, chunk=RAW_CHUNK)
+                del mst
+            aug_s = raw_samplers(dev, queries=(TRAIN_Q,), augment=True)[0]
+            ep = aug_s.sample(aug_s.generator(5))
+            plain = raw_samplers(dev, queries=(TRAIN_Q,))[0].sample(
+                aug_s.generator(5))
+            if torch.equal(ep.support_im, plain.support_im) or \
+                    not torch.equal(ep.query_im, plain.query_im):
+                fail("--augment on raw images: the flip and crop missed the "
+                     "support images or touched the queries")
+            st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                                  device=dev)
+            times["train maml conv4 --augment eps"], _ = timed_train(
+                st, aug_s, "train maml conv4 --augment", reset_counts,
+                read_counts, by_path, chunk=RAW_CHUNK)
+            del st, aug_s
+        del train_s, eval_s
+        torch.cuda.empty_cache()
+    return times
+
+
+def resnet12_phase(Config, dev, card, reset_counts, read_counts,
+                   by_path) -> dict:
+    """Phase 7l: resnet12 at 84×84×3 with channels (64, 160, 320, 640),
+    MAML, 5 second-order steps. At B=4 with 32 queries a class,
+    ``--tpu_remat auto`` (``save_convs``: whole-step checkpointing in the
+    port): episodes/s and the peak memory of training, and a served
+    request; ``off`` does not fit the 80 GB card there (every inner step's
+    second-order graph is kept), so on one episode of 2 tasks with 5
+    queries a class the loss and meta-gradient with ``auto`` are held
+    against ``off`` with cuDNN deterministic (the loss within 1e-5 of
+    itself, the gradient within 1e-4 of its largest entry) with the peak
+    memory of each. Returns the times."""
+    import torch
+    from fumi_tpu_torch.serve import FewShotClassifier
+    from fumi_tpu_torch.train import steps
+    times = {}
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+    cfg = raw_cfg(Config, "maml", "resnet12", remat="auto")
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0), device=dev)
+    train_s = raw_samplers(dev, queries=(TRAIN_Q,))[0]
+    (times["train eps remat auto"], state), times["peak GB train auto"] = \
+        peak_of(lambda: timed_train(st, train_s, "train maml resnet12",
+                                    reset_counts, read_counts, by_path,
+                                    chunk=RESNET_CHUNK))
+    print(f"train maml resnet12 --tpu_remat auto (remat_of "
+          f"{steps.remat_of(cfg)!r}): peak memory "
+          f"{times['peak GB train auto']:.2f} GB over its chunks [{card}]")
+    clf = FewShotClassifier(cfg, state[1], device=dev)
+    s_im, s_y, q_im, _ = raw_request(34)
+    reset_counts()
+    logits = clf.episode_logits(s_im, s_y, q_im)
+    by_path["serve maml resnet12"] = counts = read_counts()
+    times["request ms"] = host_ms(
+        lambda: clf.episode_logits(s_im, s_y, q_im), reps=2)
+    print(f"served maml resnet12: logits {logits.shape} in "
+          f"{times['request ms']:.3f} ms ({STEPS} steps through the "
+          f"engine); launches {counts} [{card}]")
+    if not (logits.shape == (RAW_REQUEST_Q, WAYS)
+            and bool(torch.isfinite(torch.from_numpy(logits)).all())):
+        fail("served maml resnet12: wrong shape or non-finite logits")
+    del st, state, clf, train_s
+    small = raw_samplers(dev, queries=(5,))[0]
+    episode = small.sample(small.generator(9))
+    episode = type(episode)(*(None if t is None else t[:2] for t in episode))
+    out = {}
+    # the same cuDNN algorithms on both sides and in the recompute: with
+    # atomics in its backward, second order through 12 batch-stat norms
+    # carries run-to-run rounding to percents of the gradient's scale
+    torch.backends.cudnn.deterministic = True
+    for remat in ("auto", "off"):
+        rcfg = cfg.replace(remat=remat, batch_size=2, num_shots_test=5)
+        fam = steps.build_family(rcfg, torch.Generator().manual_seed(0))
+        params = {k: v.to(dev) for k, v in fam.params.items()}
+        t0 = time.perf_counter()
+        ((loss, _), grads), peak = peak_of(lambda: steps.value_and_grad(
+            fam, params, episode, None))
+        out[remat] = (float(loss), grads)
+        times[f"peak GB remat {remat}"] = peak
+        print(f"maml resnet12 --tpu_remat {remat} (2 tasks, 5+5 a class): "
+              f"loss {float(loss):.6f}, a value_and_grad "
+              f"{time.perf_counter() - t0:.3f} s, peak memory {peak:.2f} GB "
+              f"[{card}]")
+        del fam, params, grads
+    torch.backends.cudnn.deterministic = False
+    (l_a, g_a), (l_o, g_o) = out["auto"], out["off"]
+    g_all = max(float(g.abs().max()) for g in g_o.values())
+    g_err = max(float((g_a[k] - g).abs().max()) for k, g in g_o.items())
+    print(f"maml resnet12 remat auto vs off: loss {l_a:.6f} vs {l_o:.6f}, "
+          f"meta-gradient max|diff| {g_err:.3e} ({g_err / g_all:.2e} of its "
+          f"largest entry; tolerance 1e-4); peak memory "
+          f"{times['peak GB remat auto']:.2f} GB (auto) vs "
+          f"{times['peak GB remat off']:.2f} GB (off) [{card}]")
+    if not (abs(l_a - l_o) <= 1e-5 * abs(l_o) and g_err <= 1e-4 * g_all):
+        fail("resnet12: remat changed the loss or the meta-gradient")
+    del small, episode, out
+    torch.cuda.empty_cache()
+    return times
+
+
+def raw_inat_phase(Config, dev, root, card, reset_counts, read_counts,
+                   by_path) -> dict:
+    """Phase 7m: the raw iNat-Anim layout at the paper's scale: 195,605
+    uint8 images of 84×84×3 (4.14 GB; drawn on the card) through the
+    loader's table-building part on the 673-species fixture of phase 7g,
+    resident on the card; ``gather_episode_rows`` on rows near the end of
+    the table (past 2³¹ bytes) bitwise its plain version; then the conv4
+    MAML driver (``cli.main --dataset inat-anim --im_encoder conv4
+    --augment --tpu_pallas_gather``, the HDF5 read replaced by the table,
+    as the card's machine has no h5py; ``--tpu_im_size 32`` so the
+    driver's adoption of the stored 84×84×3 shows) at phase 7h's depth.
+    Returns the times."""
+    import glob
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.config import config_from_args
+    from fumi_tpu_torch.data import inat_anim
+    from fumi_tpu_torch.ops import kernels
+    times = {}
+    os.makedirs(root, exist_ok=True)
+    inat_fixture(root)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    t0 = time.perf_counter()
+    table = torch.randint(0, 256, (INAT_IMAGES, RAW_SIZE, RAW_SIZE,
+                                   RAW_CHANNELS), generator=gen,
+                          dtype=torch.uint8, device=dev)
+    flat = table.reshape(INAT_IMAGES, -1)
+    end = torch.arange(INAT_IMAGES - B * WAYS * (SHOTS + 2), INAT_IMAGES,
+                       device=dev, dtype=torch.int32).reshape(
+        B, WAYS, SHOTS + 2)
+    got = kernels.gather_episode_rows(flat, end, SHOTS)
+    want = kernels.gather_episode_rows_reference(flat, end, SHOTS)
+    torch.cuda.synchronize()
+    last = (INAT_IMAGES - 1) * RAW_ROW
+    print(f"kernel gather_episode_rows at the end of the {INAT_IMAGES}-row "
+          f"uint8 table ({table.numel() / 1e9:.2f} GB; the last row starts "
+          f"at byte {last}, past 2^31 = {2 ** 31}): bitwise equal to its "
+          f"plain version: "
+          f"{all(torch.equal(g, w) for g, w in zip(got, want))}")
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail("gather_episode_rows differs past 2^31 bytes of the table")
+    host = table.cpu().numpy()
+    del table, flat, got, want
+    torch.cuda.empty_cache()
+    times["table s"] = time.perf_counter() - t0
+    real = inat_anim.load_raw_image_table
+    inat_anim.load_raw_image_table = lambda root_, *a: host
+    log_dir = os.path.join(root, "driver")
+    argv = ["--model", "maml", "--dataset", "inat-anim", "--data_dir", root,
+            "--im_encoder", "conv4", "--tpu_im_size", "32",
+            "--text_encoder", "BERT", "--augment", "--tpu_pallas_gather",
+            "--batch_size", str(B), "--epochs", str(VARIANT_EPOCHS), "--eval_freq",
+            str(VARIANT_EVAL_FREQ), "--num_ep_test", str(VARIANT_EP_TEST),
+            "--log_dir", log_dir, "--wandb_offline"]
+    train_n, eval_n = driver_batches(VARIANT_EPOCHS, VARIANT_EP_TEST)
+    buf = io.StringIO()
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            test = cli_main.main(config_from_args(argv), dev)
+        torch.cuda.synchronize()
+        times["driver s"] = time.perf_counter() - t0
+    finally:
+        inat_anim.load_raw_image_table = real
+    by_path["driver maml conv4 inat-anim raw"] = counts = read_counts()
+    adopted = [l for l in buf.getvalue().splitlines() if "adopting" in l]
+    run = glob.glob(os.path.join(log_dir, "runs", "*"))
+    with open(os.path.join(run[0], "config.json")) as f:
+        geometry = (json.load(f)["im_size"],)
+    print(f"main path, driver maml conv4 on the raw inat-anim layout: "
+          f"{adopted[0] if adopted else 'no adoption printed'}; config "
+          f"im_size {geometry[0]}; TEST {test}; {times['driver s']:.3f} s; "
+          f"the {host.nbytes / 1e9:.2f} GB table made and checked in "
+          f"{times['table s']:.3f} s; launches {counts} [{card}]")
+    if not (adopted and geometry[0] == RAW_SIZE
+            and np.isfinite(test["test/loss"])
+            and counts == new_counts(gather_episode_rows=train_n + eval_n)):
+        fail(f"driver maml conv4 inat-anim: adopted {adopted}, TEST {test}, "
+             f"launches {counts}, expected {train_n + eval_n} gathers")
+    del host
+    return times
+
+
+def raw_drivers_phase(dev, root, card, reset_counts, read_counts,
+                      by_path) -> dict:
+    """Phase 7n: the driver (``cli.main --dataset synthetic``) for MAML and
+    FuMI on conv4 at 84×84×3 (``--tpu_pallas_gather``, phase 7h's depth)
+    and for FuMI at the flagship widths under ``--tpu_compute_dtype
+    bfloat16``; each run dir served with ``from_checkpoint`` (a request
+    card against CPU), and the conv4 MAML run over HTTP (one raw request,
+    5-D; the answer equal to the in-process one). Returns the times."""
+    import glob
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.config import config_from_args
+    from fumi_tpu_torch.serve import FewShotClassifier
+    times = {}
+    train_n, eval_n = driver_batches(VARIANT_EPOCHS, VARIANT_EP_TEST)
+    common = ["--dataset", "synthetic", "--tpu_pallas_gather",
+              "--batch_size", str(B), "--epochs", str(VARIANT_EPOCHS), "--eval_freq", str(VARIANT_EVAL_FREQ),
+              "--num_ep_test", str(VARIANT_EP_TEST), "--wandb_offline"]
+    raw = ["--im_encoder", "conv4", "--tpu_im_size", str(RAW_SIZE),
+           "--text_encoder", "precomputed"]
+    cases = (("maml conv4", ["--model", "maml"] + raw),
+             ("fumi conv4", ["--model", "fumi"] + raw),
+             ("fumi bf16", ["--model", "fumi", "--tpu_compute_dtype",
+                            "bfloat16", "--tpu_pallas_fused_eval"]))
+    for label, extra in cases:
+        log_dir = os.path.join(root, label.replace(" ", "-"))
+        argv = extra + common + ["--log_dir", log_dir]
+        cfg = config_from_args(argv)
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            test = cli_main.main(cfg, dev)
+        torch.cuda.synchronize()
+        times[f"driver {label} s"] = time.perf_counter() - t0
+        by_path[f"driver {label}"] = counts = read_counts()
+        run = glob.glob(os.path.join(log_dir, "runs", "*"))[0]
+        print(f"main path, driver {label}: TEST {test}; "
+              f"{times[f'driver {label} s']:.3f} s; launches {counts} "
+              f"[{card}]")
+        if not (np.isfinite(test["test/loss"])
+                and 0 <= test["test/acc"] <= 1 and counts == new_counts(
+                    gather_episode_rows=train_n + eval_n)):
+            fail(f"driver {label}: TEST {test}, launches {counts}, "
+                 f"expected {train_n + eval_n} gathers")
+        clf = FewShotClassifier.from_checkpoint(run, cfg, best=False,
+                                                device=dev)
+        if "conv4" in label:
+            request = raw_request(35)
+        else:
+            srng = np.random.RandomState(36)
+            request = (srng.randn(S, D).astype(np.float32),
+                       np.repeat(np.arange(WAYS), SHOTS).astype(np.int32),
+                       srng.randn(QN, D).astype(np.float32),
+                       srng.randn(S, E).astype(np.float32))
+        times[f"request {label} ms"] = served_vs_fp64(
+            f"{label} from its run dir", clf, request)
+        if label == "maml conv4":
+            s_im, s_y, q_im, _ = request
+            body = {"support_im": s_im[None].tolist(),
+                    "support_y": s_y[None].tolist(),
+                    "query_im": q_im[None].tolist(), "return": "logits"}
+            # the same cuDNN algorithms for both answers: 100 steps through
+            # batch-stat norms carry the backward's atomics' rounding to
+            # ~1e-3 from run to run
+            torch.backends.cudnn.deterministic = True
+            try:
+                want = clf.episode_logits_batch(s_im[None], s_y[None],
+                                                q_im[None])
+                with loopback(clf) as call:
+                    t0 = time.perf_counter()
+                    status, answer = call("/v1/episode_batch", body)
+                    times["http raw ms"] = 1e3 * (time.perf_counter() - t0)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            got = np.asarray(answer.get("result", []), np.float32)
+            err = float(np.abs(got - want).max()) if got.shape == \
+                want.shape else float("inf")
+            print(f"http raw request (5-D, 1x{S}x{RAW_SIZE}x{RAW_SIZE}x"
+                  f"{RAW_CHANNELS} support, {RAW_REQUEST_Q} queries): status "
+                  f"{status}, max|diff| to in process {err:.3e} (tolerance "
+                  f"1e-5), {times['http raw ms']:.1f} ms [{card}]")
+            if status != 200 or err > 1e-5:
+                fail("http raw request: wrong status or answer")
+        del clf
+        torch.cuda.empty_cache()
+    return times
+
+
+def time_raw_bf16_gathers(table, dev) -> dict:
+    """``gather_episode_rows`` (device time in CUDA graphs of 100 calls)
+    on the bf16 flagship table at the train and eval episodes, and on raw
+    rows (84·84·3 in fp32, bf16, uint8) at the train episode, each beside
+    its plain version, one ``index_select`` over the episode's rows (on
+    the raw table's flat view; it does not widen) and its bytes bound at
+    3.35 TB/s. The raw tables hold 4096 images (347 MB in fp32, past the
+    50 MB L2, as the iNat-Anim table is). Returns {label: {"ms",
+    "plain_ms", "library_ms", "bound_ms"}}."""
+    import torch
+    from fumi_tpu_torch.data.sampler import table_storage
+    from fumi_tpu_torch.ops import kernels
+    gen = torch.Generator(device=dev).manual_seed(51)
+    cases = {"bf16 train": (table_storage(table, "bfloat16"), TRAIN_Q),
+             "bf16 eval": (table_storage(table, "bfloat16"), EVAL_Q)}
+    for label, t in raw_tables(dev, TABLE_CLASSES * TABLE_IMAGES).items():
+        cases[f"raw {label} train"] = (t.reshape(t.shape[0], -1), TRAIN_Q)
+    out = {}
+    for label, (t, q) in cases.items():
+        rows = [torch.randint(0, t.shape[0], (B, WAYS, SHOTS + q),
+                              generator=gen, dtype=torch.int32, device=dev)
+                for _ in range(100)]
+        flat = [r.reshape(-1).long() for r in rows]
+        calls = {"kernel": [lambda r=r: kernels.gather_episode_rows(
+                     t, r, SHOTS) for r in rows],
+                 "plain": [lambda r=r: kernels.gather_episode_rows_reference(
+                     t, r, SHOTS) for r in rows],
+                 "library": [lambda i=i: torch.index_select(t, 0, i)
+                             for i in flat]}
+        turns = {}
+        for turn in ("kernel", "plain", "library", "library", "plain",
+                     "kernel"):
+            turns.setdefault(turn, []).append(graph_ms(calls[turn]))
+        m = B * WAYS * (SHOTS + q)
+        nbytes = widen_bytes(m, t.shape[1], t.element_size())
+        out[label] = {"ms": statistics.median(turns["kernel"]),
+                      "plain_ms": statistics.median(turns["plain"]),
+                      "library_ms": statistics.median(turns["library"]),
+                      "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S}
+        r = out[label]
+        print(f"gather_episode_rows {label} (M={m} rows of {t.shape[1]} "
+              f"{t.dtype}): kernel {r['ms'] * 1e3:.2f} us, plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, index_select (no widening) "
+              f"{r['library_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us (bytes: {nbytes / 1e6:.2f} MB "
+              f"at 3.35 TB/s): {100 * r['bound_ms'] / r['ms']:.0f}% of it")
+    return out
+
+
+PR10_PHASES = ("bf16", "conv4", "resnet12", "raw-inat", "raw-drivers")
+
+
+def pr10_phases(names, Config, dev, root, card, table, ids_np, cset,
+                reset_counts, read_counts, by_path) -> dict:
+    """Phases 7j-7n, the ``names`` of :data:`PR10_PHASES` in order, each in
+    its own directory under ``root``; the phases' times by name."""
+    times = {}
+    for name in names:
+        t0 = time.perf_counter()
+        where = os.path.join(root, f"phase-{name}")
+        if name == "bf16":
+            times[name] = bf16_phase(Config, dev, table, ids_np, cset, card,
+                                     reset_counts, read_counts, by_path)
+        elif name == "conv4":
+            times[name] = conv4_phase(Config, dev, card, reset_counts,
+                                      read_counts, by_path)
+        elif name == "resnet12":
+            times[name] = resnet12_phase(Config, dev, card, reset_counts,
+                                         read_counts, by_path)
+        elif name == "raw-inat":
+            times[name] = raw_inat_phase(Config, dev, where, card,
+                                         reset_counts, read_counts, by_path)
+        elif name == "raw-drivers":
+            times[name] = raw_drivers_phase(dev, where, card, reset_counts,
+                                            read_counts, by_path)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return times
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2660,6 +3450,7 @@ def main() -> int:
     gather_err = check_gather(table, dev)
     fused_aug_err = check_gather_augment(table, dev)
     episode_err = check_episode(table, dev)
+    episode_err = max(episode_err, check_raw_gathers(dev))
     check_sampler_augment(table, ids_np, cset, dev)
 
     # ---- 4. the serving path at full width ------------------------------
@@ -2900,6 +3691,10 @@ def main() -> int:
         late_phases(LATE_PHASES, Config, dev, driver_root, card,
                     (train_smp, eval_smp), request, reset_counts,
                     read_counts, by_path)
+        # ---- 7j-7n. the bf16 policy and the raw-image backbones ---------
+        pr10_times = pr10_phases(PR10_PHASES, Config, dev, driver_root, card,
+                                 table, ids_np, cset, reset_counts,
+                                 read_counts, by_path)
     finally:
         shutil.rmtree(driver_root, ignore_errors=True)
 
@@ -3344,6 +4139,13 @@ def main() -> int:
         f"{token_times['driver fumi RNN s']:.3f} s (fumi RNN), "
         f"{token_times['driver am3 glove s']:.3f} s (am3 glove)")
 
+    # gather_episode_rows on the bf16 flagship table and on raw rows
+    pr10_gathers = time_raw_bf16_gathers(table, dev)
+    print("bf16 and raw-image phases (7j-7n): " + json.dumps(
+        {name: {k: (round(v, 6) if isinstance(v, float) else v)
+                for k, v in t.items()} for name, t in pr10_times.items()},
+        default=str))
+
     # ---- 9. result ------------------------------------------------------
     launches = {name: sum(c[name] for c in by_path.values())
                 for name in KERNEL_NAMES}
@@ -3415,6 +4217,9 @@ def main() -> int:
                ("two_library_ms", "two index_selects"))},
         **{f"bound_ms_{label.replace(' ', '_')}": b
            for label, b in e_bounds.items()},
+        # the bf16 flagship table and raw rows of 84·84·3
+        **{f"{key}_{label.replace(' ', '_')}": v
+           for label, r in pr10_gathers.items() for key, v in r.items()},
         "launches_by_path": {p: c["gather_episode_rows"]
                              for p, c in by_path.items()},
     }]}))

@@ -2,7 +2,11 @@
 
 The counterpart of ``fumi_tpu/cli/main.py`` for the episodic families
 (MAML, FuMI, AM3, ProtoNet, MatchingNet and any family a ``--tpu_import``
-module registers) and CLIP on precomputed image embeddings. The datasets
+module registers) on precomputed image embeddings or, with ``--im_encoder
+conv4|resnet12``, raw images (the synthetic raw set, or iNat-Anim's
+``low-res-images.hdf5``; the driver adopts a raw table's stored
+geometry), and CLIP. ``--tpu_compute_dtype bfloat16`` runs the bf16
+policy and stores a floating table in bf16. The datasets
 are ``inat-anim`` and ``supervised-inat-anim`` (``data/inat_anim.py``;
 a token text encoder on ``inat-anim`` takes its pretrained vectors from
 ``data/vectors.py``'s artifact), ``cub`` (``data/cub.py``) and
@@ -26,9 +30,9 @@ driver raises. Random streams are the loop's (``train/loop.py``); model
 init draws from a CPU generator seeded with ``--seed``.
 
 Not ported yet, each rejected with ``NotImplementedError`` naming its
-ROADMAP.md Queue 1 item: the host samplers (item 4b), raw-image backbones
-(item 7), the bf16 policy (item 8), multi-device and sweep modes (item 9),
-and the training extensions (item 10).
+ROADMAP.md Queue 1 item: the host samplers (item 4b), multi-device and
+sweep modes (item 9), and the training extensions of item 10 (EMA,
+skipping non-finite steps, NaN debugging).
 """
 
 from __future__ import annotations
@@ -46,11 +50,12 @@ import torch
 
 from fumi_tpu_torch.core.config import (Config, TOKEN_TEXT_ENCODERS,
                                         config_from_args)
+from fumi_tpu_torch.models import RAW_IMAGE_ENCODERS
 from fumi_tpu_torch.core.episode import EpisodeSpec
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.data.cub import load_cub
 from fumi_tpu_torch.data.inat_anim import load_inat_anim
-from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler
+from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler, table_storage
 from fumi_tpu_torch.data.supervised import supervised_from_class_set
 from fumi_tpu_torch.data.synthetic import (synthetic_dictionary,
                                            synthetic_splits)
@@ -87,9 +92,6 @@ def _check_driver(cfg: Config) -> None:
                 "--model clip reads precomputed text embeddings "
                 f"(--text_encoder BERT or precomputed), not "
                 f"{cfg.text_encoder} tokens")
-    if cfg.im_encoder in ("conv4", "resnet12"):
-        raise _not_ported(f"--im_encoder {cfg.im_encoder}",
-                          "item 7: raw-image backbones")
     if not cfg.device_sampler:
         raise _not_ported("--tpu_host_sampler", "item 4b: the host samplers")
     if cfg.seed_sweep > 1 or cfg.mesh_dp > 1 or cfg.mesh_mp > 1 or \
@@ -99,31 +101,35 @@ def _check_driver(cfg: Config) -> None:
     if cfg.grad_accum > 1 or cfg.watch:
         raise _not_ported("--tpu_grad_accum > 1 / --tpu_watch",
                           "item 9: scale-out extensions")
-    if cfg.ema > 0 or cfg.skip_nonfinite > 0 or cfg.remat == "on" or \
-            cfg.debug_nans:
-        raise _not_ported("--tpu_ema/--tpu_skip_nonfinite/--tpu_remat on/"
-                          "--tpu_debug_nans", "item 10: training extensions")
+    if cfg.ema > 0 or cfg.skip_nonfinite > 0 or cfg.debug_nans:
+        raise _not_ported("--tpu_ema/--tpu_skip_nonfinite/--tpu_debug_nans",
+                          "item 10: training extensions")
 
 
 def _load_data(cfg: Config):
     """Dataset dispatch, the JAX package's (ref: data.py:25-86): ``({"train",
     "val", "test"} -> ClassSet, image_table, image_ids, dictionary)``.
 
-    - ``inat-anim`` / ``supervised-inat-anim``: :func:`load_inat_anim`; on
-      ``inat-anim`` a token text encoder's dictionary carries the
+    - ``inat-anim`` / ``supervised-inat-anim``: :func:`load_inat_anim`
+      (the raw ``low-res-images.hdf5`` table for a raw-image backbone on
+      ``inat-anim``); on ``inat-anim`` a token text encoder's dictionary
+      carries the
       pretrained vectors of ``prepare vectors``' artifact (an actionable
       error without one);
     - ``cub``: :func:`load_cub` (image-only, no dictionary);
     - ``synthetic``: 32 classes of 64 images, the JAX package's
       ``synthetic_splits`` at the config's widths and seed; for a token
       text encoder, 12 random tokens a class from a vocabulary of 128 and
-      its dictionary (``{}`` otherwise)."""
+      its dictionary (``{}`` otherwise); a raw-image backbone gets the raw
+      synthetic set at ``--tpu_im_size`` / ``--tpu_im_channels``."""
+    raw = cfg.im_encoder in RAW_IMAGE_ENCODERS
     if cfg.dataset in ("inat-anim", "supervised-inat-anim"):
         data = load_inat_anim(
             cfg.data_dir, text_encoder=cfg.text_encoder,
             text_type=cfg.text_type,
             remove_stop_words=cfg.remove_stop_words,
-            image_embedding_model=cfg.image_embedding_model)
+            image_embedding_model=cfg.image_embedding_model,
+            raw_images=raw and cfg.dataset == "inat-anim")
         dictionary = (data.dictionary.token2id
                       if data.dictionary is not None else {})
         if cfg.dataset == "inat-anim" and \
@@ -142,7 +148,8 @@ def _load_data(cfg: Config):
         if tokens else {}
     splits, table, ids = synthetic_splits(
         num_classes=32, images_per_class=64, im_dim=cfg.im_emb_dim,
-        text_dim=cfg.text_emb_dim, seed=cfg.seed, **kw)
+        text_dim=cfg.text_emb_dim, seed=cfg.seed, raw_images=raw,
+        im_size=cfg.im_size, channels=cfg.im_channels, **kw)
     return splits, table, ids, synthetic_dictionary(128) if tokens else {}
 
 
@@ -158,12 +165,15 @@ def _specs(cfg: Config, text_dim: int, tokens: bool):
 
 def _samplers(cfg: Config, splits, image_table, image_ids,
               device: torch.device):
-    """Train, val and test device samplers over one table on the device;
-    ``--augment`` jitters the train support set only (scale 0.1)."""
+    """Train, val and test device samplers over one table on the device,
+    stored as :func:`table_storage` says; ``--augment`` augments the train
+    support set only (the jitter at scale 0.1, or on raw images the flip
+    and crop)."""
     cs = splits["train"]
     train_spec, eval_spec = _specs(cfg, cs.text_features.shape[-1],
                                    cs.text_is_tokens)
-    table = torch.as_tensor(np.asarray(image_table)).to(device)
+    table = table_storage(torch.as_tensor(np.asarray(image_table)),
+                          cfg.compute_dtype).to(device)
     ids = torch.as_tensor(np.asarray(image_ids)).to(device)
     kw = dict(use_pallas_gather=cfg.pallas_gather,
               allow_replacement=cfg.allow_replacement, device=device)
@@ -231,9 +241,26 @@ def main(cfg: Config, device: DeviceLike = None) -> dict:
         writer.finish()
 
 
+def adopt_raw_geometry(cfg: Config, image_table) -> Config:
+    """A raw table's stored geometry, not the flags, sets the backbone's
+    image size and channels (``--tpu_im_size`` still sizes synthetic
+    tables); the backbones take square images only."""
+    if cfg.im_encoder not in RAW_IMAGE_ENCODERS or np.ndim(image_table) != 4:
+        return cfg
+    _, h, w, c = np.shape(image_table)
+    if h != w:
+        raise ValueError(f"raw image table is {h}x{w}; conv backbones "
+                         "assume square images")
+    if (h, c) != (cfg.im_size, cfg.im_channels):
+        cfg = dataclasses.replace(cfg, im_size=h, im_channels=c)
+        print(f"raw images: adopting stored geometry {h}x{w}x{c}")
+    return cfg
+
+
 def _run(cfg: Config, dev: torch.device, writer: MetricWriter,
          results_path: str) -> dict:
     splits, image_table, image_ids, dictionary = _load_data(cfg)
+    cfg = adopt_raw_geometry(cfg, image_table)
     run_dir = os.path.join(cfg.log_dir, "runs", writer.run_name)
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "config.json"), "w") as f:

@@ -2,7 +2,10 @@
 
 Entry points run on the card unless the caller asks for the CPU. Where
 CUDA is missing and the CPU was not asked for, they raise rather than
-carry on quietly on the CPU.
+carry on quietly on the CPU. The port's fp32 is IEEE fp32, as the JAX
+package's reference numbers are: resolving a CUDA device turns TF32 off
+for cuBLAS's matrix products and cuDNN's convolutions (process-wide
+flags; cuDNN's is on by default).
 """
 
 from __future__ import annotations
@@ -29,4 +32,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return dev

@@ -170,10 +170,10 @@ def load_raw_image_table(root: str,
     embeddings file; see notebooks/DatasetDemo.ipynb in the reference,
     which browses ``h5_file['images'][image_index]``).
 
-    Kept in its stored integer dtype (uint8 NHWC). Grayscale ``(M, H, W)``
-    tables gain a trailing channel axis. Nothing in the port reads raw
-    images yet (the raw-image backbones are ROADMAP.md Queue 1, item 7),
-    and its driver rejects ``--im_encoder conv4|resnet12``.
+    Kept in its stored integer dtype (uint8 NHWC): the sampler gathers
+    raw rows on the device and widens them to fp32 [0, 1] at gather time
+    (``data/sampler.py``), so the table costs a quarter of fp32. Grayscale
+    ``(M, H, W)`` tables gain a trailing channel axis.
     """
     path = os.path.join(root, file_name)
     if not os.path.exists(path):
@@ -277,8 +277,8 @@ def load_inat_anim(data_dir: str,
     """Build all three splits. One pass; returns dense tables.
 
     ``raw_images=True`` loads the raw low-res image table instead of the
-    precomputed-embedding table (kept for the raw-image backbones,
-    ROADMAP.md Queue 1, item 7)."""
+    precomputed-embedding table, for the raw-image backbones
+    (``--im_encoder conv4|resnet12``)."""
     root = dataset_root(data_dir)
     with open(os.path.join(root, json_name)) as f:
         annotations = json.load(f)

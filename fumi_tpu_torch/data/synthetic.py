@@ -1,12 +1,12 @@
 """Synthetic episodic data for tests and benchmarks.
 
-A copy of the embedding-table part of ``fumi_tpu/data/synthetic.py``
-and its token dictionary (pure numpy; ``tests/test_torch_sampler.py`` and
-``tests/test_torch_text_encoders.py`` hold it equal to the original).
+A copy of ``fumi_tpu/data/synthetic.py`` (pure numpy;
+``tests/test_torch_sampler.py``, ``tests/test_torch_text_encoders.py`` and
+``tests/test_torch_raw_data.py`` hold it bitwise equal to the original).
 Class-clustered Gaussian image embeddings with text features correlated
-to the class mean (or random token ids), so few-shot learners have real
-signal to adapt to. Raw-image sets wait for the raw-image backbones
-(ROADMAP.md Queue 1, item 7).
+to the class mean (or random token ids), or raw NHWC images of smoothed
+class patterns plus noise, so few-shot learners have real signal to adapt
+to.
 """
 
 from __future__ import annotations
@@ -64,6 +64,37 @@ def synthetic_class_set(num_classes: int = 20,
     return cs, image_table, image_ids
 
 
+def synthetic_raw_image_set(num_classes: int = 10,
+                            images_per_class: int = 20,
+                            im_size: int = 28, channels: int = 3,
+                            text_dim: int = 16, noise: float = 0.4,
+                            seed: int = 0):
+    """Raw-image ClassSet: class-specific blob patterns + noise, NHWC; the
+    image "table" is (num_images, H, W, C) fp32."""
+    rng = np.random.RandomState(seed)
+    C, M, S = num_classes, images_per_class, im_size
+    # each class: a smooth random pattern; samples add pixel noise
+    base = rng.randn(C, S, S, channels).astype(np.float32)
+    # smooth with a separable box filter for spatial structure
+    k = np.ones(5) / 5.0
+    base = np.apply_along_axis(lambda v: np.convolve(v, k, "same"), 1, base)
+    base = np.apply_along_axis(lambda v: np.convolve(v, k, "same"), 2, base)
+    imgs = (base[:, None] +
+            noise * rng.randn(C, M, S, S, channels)).astype(np.float32)
+    image_table = imgs.reshape(C * M, S, S, channels)
+    image_ids = np.arange(C * M, dtype=np.int32)
+    rows = np.arange(C * M, dtype=np.int32).reshape(C, M)
+    cs = ClassSet(
+        categories=np.arange(C),
+        class_image_rows=rows,
+        class_counts=np.full((C,), M, dtype=np.int32),
+        text_features=rng.randn(C, text_dim).astype(np.float32),
+        text_mask=None,
+        descriptions=[f"raw class {i}" for i in range(C)],
+    )
+    return cs, image_table, image_ids
+
+
 def synthetic_dictionary(vocab_size: int = 128):
     """Token dictionary for synthetic token-text datasets (PAD = 0)."""
     d = {"<PAD>": 0}
@@ -74,16 +105,20 @@ def synthetic_dictionary(vocab_size: int = 128):
 
 def synthetic_splits(num_classes: int = 32, images_per_class: int = 64,
                      im_dim: int = 2048, text_dim: int = 768,
-                     seed: int = 0, raw_images: bool = False, **kw):
-    """Three disjoint 60/20/20 class splits over ONE shared image table.
+                     seed: int = 0, raw_images: bool = False,
+                     im_size: int = 84, channels: int = 3, **kw):
+    """Three disjoint 60/20/20 class splits over ONE shared image table
+    (``raw_images``: an NHWC raw-image table of ``im_size``).
     Returns ``({"train", "val", "test"} -> ClassSet, table, ids)``."""
     if raw_images:
-        raise NotImplementedError(
-            "raw-image synthetic sets are not ported yet (ROADMAP.md Queue 1, "
-            "item 7: raw-image backbones)")
-    cs, table, ids = synthetic_class_set(
-        num_classes=num_classes, images_per_class=images_per_class,
-        im_dim=im_dim, text_dim=text_dim, seed=seed, **kw)
+        cs, table, ids = synthetic_raw_image_set(
+            num_classes=num_classes, images_per_class=images_per_class,
+            im_size=im_size, channels=channels, text_dim=text_dim,
+            seed=seed)
+    else:
+        cs, table, ids = synthetic_class_set(
+            num_classes=num_classes, images_per_class=images_per_class,
+            im_dim=im_dim, text_dim=text_dim, seed=seed, **kw)
     rng = np.random.RandomState(0)
     order = np.arange(num_classes)
     rng.shuffle(order)

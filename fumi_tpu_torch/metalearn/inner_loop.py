@@ -19,24 +19,71 @@ The counterpart of ``fumi_tpu/metalearn/inner_loop.py``'s
 - ``adapt_mask`` (ANIL, ``--tpu_adapt_params head``) restricts the inner
   updates to the marked leaves; only their inner gradients are taken.
 
-The JAX package rematerialises long horizons (``jax.checkpoint``); that
-changes memory only, never the numbers. The port stores the graph;
-``torch.utils.checkpoint`` for long horizons is ROADMAP.md Queue 1,
-item 10. The meta-gradient variants that do not differentiate through the
-loop are ``metalearn/reptile.py`` and ``metalearn/implicit.py``.
+- ``remat`` (``--tpu_remat``, ``train/steps.py:remat_of``) checkpoints
+  each differentiable inner step with ``torch.utils.checkpoint``: the
+  outer backward recomputes the step's forward and its inner gradient
+  instead of storing them. It changes memory, never the numbers (a
+  generator the step draws dropout masks from is replayed). None (auto)
+  checkpoints horizons of ``REMAT_THRESHOLD`` steps or more; the JAX
+  package's ``"save_convs"`` (checkpoint the step but keep the conv
+  outputs) is whole-step checkpointing here, because torch's selective
+  checkpointing refuses a region whose graph is differentiated twice
+  (the inner ``autograd.grad`` and the outer backward), which is what a
+  second-order step is.
+
+The meta-gradient variants that do not differentiate through the loop are
+``metalearn/reptile.py`` and ``metalearn/implicit.py``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from fumi_tpu_torch.core.episode import Episode
 
 Params = Dict[str, torch.Tensor]
 Mask = Optional[Dict[str, bool]]
+Remat = Union[None, bool, str]
+
+# adaptation horizons at or above this checkpoint their inner steps
+REMAT_THRESHOLD = 16
+
+
+def remat_active(remat: Remat, n_steps: int) -> bool:
+    """Whether ``remat`` checkpoints a differentiable ``n_steps`` loop:
+    None (auto) at long horizons, ``"save_convs"`` always (as whole-step
+    checkpointing, see the module docstring), a bool as given."""
+    if remat == "save_convs":
+        return True
+    if remat is None:
+        return n_steps >= REMAT_THRESHOLD
+    return bool(remat)
+
+
+def _replaying(fn: Callable, gen: Optional[torch.Generator]) -> Callable:
+    """``fn`` for ``checkpoint``: its recompute sees ``gen`` as the first
+    run saw it and leaves ``gen`` as it found it, so the dropout masks
+    drawn again are the same masks."""
+    if gen is None:
+        return fn
+    state = gen.get_state()
+    ran = []
+
+    def run(*args):
+        if not ran:
+            ran.append(True)
+            return fn(*args)
+        after = gen.get_state()
+        gen.set_state(state)
+        try:
+            return fn(*args)
+        finally:
+            gen.set_state(after)
+    return run
 
 
 def sgd_inner_update(params: Params, grads: Params, step_size: float,
@@ -50,14 +97,11 @@ def sgd_inner_update(params: Params, grads: Params, step_size: float,
 
 def head_only_mask(params: Params) -> Dict[str, bool]:
     """ANIL's adapt-mask: True only on the network's head, the MLP's last
-    layer ``net.lin_final``. The raw-image backbones' layout (an explicit
-    ``head`` entry) comes with them."""
-    if "net.lin_final.weight" not in params:
-        raise NotImplementedError(
-            "head_only_mask covers the embedding MLP only; the raw-image "
-            "backbones' layout is not ported to the PyTorch package yet — "
-            "Queue 1, item 7 (raw-image backbones) in ROADMAP.md")
-    return {k: k.startswith("net.lin_final.") for k in params}
+    layer ``net.lin_final`` or a raw-image backbone's ``head``."""
+    head = "net.lin_final." if "net.lin_final.weight" in params else "head."
+    if head + "weight" not in params:
+        raise ValueError(f"no head in params {sorted(params)[:4]}...")
+    return {k: k.startswith(head) for k in params}
 
 
 def task_cross_entropy(logits: torch.Tensor,
@@ -81,21 +125,34 @@ def per_task(params: Params, keys, B: int) -> Params:
 
 def adapt(theta: Params, support_loss: Callable[[Params, int], torch.Tensor],
           n_steps: int, step_size: float, *, differentiable: bool,
-          first_order: bool = False, mask: Mask = None) -> Params:
+          first_order: bool = False, mask: Mask = None, remat: Remat = False,
+          gen: Optional[torch.Generator] = None) -> Params:
     """``n_steps`` of θ ← θ − α·∇ support_loss(θ, step) on the leaves
     ``mask`` marks (all without one).
 
     ``support_loss`` returns the per-task support losses summed over the
     tasks. ``differentiable`` keeps the outer graph (second order unless
-    ``first_order``); otherwise every step detaches."""
+    ``first_order``), each step checkpointed where :func:`remat_active`
+    says (``gen``: the generator the loss draws from); otherwise every
+    step detaches."""
     adapted = [k for k in theta if mask is None or mask.get(k)]
+    keys = list(theta)
+    remat = differentiable and remat_active(remat, n_steps)
     for step in range(n_steps):
         if differentiable:
-            loss = support_loss(theta, step)
-            grads = torch.autograd.grad(loss, [theta[k] for k in adapted],
-                                        create_graph=not first_order)
-            theta = sgd_inner_update(theta, dict(zip(adapted, grads)),
-                                     step_size, mask)
+            def one(*vals, step=step):
+                th = dict(zip(keys, vals))
+                grads = torch.autograd.grad(support_loss(th, step),
+                                            [th[k] for k in adapted],
+                                            create_graph=not first_order)
+                th = sgd_inner_update(th, dict(zip(adapted, grads)),
+                                      step_size, mask)
+                return tuple(th[k] for k in keys)
+            vals = tuple(theta[k] for k in keys)
+            vals = (checkpoint(_replaying(one, gen), *vals,
+                               use_reentrant=False) if remat
+                    else one(*vals))
+            theta = dict(zip(keys, vals))
             continue
         with torch.enable_grad():
             leaves = {k: v.detach().requires_grad_(k in adapted)
@@ -123,7 +180,8 @@ def _outer(q_logits: torch.Tensor, query_y: torch.Tensor):
 
 def maml_episode_loss(apply_fn: Callable, params: Params, episode: Episode,
                       *, n_steps: int, step_size: float, first_order: bool,
-                      differentiable: bool = True, adapt_mask: Mask = None):
+                      differentiable: bool = True, adapt_mask: Mask = None,
+                      remat: Remat = None):
     """Mean outer loss over the meta-batch.
 
     Each task adapts a private copy of every param for ``n_steps`` inner
@@ -131,7 +189,8 @@ def maml_episode_loss(apply_fn: Callable, params: Params, episode: Episode,
     cross-entropy; ``adapt_mask`` restricts the inner updates to the leaves
     it marks (ANIL). Returns ``(outer_loss, {"acc", "preds"})``; the loss
     is differentiable w.r.t. ``params`` (second order unless
-    ``first_order``) when ``differentiable``."""
+    ``first_order``) when ``differentiable``; ``remat`` as in
+    :func:`adapt`."""
     B = episode.support_im.shape[0]
     s_x, s_y = episode.support_im, episode.support_y
 
@@ -140,7 +199,7 @@ def maml_episode_loss(apply_fn: Callable, params: Params, episode: Episode,
 
     theta = adapt(per_task(params, params.keys(), B), support_loss, n_steps,
                   step_size, differentiable=differentiable,
-                  first_order=first_order, mask=adapt_mask)
+                  first_order=first_order, mask=adapt_mask, remat=remat)
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         return _outer(apply_fn(theta, episode.query_im), episode.query_y)
 
@@ -152,7 +211,7 @@ def maml_episode_loss(apply_fn: Callable, params: Params, episode: Episode,
 def fumi_episode_loss(model, params: Params, episode: Episode, *,
                       n_steps: int, step_size: float,
                       gen: Optional[torch.Generator], train: bool,
-                      differentiable: bool = True):
+                      differentiable: bool = True, remat: Remat = None):
     """Mean outer loss over the meta-batch.
 
     Per task: the hypernetwork emits the generated head from the
@@ -177,7 +236,7 @@ def fumi_episode_loss(model, params: Params, episode: Episode, *,
         return task_cross_entropy(logits, s_y).sum()
 
     theta = adapt(theta, support_loss, n_steps, step_size,
-                  differentiable=differentiable)
+                  differentiable=differentiable, remat=remat, gen=gen)
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         q_logits = model.im_forward(theta, theta["hyper"], episode.query_im,
                                     train=train, gen=gen)

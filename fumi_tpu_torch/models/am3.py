@@ -1,11 +1,12 @@
 """AM3, the Adaptive Modality Mixture Mechanism (prototypical, no inner
 loop).
 
-The PyTorch counterpart of ``fumi_tpu/models/am3.py`` for the linear image
-encoder (the ``precomputed`` and ``resnet`` branches, both one Linear in
-the reference):
+The PyTorch counterpart of ``fumi_tpu/models/am3.py``:
 
-- ``image_encoder``: Linear(im_emb_dim → prototype_dim);
+- ``image_encoder``: Linear(im_emb_dim → prototype_dim) (the reference's
+  ``precomputed`` and ``resnet`` branches), or with ``im_encoder_kind``
+  conv4 or resnet12 that raw-image backbone and a ``head`` Linear to
+  prototype_dim;
 - a text encoder plugin (identity for BERT/precomputed, word-embedding
   pooling or a biLSTM over tokens, or the ``rand`` encoder's fresh
   ``2·U(0,1)−1`` noise at every forward);
@@ -13,9 +14,11 @@ the reference):
 - ``h``: text prototype → λ, Linear-ReLU-Dropout-Linear and a sigmoid.
 
 Parameters are a flat state dict with the reference's names:
-``image_encoder.*``, ``text_encoder.*``, ``g.0.*``, ``g.3.*``, ``h.0.*``
-and ``h.3.*``. Raw-image encoders (conv4, resnet12) wait for ROADMAP.md
-Queue 1, item 7. Random draws (the ``rand`` noise, then the dropout masks
+``image_encoder.*`` (a backbone's names and its ``head`` under
+``image_encoder.``), ``text_encoder.*``, ``g.0.*``, ``g.3.*``, ``h.0.*``
+and ``h.3.*``. ``compute_dtype`` is the bf16 policy of
+``models/layers.py``; the prototype and distance math stays fp32. Random
+draws (the ``rand`` noise, then the dropout masks
 of ``g`` and ``h``) come from one ``torch.Generator`` in that order.
 """
 
@@ -26,7 +29,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from fumi_tpu_torch.models import layers, text_encoders
+from fumi_tpu_torch.models import (RAW_IMAGE_ENCODERS,
+                                   headless_backbone_init, layers,
+                                   raw_image_net, text_encoders)
 from fumi_tpu_torch.ops import fewshot
 
 Params = Dict[str, torch.Tensor]
@@ -43,11 +48,29 @@ class AM3:
     dropout: float
     fine_tune: bool
     lamda_fixed: Optional[int]
+    # "linear" or a raw-image backbone ("conv4", "resnet12")
+    im_encoder_kind: str = "linear"
+    im_size: int = 84
+    im_channels: int = 3
+    resnet12_channels: Tuple[int, ...] = (64, 160, 320, 640)
+    compute_dtype: Optional[torch.dtype] = None
+
+    @property
+    def raw(self) -> bool:
+        return self.im_encoder_kind in RAW_IMAGE_ENCODERS
 
     def init_params(self, gen: torch.Generator) -> Params:
         params = dict(self.text_encoder.params)
+        image_encoder = (self.im_emb_dim, self.prototype_dim)
+        if self.raw:
+            bb, fdim = headless_backbone_init(
+                self.im_encoder_kind, gen, self.im_size, self.im_channels,
+                self.resnet12_channels, prefix="image_encoder.")
+            params.update(bb)
+            image_encoder = (fdim, self.prototype_dim)
         for name, (i, o) in (
-                ("image_encoder", (self.im_emb_dim, self.prototype_dim)),
+                ("image_encoder.head" if self.raw else "image_encoder",
+                 image_encoder),
                 ("g.0", (self.text_emb_dim, self.text_hid_dim)),
                 ("g.3", (self.text_hid_dim, self.prototype_dim)),
                 ("h.0", (self.prototype_dim, self.text_hid_dim)),
@@ -59,18 +82,31 @@ class AM3:
     # -- forward --------------------------------------------------------
 
     def encode_image(self, params: Params, im: torch.Tensor) -> torch.Tensor:
-        """(..., im_emb_dim) -> (..., prototype_dim)."""
+        """(..., im_emb_dim) -> (..., prototype_dim); raw (B, M, H, W, C) ->
+        (B, M, prototype_dim), normalized with the statistics of all B·M
+        images, as the JAX package reshapes them."""
+        cd = self.compute_dtype
+        if self.raw:
+            B, M = im.shape[:2]
+            feats = raw_image_net(self.im_encoder_kind).backbone(
+                params, im.reshape((B * M,) + im.shape[2:]), cd,
+                prefix="image_encoder.")
+            return layers.linear(params["image_encoder.head.weight"],
+                                 params["image_encoder.head.bias"], feats,
+                                 cd).reshape(B, M, -1)
         return layers.linear(params["image_encoder.weight"],
-                             params["image_encoder.bias"], im)
+                             params["image_encoder.bias"], im, cd)
 
     def _mlp(self, params: Params, name: str, x: torch.Tensor, train: bool,
              gen: Optional[torch.Generator]) -> torch.Tensor:
         """``name``'s Linear-ReLU-Dropout-Linear."""
         h = torch.relu(layers.linear(params[name + ".0.weight"],
-                                     params[name + ".0.bias"], x))
+                                     params[name + ".0.bias"], x,
+                                     self.compute_dtype))
         h = layers.dropout(h, self.dropout, train, gen)
         return layers.linear(params[name + ".3.weight"],
-                             params[name + ".3.bias"], h)
+                             params[name + ".3.bias"], h,
+                             self.compute_dtype)
 
     def forward(self, params: Params, text: torch.Tensor, im: torch.Tensor,
                 gen: Optional[torch.Generator] = None, train: bool = False

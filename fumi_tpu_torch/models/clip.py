@@ -7,8 +7,9 @@ the symmetric cross-entropy with arange labels; evaluation is
 sliding-window retrieval (``train/clip_loop.py``).
 
 Parameters are a flat state dict with the reference's names:
-``text_fc.*``, ``text_fc2.*``, ``image_fc.*`` and ``image_fc2.*``. fp32
-only (the bf16 policy is ROADMAP.md Queue 1, item 8). Each embedding is
+``text_fc.*``, ``text_fc2.*``, ``image_fc.*`` and ``image_fc2.*``.
+``compute_dtype`` is the bf16 policy of ``models/layers.py`` (the
+normalization stays fp32). Each embedding is
 divided by its ``torch.linalg.norm``, as the JAX package divides by
 ``jnp.linalg.norm``: ``F.normalize`` clamps the norm at an eps and is
 another function at small norms.
@@ -17,7 +18,7 @@ another function at small norms.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -33,6 +34,7 @@ class CLIP:
     text_input_dim: int
     image_input_dim: int
     latent_dim: int
+    compute_dtype: Optional[torch.dtype] = None
 
     def init_params(self, gen: torch.Generator) -> Params:
         params = {}
@@ -48,10 +50,11 @@ class CLIP:
     def _head(self, params: Params, name: str, x: torch.Tensor
               ) -> torch.Tensor:
         """Linear, ReLU, Linear, then ``t / ‖t‖`` over the last axis."""
+        cd = self.compute_dtype
         t = layers.linear(
             params[name + "_fc2.weight"], params[name + "_fc2.bias"],
             torch.relu(layers.linear(params[name + "_fc.weight"],
-                                     params[name + "_fc.bias"], x)))
+                                     params[name + "_fc.bias"], x, cd)), cd)
         return t / torch.linalg.norm(t, dim=-1, keepdim=True)
 
     def encode_text(self, params: Params, text: torch.Tensor) -> torch.Tensor:
@@ -70,7 +73,8 @@ class CLIP:
         (``ClipRetrieval``) reuses exactly these."""
         t = self.encode_text(params, text)
         i = self.encode_image(params, image)
-        return layers.matmul_f32acc(t, i.transpose(-1, -2))
+        return layers.matmul_f32acc(t, i.transpose(-1, -2),
+                                    self.compute_dtype)
 
     def symmetric_ce_loss(self, params: Params, text: torch.Tensor,
                           image: torch.Tensor) -> torch.Tensor:
@@ -90,5 +94,6 @@ class CLIP:
         (the first of equal scores wins, as ``jnp.argmax`` picks it)."""
         t = self.encode_text(params, text)  # (W, L)
         i = self.encode_image(params, images)  # (W, n, L)
-        sim = layers.matmul_f32acc(t.unsqueeze(-2), i.transpose(-1, -2))
+        sim = layers.matmul_f32acc(t.unsqueeze(-2), i.transpose(-1, -2),
+                                   self.compute_dtype)
         return (torch.argmax(sim[:, 0], dim=-1) == 0).to(torch.float32)

@@ -1,18 +1,20 @@
 """FuMI — Fusion by Meta-Initialisation (text-conditioned hypernetwork).
 
-The PyTorch counterpart of ``fumi_tpu/models/fumi.py`` for the embedding
-MLP (``im_encoder_kind="mlp"``):
+The PyTorch counterpart of ``fumi_tpu/models/fumi.py``:
 
 - ``hyper_net``: Linear(text_emb → text_hid)-ReLU-Linear(text_hid →
   im_hid[-1]+1), emitting the final-layer weights+bias of the image net
   per class; optional tanh (``norm_hypernet``) and the optional normc bias
   init of the head (``hypernet_bias_init``).
 - ``im_net``: Linear-ReLU-(Dropout) hidden stack with NO final head; the
-  head is generated per class by the hypernet.
+  head is generated per class by the hypernet. With ``im_encoder_kind``
+  conv4 or resnet12 it is that raw-image backbone without its head
+  (no dropout), and the generated head reads its features.
 
 Parameters are a flat state dict with the reference's names:
-``text_encoder.*``, ``im_net.linear{i}.*``, ``hyper_net.0.*`` and
-``hyper_net.2.*``. Every forward piece takes an optional leading batch of
+``text_encoder.*``, ``im_net.linear{i}.*`` (a backbone's names under
+``im_net.``), ``hyper_net.0.*`` and ``hyper_net.2.*``. ``compute_dtype``
+is the bf16 policy of ``models/layers.py``. Every forward piece takes an optional leading batch of
 episodes (the JAX package vmaps over it).
 """
 
@@ -24,7 +26,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from fumi_tpu_torch.models import layers, text_encoders
+from fumi_tpu_torch.models import (RAW_IMAGE_ENCODERS,
+                                   headless_backbone_init, layers,
+                                   raw_image_net, text_encoders)
 
 Params = Dict[str, torch.Tensor]
 
@@ -55,10 +59,24 @@ class FUMI:
     fine_tune: bool
     init_bias: bool
     init_all_layers: bool = False
+    # "mlp" or a raw-image backbone ("conv4", "resnet12")
+    im_encoder_kind: str = "mlp"
+    im_size: int = 84
+    im_channels: int = 3
+    resnet12_channels: Tuple[int, ...] = (64, 160, 320, 640)
+    compute_dtype: Optional[torch.dtype] = None
+
+    @property
+    def raw(self) -> bool:
+        return self.im_encoder_kind in RAW_IMAGE_ENCODERS
 
     @property
     def head_in_dim(self) -> int:
         """Feature dim the generated head consumes."""
+        if self.im_encoder_kind == "conv4":
+            return raw_image_net("conv4").feature_dim(self.im_size)
+        if self.im_encoder_kind == "resnet12":
+            return self.resnet12_channels[-1]
         return self.im_hid_dim[-1]
 
     def init_params(self, gen: torch.Generator) -> Params:
@@ -67,12 +85,17 @@ class FUMI:
                 "Entire model hypernet initialisation removed")
         head_out = self.head_in_dim + 1  # weights + bias
         params = dict(self.text_encoder.params)
-        in_dim = self.im_emb_dim
-        for name, hid in zip(im_net_names(len(self.im_hid_dim)),
-                             self.im_hid_dim):
-            params[name + ".weight"], params[name + ".bias"] = \
-                layers.linear_init(gen, in_dim, hid)
-            in_dim = hid
+        if self.raw:
+            params.update(headless_backbone_init(
+                self.im_encoder_kind, gen, self.im_size, self.im_channels,
+                self.resnet12_channels, prefix="im_net.")[0])
+        else:
+            in_dim = self.im_emb_dim
+            for name, hid in zip(im_net_names(len(self.im_hid_dim)),
+                                 self.im_hid_dim):
+                params[name + ".weight"], params[name + ".bias"] = \
+                    layers.linear_init(gen, in_dim, hid)
+                in_dim = hid
         params["hyper_net.0.weight"], params["hyper_net.0.bias"] = \
             layers.linear_init(gen, self.text_emb_dim, self.text_hid_dim)
         w, b = layers.linear_init(gen, self.text_hid_dim, head_out)
@@ -90,9 +113,11 @@ class FUMI:
                       ) -> torch.Tensor:
         """Hypernetwork: (..., n_way, E) text -> (..., n_way, im_hid[-1]+1)."""
         h = torch.relu(layers.linear(params["hyper_net.0.weight"],
-                                     params["hyper_net.0.bias"], text_embed))
+                                     params["hyper_net.0.bias"], text_embed,
+                                     self.compute_dtype))
         out = layers.linear(params["hyper_net.2.weight"],
-                            params["hyper_net.2.bias"], h)
+                            params["hyper_net.2.bias"], h,
+                            self.compute_dtype)
         if self.norm_hypernet:
             out = torch.tanh(out)
         return out
@@ -134,10 +159,15 @@ class FUMI:
 
     def im_base(self, im_params: Params, x: torch.Tensor, *, train: bool,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Base image net without head: Linear-ReLU-(Dropout) stack."""
+        """Base image net without head: Linear-ReLU-(Dropout) stack, or the
+        raw-image backbone (per-task statistics for per-task weights)."""
+        if self.raw:
+            return raw_image_net(self.im_encoder_kind).backbone(
+                im_params, x, self.compute_dtype, prefix="im_net.")
         for name in im_net_names(len(self.im_hid_dim)):
             x = torch.relu(layers.linear(im_params[name + ".weight"],
-                                         im_params[name + ".bias"], x))
+                                         im_params[name + ".bias"], x,
+                                         self.compute_dtype))
             x = layers.dropout(x, self.dropout_rate, train, gen)
         return x
 
@@ -149,4 +179,5 @@ class FUMI:
         out = self.im_base(im_params, x, train=train, gen=gen)
         w = hyper_params[..., :-1]
         b = hyper_params[..., -1]
-        return layers.matmul_f32acc(out, w.transpose(-1, -2)) + b.unsqueeze(-2)
+        return layers.matmul_f32acc(out, w.transpose(-1, -2),
+                                    self.compute_dtype) + b.unsqueeze(-2)

@@ -14,14 +14,27 @@ batch dimension is how the port writes out what the JAX package does with
 Initializers reproduce torch's ``nn.Linear`` default (weight and bias
 uniform in +-1/sqrt(fan_in)) from an explicit ``torch.Generator``. They
 draw on the CPU, so a seed gives the same weights whatever the device.
+
+The mixed-precision policy of ``--tpu_compute_dtype bfloat16``
+(``compute_dtype=torch.bfloat16``): only the operands of matrix products
+and convolutions are rounded to bf16. Weights stay fp32 leaves, and so do
+activations between layers, biases, losses and every inner-loop update.
+A matrix product gives an fp32 result that is never rounded to bf16 (the
+JAX package's ``preferred_element_type=float32``); :func:`matmul_f32acc`
+says how each device gets it. A convolution gives a bf16 output, cast
+back to fp32 unless ``keep_dtype`` (the conv backbones keep their
+activations in bf16 between blocks). Gradients flow back through the
+casts as the JAX casts' VJPs do: a cotangent reaching a bf16 operand is
+rounded to bf16, then widened to fp32.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int
@@ -35,15 +48,89 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int
     return u(out_dim, in_dim), u(out_dim)
 
 
-def linear(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ Wᵀ + b with W shaped (out, in), or (R, out, in) per episode."""
-    return torch.matmul(x, w.transpose(-1, -2)) + b.unsqueeze(-2)
+def linear(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """y = x @ Wᵀ + b with W shaped (out, in), or (R, out, in) per episode.
+    ``compute_dtype`` rounds the product's operands (the policy above)."""
+    return matmul_f32acc(x, w.transpose(-1, -2), compute_dtype) \
+        + b.unsqueeze(-2)
 
 
-def matmul_f32acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in fp32 (the port has no bf16 policy yet: ROADMAP.md
-    Queue 1, item 8)."""
+def _round(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` and widened back to fp32."""
+    return t.to(dtype).to(torch.float32)
+
+
+class _CublasBf16Matmul(torch.autograd.Function):
+    """``a @ b`` of fp32 tensors holding bf16 values, by cuBLAS's bf16 GEMM
+    with an fp32 output (``out_dtype``); the backward is the emulation's
+    own, written in differentiable operations, so second-order inner
+    loops differentiate through it."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        if b16.dim() == 2:
+            return torch.mm(a16.reshape(-1, a16.shape[-1]), b16,
+                            out_dtype=torch.float32).reshape(
+                a.shape[:-1] + b.shape[-1:])
+        batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+        a16 = a16.expand(batch + a.shape[-2:]).reshape((-1,) + a.shape[-2:])
+        b16 = b16.expand(batch + b.shape[-2:]).reshape((-1,) + b.shape[-2:])
+        return torch.bmm(a16, b16, out_dtype=torch.float32).reshape(
+            batch + (a.shape[-2], b.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = _sum_to(torch.matmul(g, b.transpose(-1, -2)), a.shape)
+        gb = _sum_to(torch.matmul(a.transpose(-1, -2), g), b.shape)
+        return _round(ga, torch.bfloat16), _round(gb, torch.bfloat16)
+
+
+def _sum_to(g: torch.Tensor, shape) -> torch.Tensor:
+    """A broadcast operand's gradient summed back to its shape."""
+    while g.dim() > len(shape):
+        g = g.sum(0)
+    for i, n in enumerate(shape):
+        if n == 1 and g.shape[i] != 1:
+            g = g.sum(i, keepdim=True)
+    return g
+
+
+def matmul_f32acc(a: torch.Tensor, b: torch.Tensor,
+                  compute_dtype: Optional[torch.dtype] = None
+                  ) -> torch.Tensor:
+    """``a @ b``; with ``compute_dtype`` bf16 operands and an fp32 result.
+
+    Both devices compute the same function. The CPU rounds the operands
+    to bf16 and multiplies them in fp32 (exact products of bf16 values,
+    fp32 sums: the function itself, up to the order of the sums). A CUDA
+    device runs cuBLAS's bf16 GEMM with an fp32 output
+    (:class:`_CublasBf16Matmul`). Either way the backward rounds each
+    operand's gradient to bf16, as the JAX casts' VJPs do."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return torch.matmul(a, b)
+    a, b = _round(a, compute_dtype), _round(b, compute_dtype)
+    if a.is_cuda and compute_dtype == torch.bfloat16:
+        return _CublasBf16Matmul.apply(a, b)
     return torch.matmul(a, b)
+
+
+def conv2d_f32acc(x: torch.Tensor, w: torch.Tensor,
+                  compute_dtype: Optional[torch.dtype] = None, *,
+                  padding: int = 0, groups: int = 1,
+                  keep_dtype: bool = False) -> torch.Tensor:
+    """NCHW/OIHW stride-1 convolution under the policy above, shared by
+    the conv4 and resnet12 backbones. With ``compute_dtype`` the operands
+    and the output are bf16 (the convolution accumulates in fp32 inside),
+    and the output is cast back to fp32 unless ``keep_dtype``."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return F.conv2d(x, w, padding=padding, groups=groups)
+    y = F.conv2d(x.to(compute_dtype), w.to(compute_dtype), padding=padding,
+                 groups=groups)
+    return y if keep_dtype else y.to(torch.float32)
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,

@@ -38,11 +38,14 @@ def init(gen: torch.Generator, im_embed_dim: int = 2048, n_way: int = 5,
     return params
 
 
-def apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """Forward: ReLU between layers, raw logits out."""
+def apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
+          compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Forward: ReLU between layers, raw logits out; ``compute_dtype`` the
+    operand dtype of the products (``layers.linear``)."""
     names = layer_names(params)
     for name in names[:-1]:
         x = torch.relu(layers.linear(params[name + ".weight"],
-                                     params[name + ".bias"], x))
+                                     params[name + ".bias"], x,
+                                     compute_dtype))
     return layers.linear(params[names[-1] + ".weight"],
-                         params[names[-1] + ".bias"], x)
+                         params[names[-1] + ".bias"], x, compute_dtype)

@@ -1,7 +1,10 @@
 """Few-shot serving: adapt on a request's support set, classify its queries.
 
 The PyTorch counterpart of ``fumi_tpu/serve.py``'s ``FewShotClassifier``
-and ``ClipRetrieval`` on precomputed image embeddings (fp32):
+and ``ClipRetrieval`` on precomputed image embeddings, or raw NHWC images
+for a conv4 or resnet12 model (``support_im`` (NK, H, W, C), batched
+(R, NK, H, W, C)), in fp32 or under the bf16 policy
+(``--tpu_compute_dtype bfloat16``, served through the engine):
 
 - ``episode_logits`` / ``episode_logits_batch``: adapt AND classify in one
   call. For MAML and FuMI, where the fused kernel applies (a CUDA device,
@@ -36,7 +39,10 @@ and ``ClipRetrieval`` on precomputed image embeddings (fp32):
 
 Request shapes keep the JAX package's power-of-two bucketing of the
 episode axis R and the query axis M, and its request errors, so served
-results match it. Per-episode randomness (only the ``rand`` text encoder
+results match it. A raw-image model's batch statistics span its queries,
+so padding M would change every answer: M is not bucketed there, and each
+episode of a batched request is normalized on its own, as the JAX package
+``vmap``s one episode. Per-episode randomness (only the ``rand`` text encoder
 reads it) comes from per-episode ``torch.Generator`` seeds: episode ``r``
 of a batched request uses :func:`episode_seed` ``(seed, r)``, whatever the
 bucket size.
@@ -70,14 +76,14 @@ from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.metalearn.implicit import (fumi_proximal_adapt,
                                                proximal_adapt)
 from fumi_tpu_torch.metalearn.inner_loop import adapt, head_only_mask
-from fumi_tpu_torch.models import mlp
+from fumi_tpu_torch.models import RAW_IMAGE_ENCODERS
 from fumi_tpu_torch.models.text_encoders import EMBED
 from fumi_tpu_torch.ops import fewshot, kernels
 from fumi_tpu_torch.train import checkpoint as ckpt_lib
 from fumi_tpu_torch.train.clip_loop import make_clip
 from fumi_tpu_torch.train.loop import eval_view
 from fumi_tpu_torch.train.optim import init_optim
-from fumi_tpu_torch.train.steps import (build_family, embed_images,
+from fumi_tpu_torch.train.steps import (build_family, image_embedder,
                                         image_prototypes, make_opt,
                                         plain_full_gd_adaptation)
 
@@ -93,17 +99,19 @@ def _np_softmax(logits: np.ndarray) -> np.ndarray:
     return e / e.sum(axis=-1, keepdims=True)
 
 
-def _bucket_queries(query_im, axis: int):
+def _bucket_queries(query_im, axis: int, enabled: bool = True):
     """Pad the QUERY axis M up to the next power of two by repeating the
     last query; callers slice the logits back to M. Exact for embedding
     inputs (adaptation reads only the support set; queries are classified
-    independently). Returns ``(M, padded_query_im)``."""
+    independently); ``enabled=False`` (raw-image backbones, whose batch
+    statistics span the queries) only validates M. Returns ``(M,
+    padded_query_im)``."""
     query_im = np.asarray(query_im)
     M = query_im.shape[axis]
     if M == 0:
         raise RequestError("request has no queries (query_im is empty "
                            "along the query axis)")
-    m_pad = 1 << (M - 1).bit_length()
+    m_pad = 1 << (M - 1).bit_length() if enabled else M
     if m_pad != M:
         idx = [slice(None)] * query_im.ndim
         idx[axis] = slice(M - 1, M)
@@ -133,7 +141,7 @@ def episode_seed(seed: int, r: int) -> int:
 
 
 def _prep_batched_request(cfg, prep_text, support_im, support_y, query_im,
-                          support_text, seed: int):
+                          support_text, seed: int, bucket_m: bool = True):
     """The batched-request policy: array coercion, per-episode seeds,
     power-of-two R bucketing and power-of-two M bucketing. Returns
     ``(R, M, support_im, support_y, support_text, query_im, seeds)`` with
@@ -147,7 +155,7 @@ def _prep_batched_request(cfg, prep_text, support_im, support_y, query_im,
         raise RequestError("request has no episodes (support_im is "
                            "empty along the episode axis)")
     support_text = prep_text(support_text, R, support_im.shape[1])
-    M, query_im = _bucket_queries(query_im, axis=1)
+    M, query_im = _bucket_queries(query_im, axis=1, enabled=bucket_m)
     r_pad = max(1, 1 << (R - 1).bit_length())
     seeds = [episode_seed(seed, r) for r in range(r_pad)]
     return (R, M) + _pad_episodes(r_pad, support_im, support_y,
@@ -254,6 +262,8 @@ class FewShotClassifier:
         self._classify_fn = None
         self._episode_fn = None
         self._engine = None  # (adapt_fn, classify_fn), both batched over R
+        # M-bucketing only where it is exact (not under batch statistics)
+        self._bucket_m = cfg.im_encoder not in RAW_IMAGE_ENCODERS
 
     @classmethod
     def from_checkpoint(cls, run_dir: str, cfg: Config, dictionary=None,
@@ -320,7 +330,22 @@ class FewShotClassifier:
             return {k: p[k].expand((R,) + tuple(p[k].shape)).clone()
                     for k in keys}
 
+        raw = not self._bucket_m  # a raw backbone: batch statistics
+
+        def each_episode(fn, *args):
+            """``fn`` on each episode's slice of the leading R axis where a
+            raw backbone normalizes every episode with its own batch
+            statistics; on all R at once otherwise."""
+            if not raw:
+                return fn(*args)
+            outs = [fn(*(a[r:r + 1] for a in args))
+                    for r in range(args[0].shape[0])]
+            if isinstance(outs[0], tuple):
+                return tuple(torch.cat(t) for t in zip(*outs))
+            return torch.cat(outs)
+
         if cfg.model == "maml":
+            apply_fn = self.family.model  # the config's forward
             # ANIL serves with the masked updates it trained with
             mask = head_only_mask(self.params) \
                 if cfg.adapt_params == "head" else None
@@ -331,15 +356,15 @@ class FewShotClassifier:
                 if cfg.meta_grad == "imaml":
                     # the proximal inner solve iMAML trained with
                     return proximal_adapt(
-                        mlp.apply, theta, s_im, s_y, n_steps=n_steps,
+                        apply_fn, theta, s_im, s_y, n_steps=n_steps,
                         step_size=step, lam=cfg.imaml_lambda)
                 # sum of per-episode mean losses: each episode's gradient
                 # is its own loss's gradient
                 return sgd_steps(theta, lambda q: fewshot.cross_entropy(
-                    mlp.apply(q, s_im), s_y) * R, mask)
+                    apply_fn(q, s_im), s_y) * R, mask)
 
             def classify_fn(p, state, q_im):
-                return mlp.apply(state, q_im)
+                return apply_fn(state, q_im)
             return adapt_fn, classify_fn
 
         if cfg.model == "fumi":
@@ -377,15 +402,22 @@ class FewShotClassifier:
                                           seeds[r]))
                         for r in range(s_im.shape[0]))))
                 else:
-                    im_e, tx_e, lam = model.forward(p, s_text, s_im)
+                    im_e, tx_e, lam = each_episode(
+                        lambda t, x: model.forward(p, t, x), s_text, s_im)
                 return fewshot.get_prototypes(im_e, tx_e,
                                               model.fixed_lamda(lam), s_y,
                                               cfg.num_ways)
 
             def classify_fn(p, protos, q_im):
-                return fewshot.prototype_logits(
-                    protos, model.encode_image(p, q_im))
+                return fewshot.prototype_logits(protos, each_episode(
+                    lambda x: model.encode_image(p, x), q_im))
             return adapt_fn, classify_fn
+
+        if cfg.model in ("protonet", "matchingnet"):
+            embed = image_embedder(cfg)
+
+            def embed_images(p, x):
+                return each_episode(lambda e: embed(p, e), x)
 
         if cfg.model == "protonet":
             def adapt_fn(p, s_im, s_text, s_y, seeds):
@@ -510,7 +542,8 @@ class FewShotClassifier:
         support_im = np.asarray(support_im, dtype=np.float32)
         support_y = np.asarray(support_y, dtype=np.int32)
         support_text = self._prep_text(support_text, support_im.shape[0])
-        M, query_im = _bucket_queries(query_im, axis=0)
+        M, query_im = _bucket_queries(query_im, axis=0,
+                                      enabled=self._bucket_m)
         out = self._episode_request(support_im[None], support_y[None],
                                     query_im[None], support_text[None],
                                     [int(seed)])
@@ -524,7 +557,8 @@ class FewShotClassifier:
         (repeating the last episode / query) and sliced back."""
         R, M, support_im, support_y, support_text, query_im, seeds = \
             _prep_batched_request(self.cfg, self._prep_text, support_im,
-                                  support_y, query_im, support_text, seed)
+                                  support_y, query_im, support_text, seed,
+                                  bucket_m=self._bucket_m)
         out = self._episode_request(support_im, support_y, query_im,
                                     support_text, seeds)
         return out[:R, :M]
@@ -560,7 +594,8 @@ class FewShotClassifier:
     def logits(self, query_im) -> np.ndarray:
         if self._classify_fn is None:
             raise RuntimeError("call adapt(...) before classify/logits")
-        M, query_im = _bucket_queries(query_im, axis=0)
+        M, query_im = _bucket_queries(query_im, axis=0,
+                                      enabled=self._bucket_m)
         out = self._classify_fn(_tensor(query_im, np.float32, self.device))
         return out.cpu().numpy()[:M]
 

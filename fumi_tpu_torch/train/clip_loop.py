@@ -42,15 +42,13 @@ NEG_INF = -1e9
 
 def make_clip(cfg: Config, gen: torch.Generator):
     """The CLIP spec at the config's widths and its params, drawn from
-    ``gen`` on the CPU."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"not ported to the PyTorch package yet — --tpu_compute_dtype "
-            f"{cfg.compute_dtype}: Queue 1, item 8 (bf16 policy) in "
-            "ROADMAP.md")
+    ``gen`` on the CPU; ``--tpu_compute_dtype bfloat16`` rounds its
+    products' operands."""
     model = CLIP(text_input_dim=cfg.text_emb_dim,
                  image_input_dim=cfg.im_emb_dim,
-                 latent_dim=cfg.clip_latent_dim)
+                 latent_dim=cfg.clip_latent_dim,
+                 compute_dtype=(torch.bfloat16
+                                if cfg.compute_dtype == "bfloat16" else None))
     return model, model.init_params(gen)
 
 

@@ -1,12 +1,21 @@
 """Model families, their episode losses, and the train and eval steps.
 
-The counterpart of ``fumi_tpu/train/steps.py`` on precomputed embeddings,
-fp32, for the five episodic families: MAML and FuMI (an inner loop), AM3,
-ProtoNet and MatchingNet (prototypes or attention over the support set, no
-inner loop). MAML's meta-gradient is explicit (second order through the
-inner loop), Reptile's (``metalearn/reptile.py``) or iMAML's
-(``metalearn/implicit.py``), and ``--tpu_adapt_params head`` adapts only
-its head (ANIL); FuMI's is explicit or iMAML's. FuMI and AM3 take
+The counterpart of ``fumi_tpu/train/steps.py`` for the five episodic
+families: MAML and FuMI (an inner loop), AM3, ProtoNet and MatchingNet
+(prototypes or attention over the support set, no inner loop). Each takes
+precomputed image embeddings (an MLP or a Linear) or, with ``--im_encoder
+conv4|resnet12``, raw NHWC images through a backbone
+(``models/conv4.py``, ``models/resnet12.py``): MAML adapts the whole
+backbone and its head per task, FuMI the headless backbone and its
+generated head, and AM3, ProtoNet and MatchingNet embed with the backbone
+and a projection ``head``. ``--tpu_compute_dtype bfloat16``
+(:func:`compute_dtype_of`) runs every family's matrix products and
+convolutions on bf16 operands (``models/layers.py``), and ``--tpu_remat``
+(:func:`remat_of`) checkpoints the inner steps. MAML's meta-gradient is
+explicit (second order through the inner loop), Reptile's
+(``metalearn/reptile.py``) or iMAML's (``metalearn/implicit.py``), and
+``--tpu_adapt_params head`` adapts only its head (ANIL); FuMI's is
+explicit or iMAML's. FuMI and AM3 take
 precomputed text embeddings or, with a token dictionary, token text
 through ``models/text_encoders.py`` (glove, w2v, RNN, RNNhid), frozen
 unless ``--fine_tune``. Each family is built once as a :class:`Family` of
@@ -49,6 +58,8 @@ from fumi_tpu_torch.metalearn.inner_loop import (fumi_episode_loss,
                                                  head_only_mask,
                                                  maml_episode_loss)
 from fumi_tpu_torch.metalearn.reptile import reptile_episode_loss
+from fumi_tpu_torch.models import (RAW_IMAGE_ENCODERS,
+                                   headless_backbone_init, raw_image_net)
 from fumi_tpu_torch.models import am3 as am3_mod
 from fumi_tpu_torch.models import fumi as fumi_mod
 from fumi_tpu_torch.models import layers, mlp, text_encoders
@@ -56,12 +67,10 @@ from fumi_tpu_torch.ops import fewshot, kernels
 from fumi_tpu_torch.ops import metrics as metrics_ops
 from fumi_tpu_torch.train import optim
 
-RAW_IMAGE_ENCODERS = ("conv4", "resnet12")
-
 
 class Family(NamedTuple):
     """A model family's params and pure episode-level functions; ``model``
-    is the model spec (None for MAML, whose forward is ``mlp.apply``)."""
+    is the model spec (MAML: its forward ``(params, x) -> logits``)."""
     name: str
     params: Dict[str, torch.Tensor]
     train_loss: Callable  # (params, episode, gen) -> (loss, aux)
@@ -127,19 +136,38 @@ def _eval_raw_from_loss(loss, aux, episode) -> Dict:
             "targets": episode.query_y}
 
 
-def _check_slice(cfg: Config) -> None:
-    """Reject the configs whose episode losses are not ported yet, naming
-    the ROADMAP item that will port each."""
-    if cfg.im_encoder in RAW_IMAGE_ENCODERS:
-        item = (f"--im_encoder {cfg.im_encoder}: Queue 1, item 7 "
-                "(raw-image backbones)")
-    elif cfg.compute_dtype != "float32":
-        item = (f"--tpu_compute_dtype {cfg.compute_dtype}: Queue 1, item 8 "
-                "(bf16 policy)")
-    else:
-        return
-    raise NotImplementedError(
-        f"not ported to the PyTorch package yet — {item} in ROADMAP.md")
+def compute_dtype_of(cfg: Config) -> Optional[torch.dtype]:
+    """``--tpu_compute_dtype`` as the operand dtype of matrix products and
+    convolutions (None = fp32): the policy of ``models/layers.py``. It also
+    stores the sampler's table in bf16 (``data/sampler.py:table_storage``,
+    ``cli/main.py:_samplers``)."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+
+def remat_of(cfg: Config):
+    """``--tpu_remat`` as the inner loop's ``remat`` argument
+    (``metalearn/inner_loop.py:remat_active``): "on" checkpoints every
+    inner step, "off" none; "auto" (None) checkpoints long horizons, and
+    every horizon of resnet12 as ``"save_convs"``, the JAX package's
+    policy for its 13-conv second-order step (whole-step checkpointing in
+    the port)."""
+    if cfg.remat == "on":
+        return True
+    if cfg.remat == "off":
+        return False
+    if cfg.im_encoder == "resnet12" and resnet12_stage_remat(cfg) is None:
+        return "save_convs"
+    return None
+
+
+def resnet12_stage_remat(cfg: Config):
+    """The JAX package's per-stage checkpoint switch
+    (``resnet12.STAGE_REMAT_OVERRIDE``), None in production; the port's
+    backbone raises if it is set."""
+    if cfg.im_encoder != "resnet12" or cfg.remat != "auto":
+        return None
+    from fumi_tpu_torch.models import resnet12
+    return resnet12.STAGE_REMAT_OVERRIDE
 
 
 # ---------------------------------------------------------------------------
@@ -151,9 +179,21 @@ def build_maml_family(cfg: Config, gen: torch.Generator,
     """PureImageNetwork over precomputed embeddings + the MAML engine:
     explicit, Reptile or iMAML meta-gradients, all params or (ANIL) the
     head alone adapted. Eval adapts as training does, with no outer graph
-    (Reptile's test-time adaptation is plain full GD)."""
-    _check_slice(cfg)
-    params = mlp.init(gen, cfg.im_emb_dim, cfg.num_ways, cfg.im_hid_dim)
+    (Reptile's test-time adaptation is plain full GD). ``--im_encoder
+    conv4|resnet12`` swaps the MLP for a backbone with its head."""
+    cd = compute_dtype_of(cfg)
+    if cfg.im_encoder in RAW_IMAGE_ENCODERS:
+        net = raw_image_net(cfg.im_encoder)
+        kw = ({"channels": tuple(cfg.resnet12_channels)}
+              if cfg.im_encoder == "resnet12" else {})
+        params = net.init(gen, cfg.im_size, cfg.im_channels,
+                          n_way=cfg.num_ways, **kw)
+    else:
+        net = mlp
+        params = mlp.init(gen, cfg.im_emb_dim, cfg.num_ways, cfg.im_hid_dim)
+
+    def apply_fn(p, x):
+        return net.apply(p, x, cd)
     # ANIL: only the head adapts
     adapt_mask = head_only_mask(params) if cfg.adapt_params == "head" \
         else None
@@ -162,22 +202,23 @@ def build_maml_family(cfg: Config, gen: torch.Generator,
         if cfg.meta_grad == "imaml":
             def loss_fn(p, episode, gen):
                 return implicit.imaml_episode_loss(
-                    mlp.apply, p, episode, n_steps=n_steps,
+                    apply_fn, p, episode, n_steps=n_steps,
                     step_size=cfg.step_size, lam=cfg.imaml_lambda,
                     cg_iters=cfg.imaml_cg_iters)
             return loss_fn
         if cfg.meta_grad == "reptile" and differentiable:
             def loss_fn(p, episode, gen):
                 return reptile_episode_loss(
-                    mlp.apply, p, episode, n_steps=n_steps,
+                    apply_fn, p, episode, n_steps=n_steps,
                     step_size=cfg.step_size)
             return loss_fn
 
         def loss_fn(p, episode, gen):
             return maml_episode_loss(
-                mlp.apply, p, episode, n_steps=n_steps,
+                apply_fn, p, episode, n_steps=n_steps,
                 step_size=cfg.step_size, first_order=cfg.first_order,
-                differentiable=differentiable, adapt_mask=adapt_mask)
+                differentiable=differentiable, adapt_mask=adapt_mask,
+                remat=remat_of(cfg))
         return loss_fn
 
     eval_loss = loss_for(cfg.num_test_adapt_steps, False)
@@ -197,7 +238,7 @@ def build_maml_family(cfg: Config, gen: torch.Generator,
     return Family(name="maml", params=params,
                   train_loss=loss_for(cfg.num_train_adapt_steps, True),
                   eval_raw=eval_raw, eval_finalize=lambda raw: raw,
-                  eval_reduce=dict(EVAL_REDUCE))
+                  eval_reduce=dict(EVAL_REDUCE), model=apply_fn)
 
 
 def _make_text_encoder(cfg: Config, gen: torch.Generator, dictionary):
@@ -211,7 +252,6 @@ def build_fumi_family(cfg: Config, gen: torch.Generator,
     """FuMI hypernet + headless image MLP + the joint inner loop (explicit
     or iMAML meta-gradients). A token text encoder (glove/w2v/RNN/RNNhid)
     needs ``dictionary``."""
-    _check_slice(cfg)
     enc = _make_text_encoder(cfg, gen, dictionary)
     model = fumi_mod.FUMI(
         n_way=cfg.num_ways, im_emb_dim=cfg.im_emb_dim,
@@ -219,7 +259,12 @@ def build_fumi_family(cfg: Config, gen: torch.Generator,
         text_emb_dim=enc.out_dim, text_hid_dim=cfg.text_hid_dim,
         dropout_rate=cfg.dropout, norm_hypernet=cfg.norm_hypernet,
         fine_tune=cfg.fine_tune, init_bias=cfg.hypernet_bias_init,
-        init_all_layers=cfg.init_all_layers)
+        init_all_layers=cfg.init_all_layers,
+        im_encoder_kind=(cfg.im_encoder
+                         if cfg.im_encoder in RAW_IMAGE_ENCODERS else "mlp"),
+        im_size=cfg.im_size, im_channels=cfg.im_channels,
+        resnet12_channels=tuple(cfg.resnet12_channels),
+        compute_dtype=compute_dtype_of(cfg))
     params = model.init_params(gen)
 
     def loss_for(n_steps, train, differentiable):
@@ -234,7 +279,8 @@ def build_fumi_family(cfg: Config, gen: torch.Generator,
         def loss_fn(p, episode, gen):
             return fumi_episode_loss(
                 model, p, episode, n_steps=n_steps, step_size=cfg.step_size,
-                gen=gen, train=train, differentiable=differentiable)
+                gen=gen, train=train, differentiable=differentiable,
+                remat=remat_of(cfg))
         return loss_fn
 
     eval_loss = loss_for(cfg.num_test_adapt_steps, False, False)
@@ -263,13 +309,18 @@ def build_am3_family(cfg: Config, gen: torch.Generator,
     confusion matrix (``sum``-reducible), from which accuracy and the
     sklearn-macro P/R/F1 follow. A token text encoder needs
     ``dictionary``."""
-    _check_slice(cfg)
     enc = _make_text_encoder(cfg, gen, dictionary)
     model = am3_mod.AM3(
         im_emb_dim=cfg.im_emb_dim, prototype_dim=cfg.prototype_dim,
         text_encoder=enc, text_emb_dim=enc.out_dim,
         text_hid_dim=cfg.text_hid_dim, dropout=cfg.dropout,
-        fine_tune=cfg.fine_tune, lamda_fixed=cfg.lamda_fixed)
+        fine_tune=cfg.fine_tune, lamda_fixed=cfg.lamda_fixed,
+        im_encoder_kind=(cfg.im_encoder
+                         if cfg.im_encoder in RAW_IMAGE_ENCODERS
+                         else "linear"),
+        im_size=cfg.im_size, im_channels=cfg.im_channels,
+        resnet12_channels=tuple(cfg.resnet12_channels),
+        compute_dtype=compute_dtype_of(cfg))
     params = model.init_params(gen)
     N = cfg.num_ways
 
@@ -308,15 +359,38 @@ def embedding_head_init(cfg: Config, gen: torch.Generator
                         ) -> Dict[str, torch.Tensor]:
     """ProtoNet's and MatchingNet's params: one Linear(im_emb_dim →
     prototype_dim) named ``image_encoder`` (the JAX package keeps it as a
-    bare ``{"w", "b"}`` layer)."""
+    bare ``{"w", "b"}`` layer), or a headless backbone with a ``head``
+    projection to prototype_dim."""
+    if cfg.im_encoder in RAW_IMAGE_ENCODERS:
+        params, fdim = headless_backbone_init(
+            cfg.im_encoder, gen, cfg.im_size, cfg.im_channels,
+            cfg.resnet12_channels)
+        params["head.weight"], params["head.bias"] = layers.linear_init(
+            gen, fdim, cfg.prototype_dim)
+        return params
     w, b = layers.linear_init(gen, cfg.im_emb_dim, cfg.prototype_dim)
     return {"image_encoder.weight": w, "image_encoder.bias": b}
 
 
-def embed_images(p, x: torch.Tensor) -> torch.Tensor:
-    """ProtoNet's and MatchingNet's embedding of (..., im_emb_dim) rows."""
-    return layers.linear(p["image_encoder.weight"], p["image_encoder.bias"],
-                         x)
+def image_embedder(cfg: Config) -> Callable:
+    """ProtoNet's and MatchingNet's ``embed(p, x)``: (B, M, im_emb_dim) or
+    raw (B, M, H, W, C) -> (B, M, P). A backbone normalizes with the
+    statistics of all B·M images, as the JAX package reshapes them."""
+    cd = compute_dtype_of(cfg)
+    if cfg.im_encoder in RAW_IMAGE_ENCODERS:
+        net = raw_image_net(cfg.im_encoder)
+
+        def embed(p, x):
+            B, M = x.shape[:2]
+            feats = net.backbone(p, x.reshape((B * M,) + x.shape[2:]), cd)
+            return layers.linear(p["head.weight"], p["head.bias"], feats,
+                                 cd).reshape(B, M, -1)
+        return embed
+
+    def embed(p, x):
+        return layers.linear(p["image_encoder.weight"],
+                             p["image_encoder.bias"], x, cd)
+    return embed
 
 
 def image_prototypes(emb: torch.Tensor, targets: torch.Tensor,
@@ -353,13 +427,13 @@ def build_protonet_family(cfg: Config, gen: torch.Generator,
                           dictionary=None) -> Family:
     """Prototypical Networks (Snell et al. 2017): class means of the
     embedded support set, the queries' prototypical cross-entropy."""
-    _check_slice(cfg)
     N = cfg.num_ways
+    embed = image_embedder(cfg)
 
     def raw(p, episode):
-        protos = image_prototypes(embed_images(p, episode.support_im),
+        protos = image_prototypes(embed(p, episode.support_im),
                                   episode.support_y, N)
-        q_e = embed_images(p, episode.query_im)  # (B, NQ, P)
+        q_e = embed(p, episode.query_im)  # (B, NQ, P)
         return (fewshot.prototypical_loss(protos, q_e, episode.query_y),
                 fewshot.predict_classes(protos, q_e))
     return _no_inner_loop_family("protonet", embedding_head_init(cfg, gen),
@@ -371,13 +445,13 @@ def build_matchingnet_family(cfg: Config, gen: torch.Generator,
     """Matching Networks (Vinyals et al. 2016, without full context
     embeddings): queries attend over the support samples with softmaxed
     cosine similarity and sum their one-hot labels."""
-    _check_slice(cfg)
     N = cfg.num_ways
+    embed = image_embedder(cfg)
 
     def raw(p, episode):
-        probs = fewshot.matching_probs(embed_images(p, episode.support_im),
+        probs = fewshot.matching_probs(embed(p, episode.support_im),
                                        episode.support_y,
-                                       embed_images(p, episode.query_im), N)
+                                       embed(p, episode.query_im), N)
         picked = torch.gather(probs, -1,
                               episode.query_y.long().unsqueeze(-1))[..., 0]
         return (-torch.log(picked + 1e-8).mean(),
@@ -498,15 +572,17 @@ def component_partition(tree: Dict[str, torch.Tensor], family: str
                         ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The JAX package's top-level components of a flat state dict: MAML's
     layer tuple is ``layer0``, ``layer1``, ...; ProtoNet's and
-    MatchingNet's bare linear is ``w`` and ``b``; FuMI's and AM3's dicts
-    are the first part of each name (``text_encoder`` / ``hyper_net`` /
-    ``im_net``; ``image_encoder`` / ``text_encoder`` / ``g`` / ``h``). An
-    empty component has no entries, so it is absent."""
-    if family == "maml":
+    MatchingNet's bare linear is ``w`` and ``b``; dicts (FuMI's, AM3's, a
+    raw backbone's ``convs``/``blocks`` and ``head``) are the first part
+    of each name (``text_encoder`` / ``hyper_net`` / ``im_net``;
+    ``image_encoder`` / ``text_encoder`` / ``g`` / ``h``). An empty
+    component has no entries, so it is absent."""
+    if family == "maml" and "net.lin_final.weight" in tree:
         return {f"layer{i}": {name + ".weight": tree[name + ".weight"],
                               name + ".bias": tree[name + ".bias"]}
                 for i, name in enumerate(mlp.layer_names(tree))}
-    if family in ("protonet", "matchingnet"):
+    if family in ("protonet", "matchingnet") and \
+            "image_encoder.weight" in tree:
         return {c: {k: tree[k]} for c, k in (
             ("w", "image_encoder.weight"), ("b", "image_encoder.bias"))}
     parts: Dict[str, Dict[str, torch.Tensor]] = {}

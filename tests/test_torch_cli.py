@@ -236,14 +236,15 @@ def test_auto_resume_continues_the_counter_of_its_own_family(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # the datasets, the registry and the meta-gradient variants run since
-    # they were ported; on raw images or in bf16 they wait for items 7
-    # and 8
+    # the datasets, the registry, the meta-gradient variants, the raw-image
+    # backbones and the bf16 policy run since they were ported; the
+    # training extensions of item 10 still wait, on any of them
     (["--model", "am3", "--text_encoder", "glove", "--im_encoder",
-      "conv4"], "item 7"),
+      "conv4", "--tpu_skip_nonfinite", "2"], "item 10"),
     (["--model", "maml", "--tpu_meta_grad", "reptile", "--im_encoder",
-      "resnet12"], "item 7"),
-    (["--model", "protonet", "--tpu_compute_dtype", "bfloat16"], "item 8"),
+      "resnet12", "--tpu_ema", "0.5"], "item 10"),
+    (["--model", "protonet", "--tpu_compute_dtype", "bfloat16",
+      "--tpu_debug_nans"], "item 10"),
     (["--dataset", "cub", "--tpu_debug_nans"], "item 10"),
     (["--tpu_host_sampler"], "item 4"), (["--tpu_seed_sweep", "2"],
                                          "item 9"),

@@ -237,9 +237,10 @@ def test_training_run_refuses_a_mesh(data, tmp_path):
         clip_loop.training_run(cfg, model, params, None, (tds, table),
                                (tds, table), None, str(tmp_path),
                                np.random.RandomState(0), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        clip_loop.make_clip(cfg.replace(compute_dtype="bfloat16"),
-                            torch.Generator())
+    # bf16 builds since the policy was ported (tests/test_torch_bf16.py)
+    bf16, _ = clip_loop.make_clip(cfg.replace(compute_dtype="bfloat16"),
+                                  torch.Generator())
+    assert bf16.compute_dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------

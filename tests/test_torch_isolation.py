@@ -81,6 +81,16 @@ def test_the_data_and_meta_gradient_modules_are_among_those_checked():
             "fumi_tpu_torch.metalearn.implicit"} <= set(port_modules())
 
 
+def test_the_backbone_and_bf16_modules_are_among_those_checked():
+    """The raw-image backbones, their dispatch and the bf16 primitives are
+    walked by the import checks above (jax, fumi_tpu, h5py, PIL and
+    transformers blocked)."""
+    assert {"fumi_tpu_torch.models", "fumi_tpu_torch.models.conv4",
+            "fumi_tpu_torch.models.resnet12", "fumi_tpu_torch.models.layers",
+            "fumi_tpu_torch.data.sampler",
+            "fumi_tpu_torch.data.synthetic"} <= set(port_modules())
+
+
 def test_source_has_no_jax_or_fumi_tpu_import():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|fumi_tpu)(\.|\s|$)", re.M)

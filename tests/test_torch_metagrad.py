@@ -137,8 +137,12 @@ def test_head_only_mask_marks_the_head():
                                   for k, v in mask.items()}, "maml")
     want = jax.tree_util.tree_map(float, jmask)
     assert jax.tree_util.tree_map(float, got) == want
-    with pytest.raises(NotImplementedError, match="item 7"):
-        inner_loop.head_only_mask({"head.weight": torch.zeros(2, 2)})
+    # a raw backbone's explicit head (tests/test_torch_backbone_metalearn.py)
+    assert inner_loop.head_only_mask({"convs.0.weight": torch.zeros(1),
+                                      "head.weight": torch.zeros(2, 2)}) \
+        == {"convs.0.weight": False, "head.weight": True}
+    with pytest.raises(ValueError):
+        inner_loop.head_only_mask({"convs.0.weight": torch.zeros(1)})
 
 
 @pytest.mark.parametrize("first_order", [False, True])

@@ -72,8 +72,10 @@ def test_synthetic_splits_equal_original():
               seed=2)
     assert_same(synthetic.synthetic_splits(**kw),
                 jax_synthetic.synthetic_splits(**kw))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        synthetic.synthetic_splits(raw_images=True)
+    raw = dict(num_classes=10, images_per_class=4, im_size=9, channels=2,
+               text_dim=6, seed=1, raw_images=True)
+    assert_same(synthetic.synthetic_splits(**raw),
+                jax_synthetic.synthetic_splits(**raw))
 
 
 def test_build_class_tables_equals_original():

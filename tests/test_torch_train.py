@@ -346,14 +346,12 @@ def test_chunked_train_unported_options_raise(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    # the meta-gradient variants build since they were ported; in bf16 or
-    # on raw images they wait for items 8 and 7
-    (dict(meta_grad="imaml", compute_dtype="bfloat16"), "item 8"),
-    (dict(meta_grad="reptile", model="maml", im_encoder="conv4"), "item 7"),
-    (dict(adapt_params="head", model="maml", compute_dtype="bfloat16"),
-     "item 8"),
-    (dict(compute_dtype="bfloat16"), "item 8"),
-    (dict(im_encoder="conv4"), "item 7")])
+    # the meta-gradient variants, the bf16 policy and the raw-image
+    # backbones build since they were ported (tests/test_torch_bf16.py,
+    # tests/test_torch_backbone*.py); what the JAX package refuses too, and
+    # a family nobody registered, still raise
+    (dict(init_all_layers=True), "hypernet initialisation"),
+    (dict(model="nope"), "not registered")])
 def test_unported_configs_raise(kw, item):
     kw = {"model": "fumi", **kw}
     cfg = Config(**cfg_kw(**kw))
