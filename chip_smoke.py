@@ -124,6 +124,29 @@ fails:
    geometry adopted);
 7n. the driver for conv4 MAML and FuMI and for FuMI in bf16, their run
    dirs served (card against CPU), one raw request over HTTP;
+7o. ``--tpu_ema 0.999 --tpu_skip_nonfinite 3`` for FuMI and MAML at the
+   flagship width: train episodes/s beside the same chunk without the
+   flags, the EMA against its recomputation from the step's params, an
+   episode with a NaN row that changes nothing and counts 1, eval of the
+   EMA through the fused kernels against the engine, the FuMI driver
+   with the flags and its run dir served (the EMA, through
+   ``fused_adapt``);
+7p. ``--tpu_debug_nans``: a finite chunk bitwise the same with the check
+   and without it, a NaN step raising ``FloatingPointError``;
+7q. the host samplers: the port's native index sampler built with
+   ``g++``, card episodes bitwise the CPU's, ``--augment`` episodes
+   through the standalone ``augment_embeddings`` kernel against its plain
+   version, FuMI train episodes/s at ``--num_workers`` 0, 1 and 4 beside
+   the device sampler (the flagship table and an iNat-Anim-sized one of
+   195,605 rows), FuMI and MAML eval through the fused kernels on host
+   episodes, the driver with ``--tpu_host_sampler --num_workers 4``;
+7r. reference ``.pth.tar`` files: phase 7's FuMI and MAML run dirs
+   exported and imported back (params and moments bitwise), ``--evaluate
+   --checkpoint x.pth.tar`` (the run dir's test numbers), served from the
+   file (bitwise the run dir's answer), ``/v1/reload`` with it (200) and
+   with a corrupt file (400), the import's load time;
+7s. ``resnet12.STAGE_REMAT_OVERRIDE`` against ``--tpu_remat auto`` at 2
+   tasks of 5+5 a class: loss and meta-gradient bitwise, peak memory;
 8. time each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, and each path; time a
    FuMI R=1 request through ``fused_adapt`` and through the autograd
@@ -141,7 +164,7 @@ fails:
 9. print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Every path of phases 4-7n sets the kernels' launch counts to 0 just before
+Every path of phases 4-7s sets the kernels' launch counts to 0 just before
 it runs and reads them just after; it fails if it did not launch each
 kernel it runs, as many times as the path runs it.
 
@@ -3333,6 +3356,629 @@ def pr10_phases(names, Config, dev, root, card, table, ids_np, cset,
     return times
 
 
+# ---------------------------------------------------------------------------
+# Phases 7o-7s: the training extensions, the host samplers, reference
+# checkpoints and resnet12's stage remat
+# ---------------------------------------------------------------------------
+
+# --tpu_ema 0.999 --tpu_skip_nonfinite 3; the host samplers timed over
+# chunks of 20 train steps at --num_workers 0, 1 (the prefetch thread) and
+# 4 (loader processes, fork), also on an iNat-Anim-sized table (673
+# classes, 195,605 x 2048 fp32, 1.60 GB on the host)
+EMA_DECAY, SKIP_LIMIT = 0.999, 3
+HOST_STEPS, HOST_WORKERS, DEBUG_STEPS = 20, (0, 1, 4), 10
+
+
+def add_counts(by_path, label, counts) -> None:
+    """Sum ``counts`` into ``by_path[label]``."""
+    into = by_path.setdefault(label, {name: 0 for name in counts})
+    for name, n in counts.items():
+        into[name] += n
+
+
+def ema_phase(Config, dev, card, root, samplers, request, reset_counts,
+              read_counts, by_path) -> dict:
+    """Phase 7o: ``--tpu_ema 0.999 --tpu_skip_nonfinite 3`` at the
+    flagship width for FuMI and MAML on phase 5's sampler: train
+    episodes/s beside the same chunk without the flags (in turns: without,
+    with, with, without); one step's EMA against ``0.999·e + 0.001·p`` of
+    its own params (the same operations on the card: bitwise); an episode
+    with a NaN support row leaves the params and the EMA bitwise as they
+    were and counts 1; eval of the EMA through the fused kernels against
+    the engine (1e-3); then the FuMI driver with the flags, its run dir
+    served (``from_checkpoint`` serves the EMA, bitwise the restored
+    state's) through ``fused_adapt`` against the engine (1e-3). Returns
+    the times."""
+    import glob
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.config import config_from_args
+    from fumi_tpu_torch.serve import FewShotClassifier
+    from fumi_tpu_torch.train import checkpoint as ckpt_lib
+    from fumi_tpu_torch.train import optim, steps
+    from fumi_tpu_torch.train.loop import eval_view
+    train_smp, eval_smp = samplers
+    times = {}
+    for model in ("fumi", "maml"):
+        cfgs = {"without": train_cfg(Config, model),
+                "with": train_cfg(Config, model, ema=EMA_DECAY,
+                                  skip_nonfinite=SKIP_LIMIT)}
+        runs = {}
+        for name, cfg in cfgs.items():
+            st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                                  device=dev)
+            run = steps.make_chunked_train(st.family, st.opt, train_smp,
+                                           TRAIN_CHUNK)
+            runs[name] = (st, run, run(st.params, st.opt.init(st.params),
+                                       train_smp.generator(1), 2)[:3])
+        eps = {name: [] for name in cfgs}
+        for name in ("without", "with", "with", "without"):
+            st, run, (p, s, gen) = runs[name]
+            box = {}
+            reset_counts()
+            seconds = synced_s(lambda: box.update(out=run(p, s, gen)))
+            counts = read_counts()
+            if name == "with":
+                add_counts(by_path, f"train {model} --tpu_ema", counts)
+            losses = box["out"][3]["loss"]
+            if counts != new_counts(gather_episode_rows=TRAIN_CHUNK) or \
+                    not bool(torch.isfinite(losses).all()):
+                fail(f"train {model} ({name} --tpu_ema): non-finite losses "
+                     f"or launches {counts}")
+            runs[name] = (st, run, box["out"][:3])
+            eps[name].append(TRAIN_CHUNK * B / seconds)
+        times[f"train {model} eps"] = eps
+        print(f"main path, train {model} --tpu_ema {EMA_DECAY} "
+              f"--tpu_skip_nonfinite {SKIP_LIMIT}: "
+              f"{', '.join(f'{e:.1f}' for e in eps['with'])} episodes/s, "
+              f"without the flags {', '.join(f'{e:.1f}' for e in eps['without'])}"
+              f" (chunks of {TRAIN_CHUNK} steps, in turns) [{card}]")
+
+        st, _, (p, s, gen) = runs["with"]
+        cfg = cfgs["with"]
+        episode = train_smp.sample(gen)
+        p1, s1, _ = st.train_step(p, s, episode, gen)
+        e0, e1 = optim.find_ema(s), optim.find_ema(s1)
+        recomputed = all(torch.equal(
+            e1[k], EMA_DECAY * e0[k] + (1.0 - EMA_DECAY) * p1[k]) for k in p1)
+        im = episode.support_im.clone()
+        im[0, 3, 7] = float("nan")
+        p2, s2, m = st.train_step(p1, s1, episode._replace(support_im=im),
+                                  gen)
+        kept = all(torch.equal(p2[k], p1[k]) and torch.equal(
+            optim.find_ema(s2)[k], e1[k]) for k in p1)
+        counted = (int(s2["notfinite_count"]), int(s2["total_notfinite"]),
+                   bool(s2["last_finite"]))
+        print(f"train {model} --tpu_ema: the EMA after a step equals "
+              f"0.999·e + 0.001·p of that step's params: {recomputed}; an "
+              f"episode with a NaN support row (loss {float(m['loss'])}): "
+              f"params and EMA unchanged {kept}, (notfinite_count, "
+              f"total_notfinite, last_finite) {counted}")
+        if not (recomputed and kept and counted == (1, 1, False)):
+            fail(f"train {model} --tpu_ema: the EMA or the skip is wrong")
+
+        ema = eval_view(cfg, p2, s2)
+        out = {}
+        for path, fused in (("fused kernel", True), ("autograd engine",
+                                                     False)):
+            family = steps.build_family(cfg.replace(pallas_fused_eval=fused),
+                                        torch.Generator().manual_seed(0))
+            run = steps.make_chunked_eval(family, eval_smp)
+            reset_counts()
+            out[path] = run(ema, eval_smp.generator(3), EVAL_BATCHES)[1]
+            counts = read_counts()
+            kernel = "fused_adapt" if model == "fumi" else \
+                "fused_maml_adapt_batched"
+            want = new_counts(gather_episode_rows=EVAL_BATCHES,
+                              **({kernel: EVAL_BATCHES} if fused else {}))
+            if fused:
+                add_counts(by_path, f"eval {model} of the EMA", counts)
+            if counts != want:
+                fail(f"eval {model} of the EMA through the {path}: launches "
+                     f"{counts}, expected {want}")
+        diff = float((out["fused kernel"]["loss"]
+                      - out["autograd engine"]["loss"]).abs().max())
+        print(f"main path, eval {model} of the EMA: loss "
+              f"{float(out['fused kernel']['loss'].mean()):.4f} through "
+              f"{kernel}, max|diff| to the engine {diff:.3e} (tolerance "
+              "1e-3)")
+        if not diff <= 1e-3:
+            fail(f"eval {model} of the EMA: kernel and engine disagree")
+
+    log_dir = os.path.join(root, "fumi-ema")
+    args = ["--model", "fumi", "--dataset", "synthetic",
+            "--tpu_pallas_gather", "--tpu_pallas_fused_eval", "--epochs",
+            str(DRIVER_EPOCHS), "--eval_freq", str(DRIVER_EVAL_FREQ),
+            "--num_ep_test", str(DRIVER_EP_TEST), "--seed", "0",
+            "--wandb_offline", "--tpu_ema", str(EMA_DECAY),
+            "--tpu_skip_nonfinite", str(SKIP_LIMIT), "--log_dir", log_dir]
+    reset_counts()
+    t0 = time.perf_counter()
+    test = cli_main.cli(args)
+    times["driver fumi --tpu_ema s"] = time.perf_counter() - t0
+    counts = read_counts()
+    add_counts(by_path, "driver fumi --tpu_ema", counts)
+    if counts != new_counts(gather_episode_rows=DRIVER_TRAIN_STEPS
+                            + DRIVER_EVAL_BATCHES,
+                            fused_adapt=DRIVER_EVAL_BATCHES) or \
+            not np.isfinite(test["test/loss"]):
+        fail(f"driver fumi --tpu_ema: TEST {test}, launches {counts}")
+    (run_dir,) = glob.glob(os.path.join(log_dir, "runs", "*"))
+    cfg = config_from_args(args)
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0), device=dev)
+    _, state, _ = ckpt_lib.load_checkpoint(run_dir, st.params,
+                                           st.opt.init(st.params))
+    clf = FewShotClassifier.from_checkpoint(run_dir, cfg, device=dev)
+    ema_served = all(torch.equal(clf.params[k], v)
+                     for k, v in optim.find_ema(state).items())
+    s_im, s_y, q_im, s_tx = request
+    reset_counts()
+    got = clf.episode_logits(s_im, s_y, q_im, support_text=s_tx)
+    counts = read_counts()
+    add_counts(by_path, "serve fumi --tpu_ema from checkpoint", counts)
+    engine = FewShotClassifier(cfg, clf.params, device=dev)
+    engine._episode_fn = engine._build_episode_fn(force_engine=True)
+    diff = float(np.abs(got - engine.episode_logits(
+        s_im, s_y, q_im, support_text=s_tx)).max())
+    print(f"main path, driver fumi --tpu_ema: TEST {test} in "
+          f"{times['driver fumi --tpu_ema s']:.3f} s; its run dir served: "
+          f"the EMA {ema_served}, kernel vs engine max|diff| {diff:.3e} "
+          f"(tolerance 1e-3), launches {counts}")
+    if not (ema_served and diff <= 1e-3
+            and counts == new_counts(fused_adapt=1)):
+        fail("serving the --tpu_ema run dir: not the EMA, or the kernel "
+             "and the engine disagree")
+    return times
+
+
+def debug_nans_phase(Config, dev, card, train_smp, reset_counts,
+                     read_counts, by_path) -> dict:
+    """Phase 7p: ``--tpu_debug_nans`` on FuMI at the flagship width: a
+    chunk of 10 steps with the check and without it from the same state
+    and generator gives bitwise the same losses and params; a step on an
+    episode with a NaN support row raises ``FloatingPointError`` naming
+    the step and the loss. Returns the times."""
+    import torch
+    from fumi_tpu_torch.train import steps
+    times, out = {}, {}
+    for flag in (False, True):
+        cfg = train_cfg(Config, "fumi", debug_nans=flag)
+        st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        run = steps.make_chunked_train(st.family, st.opt, train_smp,
+                                       DEBUG_STEPS, debug_nans=flag)
+        run(st.params, st.opt.init(st.params), train_smp.generator(1), 2)
+        box = {}
+        reset_counts()
+        seconds = synced_s(lambda: box.update(out=run(
+            st.params, st.opt.init(st.params), train_smp.generator(4))))
+        counts = read_counts()
+        if flag:
+            add_counts(by_path, "train fumi --tpu_debug_nans", counts)
+        if counts != new_counts(gather_episode_rows=DEBUG_STEPS):
+            fail(f"train fumi --tpu_debug_nans={flag}: launches {counts}")
+        out[flag] = box["out"]
+        times[f"eps debug_nans={flag}"] = DEBUG_STEPS * B / seconds
+    same = torch.equal(out[False][3]["loss"], out[True][3]["loss"]) and \
+        all(torch.equal(out[False][0][k], out[True][0][k])
+            for k in out[False][0])
+    episode = train_smp.sample(train_smp.generator(5))
+    im = episode.support_im.clone()
+    im[1, 0, 0] = float("nan")
+    try:
+        st.train_step(st.params, st.opt.init(st.params),
+                      episode._replace(support_im=im),
+                      train_smp.generator(6), step=11)
+        raised = "nothing"
+    except FloatingPointError as e:
+        raised = str(e)
+    print(f"train fumi --tpu_debug_nans: {DEBUG_STEPS} steps with the check "
+          f"and without it bitwise equal (losses and params): {same}; "
+          f"{times['eps debug_nans=True']:.1f} against "
+          f"{times['eps debug_nans=False']:.1f} episodes/s; a NaN episode "
+          f"raised: {raised!r} [{card}]")
+    if not (same and "train step 11" in raised and "loss" in raised):
+        fail("--tpu_debug_nans: a finite run changed, or a NaN step did "
+             "not raise")
+    return times
+
+
+def inat_sized_table(table_np):
+    """The flagship table tiled to iNat-Anim's 195,605 rows, as 673
+    classes of 290-291 images (the paper's counts), with 768-wide text;
+    host numpy, 1.60 GB."""
+    import numpy as np
+    from fumi_tpu_torch.data.class_set import ClassSet, build_class_tables
+    reps = -(-INAT_IMAGES // table_np.shape[0])
+    table = np.tile(table_np, (reps, 1))[:INAT_IMAGES]
+    splits = np.array_split(np.arange(INAT_IMAGES, dtype=np.int32),
+                            INAT_CLASSES)
+    cats = np.arange(INAT_CLASSES)
+    rows, counts = build_class_tables(cats, dict(zip(cats, splits)))
+    text = np.random.RandomState(11).randn(INAT_CLASSES, E).astype(
+        np.float32)
+    return (ClassSet(categories=cats, class_image_rows=rows,
+                     class_counts=counts, text_features=text), table,
+            np.arange(INAT_IMAGES, dtype=np.int32))
+
+
+def host_sampler_phase(Config, dev, card, root, table_np, ids_np, cset,
+                       train_smp, reset_counts, read_counts,
+                       by_path) -> dict:
+    """Phase 7q: the host samplers (``--tpu_host_sampler``). The port's
+    native index sampler builds with ``g++`` and is the backend; episodes
+    assembled for the card equal the CPU's bitwise; ``--augment`` episodes
+    equal ``augment_embeddings_reference`` of the CPU's rows at the seed
+    the numpy stream draws, through the standalone kernel (one launch an
+    episode); FuMI train episodes/s at ``--num_workers`` 0, 1 and 4
+    beside the device sampler, on the flagship table and on an
+    iNat-Anim-sized one; FuMI and MAML eval through the fused kernels on
+    host episodes; the FuMI driver with ``--tpu_host_sampler
+    --num_workers 4``. Returns the times."""
+    import glob
+    import numpy as np
+    import torch
+    from fumi_tpu_torch import native
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.episode import EpisodeSpec
+    from fumi_tpu_torch.data import sampler as smp_mod
+    from fumi_tpu_torch.ops import kernels
+    from fumi_tpu_torch.train import steps
+    times = {}
+    t0 = time.perf_counter()
+    lib = native.load()
+    print(f"native sampler: {native.lib_path()} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s: {lib is not None}")
+    if lib is None:
+        fail("the native index sampler did not build")
+    train_spec = EpisodeSpec(B, WAYS, SHOTS, TRAIN_Q, D, E)
+    eval_spec = EpisodeSpec(B, WAYS, SHOTS, EVAL_Q, D, E)
+
+    def host(spec, seed, device=dev, table=table_np, ids=ids_np,
+             cs=cset, **kw):
+        return smp_mod.HostEpisodeSampler(table, ids, cs, spec, seed=seed,
+                                          device=device, **kw)
+    card_s, cpu_s = host(train_spec, 7), host(train_spec, 7, "cpu")
+    if card_s.backend_name != "native":
+        fail(f"host sampler backend {card_s.backend_name}, not native")
+    reset_counts()
+    same = True
+    for _ in range(3):
+        a, b = card_s.sample(), cpu_s.sample()
+        same &= all(torch.equal(getattr(a, f).cpu(), getattr(b, f))
+                    for f in ("support_im", "support_text", "support_ids",
+                              "support_y", "query_im", "query_ids",
+                              "query_y"))
+    aug_s, clean = host(train_spec, 8, augment_scale=AUG_SCALE), \
+        host(train_spec, 8, "cpu")
+    mirror = np.random.RandomState(8)
+    jittered = True
+    for _ in range(3):
+        a, c = aug_s.sample(), clean.sample()
+        seed = torch.tensor([int(mirror.randint(0, 2 ** 31))],
+                            dtype=torch.int64, device=dev)
+        want = kernels.augment_embeddings_reference(
+            c.support_im.reshape(-1, D).to(dev), seed, AUG_SCALE)
+        jittered &= torch.equal(a.support_im.reshape(-1, D), want) and \
+            torch.equal(a.query_im.cpu(), c.query_im)
+    counts = read_counts()
+    add_counts(by_path, "host sampler --augment", counts)
+    print(f"main path, host sampler (native): card episodes equal the CPU "
+          f"assembly bitwise {same}; --augment episodes equal "
+          f"augment_embeddings_reference at the numpy stream's seeds "
+          f"{jittered}; launches {counts}")
+    if not (same and jittered and counts == new_counts(augment_embeddings=3)):
+        fail("host sampler: card episodes differ from the CPU's, or the "
+             "jitter is not the kernel's")
+
+    cfg = train_cfg(Config, "fumi")
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0), device=dev)
+    state0 = (st.params, st.opt.init(st.params))
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def timed_host(smp, label):
+        p, s = state0
+        for _ in range(2):  # warm
+            p, s, _ = st.train_step(p, s, smp.sample(), gen)
+        reset_counts()
+
+        def steps_():
+            nonlocal p, s
+            for _ in range(HOST_STEPS):
+                p, s, m = st.train_step(p, s, smp.sample(), gen)
+            return m
+        seconds = synced_s(steps_)
+        counts = read_counts()
+        add_counts(by_path, label, counts)
+        if counts != new_counts():
+            fail(f"{label}: launches {counts}, expected none (the host "
+                 "gathers)")
+        return HOST_STEPS * B / seconds
+
+    run = steps.make_chunked_train(st.family, st.opt, train_smp, HOST_STEPS)
+    run(*state0, train_smp.generator(1), 2)
+    reset_counts()
+    seconds = synced_s(lambda: run(*state0, train_smp.generator(2)))
+    times["train fumi eps, device sampler"] = HOST_STEPS * B / seconds
+    read_counts()
+    big = None
+    for table_name in ("flagship", "inat-sized"):
+        if table_name == "inat-sized":
+            t0 = time.perf_counter()
+            big = inat_sized_table(table_np)
+            times["inat-sized table s"] = time.perf_counter() - t0
+        for workers in HOST_WORKERS:
+            if big is None:
+                base = host(train_spec, 0)
+            else:
+                base = host(train_spec, 0, table=big[1], ids=big[2],
+                            cs=big[0])
+            smp = (base if workers == 0 else
+                   smp_mod.PrefetchingSampler(base, depth=2) if workers == 1
+                   else smp_mod.MultiprocessSampler(base, workers))
+            try:
+                times[f"train fumi eps, {table_name}, {workers} workers"] = \
+                    timed_host(smp, f"train fumi, host sampler {table_name} "
+                               f"--num_workers {workers}")
+            finally:
+                getattr(smp, "close", lambda: None)()
+    print("train fumi episodes/s (chunks of "
+          f"{HOST_STEPS} steps): device sampler "
+          f"{times['train fumi eps, device sampler']:.1f}; host sampler "
+          + "; ".join(f"{t} table " + ", ".join(
+              f"{w} workers {times[f'train fumi eps, {t}, {w} workers']:.1f}"
+              for w in HOST_WORKERS) for t in ("flagship", "inat-sized"))
+          + f" (the iNat-sized table built in "
+          f"{times['inat-sized table s']:.2f} s) [{card}]")
+    del big
+
+    for model, kernel in (("fumi", "fused_adapt"),
+                          ("maml", "fused_maml_adapt_batched")):
+        ecfg = train_cfg(Config, model, pallas_fused_eval=True)
+        est = steps.make_steps(ecfg, torch.Generator().manual_seed(0),
+                               device=dev)
+        smp = host(eval_spec, 1)
+        est.eval_step(est.params, smp.sample(), None)  # warm
+        reset_counts()
+        box = {}
+        seconds = synced_s(lambda: box.update(out=[
+            est.eval_step(est.params, smp.sample(), None)
+            for _ in range(EVAL_BATCHES)]))
+        counts = read_counts()
+        add_counts(by_path, f"eval {model}, host sampler", counts)
+        times[f"eval {model} eps, host sampler"] = EVAL_BATCHES * B / seconds
+        loss = float(np.mean([float(m["loss"]) for m in box["out"]]))
+        print(f"main path, eval {model} on the host sampler: "
+              f"{EVAL_BATCHES} meta-batches, loss {loss:.4f}; "
+              f"{times[f'eval {model} eps, host sampler']:.1f} episodes/s; "
+              f"launches {counts}")
+        if counts != new_counts(**{kernel: EVAL_BATCHES}) or \
+                not np.isfinite(loss):
+            fail(f"eval {model} on the host sampler: launches {counts}")
+
+    log_dir = os.path.join(root, "fumi-host")
+    args = ["--model", "fumi", "--dataset", "synthetic",
+            "--tpu_pallas_fused_eval", "--tpu_host_sampler", "--num_workers",
+            "4", "--epochs", str(DRIVER_EPOCHS), "--eval_freq",
+            str(DRIVER_EVAL_FREQ), "--num_ep_test", str(DRIVER_EP_TEST),
+            "--seed", "0", "--wandb_offline", "--log_dir", log_dir]
+    printed = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        test = cli_main.cli(args)
+    times["driver fumi --tpu_host_sampler s"] = time.perf_counter() - t0
+    counts = read_counts()
+    add_counts(by_path, "driver fumi --tpu_host_sampler --num_workers 4",
+               counts)
+    lines = [ln for ln in printed.getvalue().splitlines()
+             if ln.startswith(("host sampler backend", "loader"))]
+    (run_dir,) = glob.glob(os.path.join(log_dir, "runs", "*"))
+    print(f"main path, driver fumi --tpu_host_sampler --num_workers 4: "
+          f"{lines}; TEST {test}; "
+          f"{times['driver fumi --tpu_host_sampler s']:.3f} s; best/ "
+          f"{os.path.isdir(os.path.join(run_dir, 'best'))}; launches "
+          f"{counts}")
+    if lines != ["host sampler backend: native (--tpu_sampler_backend "
+                 "auto; streams are backend-specific per seed)",
+                 "loader: 4 worker processes (fork)"] or \
+            counts != new_counts(fused_adapt=DRIVER_EVAL_BATCHES) or \
+            not np.isfinite(test["test/loss"]):
+        fail("driver fumi --tpu_host_sampler --num_workers 4: wrong loader, "
+             "launches or test metrics")
+    return times
+
+
+def pth_phase(Config, dev, card, root, driver_dirs, request, reset_counts,
+              read_counts, by_path) -> dict:
+    """Phase 7r: reference ``.pth.tar`` files. Phase 7's FuMI and MAML run
+    dirs exported by ``python -m fumi_tpu_torch.cli.export_torch`` and
+    imported back (``interop.load_torch_checkpoint``): params and Adam's
+    moments and count bitwise the run dir's; ``--evaluate --checkpoint
+    x.pth.tar`` gives the run dir's test numbers exactly; ``from_checkpoint
+    (x.pth.tar)`` answers a flagship request (M=100, 100 steps) bitwise as
+    the run dir's classifier, through one kernel launch; over HTTP,
+    ``POST /v1/reload`` with the file answers 200 and a corrupt file 400.
+    Returns the import's load times (ms)."""
+    import numpy as np
+    import torch
+    from fumi_tpu_torch import interop
+    from fumi_tpu_torch.cli import export_torch
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.config import config_from_args
+    from fumi_tpu_torch.serve import FewShotClassifier
+    from fumi_tpu_torch.train import checkpoint as ckpt_lib
+    from fumi_tpu_torch.train import steps
+    times = {}
+    s_im, s_y, q_im, s_tx = request
+    for model, kernel in (("fumi", "fused_adapt"),
+                          ("maml", "fused_maml_adapt_batched")):
+        run_dir, args = driver_dirs[model]
+        out = os.path.join(root, f"{model}.pth.tar")
+        export_torch.main([run_dir, out])
+        cfg = config_from_args(args)
+        st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        params, state, _ = ckpt_lib.load_checkpoint(
+            run_dir, st.params, st.opt.init(st.params))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        i_params, i_state, meta = interop.load_torch_checkpoint(
+            out, st.params, st.opt.init(st.params))
+        torch.cuda.synchronize()
+        times[f"{model} import ms"] = 1e3 * (time.perf_counter() - t0)
+        same = all(torch.equal(i_params[k], params[k]) for k in params) \
+            and all(torch.equal(i_state[m][k], state[m][k])
+                    for m in ("mu", "nu") for k in params) \
+            and i_state["count"] == state["count"]
+        evaluated = {}
+        for name, ckpt in (("run dir", run_dir), (".pth.tar", out)):
+            reset_counts()
+            evaluated[name] = cli_main.cli(args[:-1] + [
+                os.path.join(root, f"{model}-eval-{name.strip('.')}"),
+                "--evaluate", "--checkpoint", ckpt])
+            counts = read_counts()
+        add_counts(by_path, f"driver {model} --evaluate .pth.tar", counts)
+        text = s_tx if model == "fumi" else None
+        clf = FewShotClassifier.from_checkpoint(out, cfg, device=dev)
+        reset_counts()
+        got = clf.episode_logits(s_im, s_y, q_im, support_text=text)
+        served = read_counts()
+        add_counts(by_path, f"serve {model} from .pth.tar", served)
+        want = FewShotClassifier.from_checkpoint(
+            run_dir, cfg, device=dev).episode_logits(s_im, s_y, q_im,
+                                                     support_text=text)
+        print(f"main path, {model} .pth.tar: exported and imported in "
+              f"{times[f'{model} import ms']:.1f} ms (batch "
+              f"{meta['batch_idx']}), params and moments bitwise the run "
+              f"dir's {same}; --evaluate from the file {evaluated['.pth.tar']}"
+              f" (from the run dir {evaluated['run dir']}), launches "
+              f"{counts}; served from the file bitwise as from the run dir "
+              f"{np.array_equal(got, want)}, launches {served}")
+        if not (same and evaluated[".pth.tar"] == evaluated["run dir"]
+                and np.array_equal(got, want)):
+            fail(f"{model} .pth.tar: the round trip changed the model")
+        if counts != new_counts(gather_episode_rows=DRIVER_TEST_BATCHES,
+                                **{kernel: DRIVER_TEST_BATCHES}) or \
+                served != new_counts(fused_adapt=1):
+            fail(f"{model} .pth.tar: launches {counts}, served {served}")
+        if model == "fumi":
+            corrupt = os.path.join(root, "corrupt.pth.tar")
+            with open(corrupt, "wb") as f:
+                f.write(b"not a checkpoint")
+            with loopback(clf) as call:
+                ok = call("/v1/reload", {"checkpoint": out})
+                bad = call("/v1/reload", {"checkpoint": corrupt})
+                body = {"support_im": s_im.tolist(), "support_y":
+                        s_y.tolist(), "query_im": q_im.tolist(),
+                        "support_text": s_tx.tolist(), "return": "logits"}
+                status, answer = call("/v1/episode", body)
+            print(f"main path, fumi .pth.tar over HTTP: /v1/reload "
+                  f"{ok[0]}, a corrupt file {bad[0]} ({bad[1].get('error')!r});"
+                  f" /v1/episode {status}, within 1e-5 of in process "
+                  f"{np.allclose(answer['result'], got, atol=1e-5)}")
+            if not (ok[0] == 200 and bad[0] == 400 and status == 200 and
+                    np.allclose(answer["result"], got, atol=1e-5)):
+                fail("serving a .pth.tar over HTTP")
+    return times
+
+
+def stage_remat_phase(Config, dev, card) -> dict:
+    """Phase 7s: ``resnet12.STAGE_REMAT_OVERRIDE`` (per-stage
+    checkpointing, an experiment switch) on MAML resnet12 at 84×84×3, one
+    episode of 2 tasks with 5 queries a class as phase 7l cuts it: the
+    loss and meta-gradient with the override (1, 1, 0, 0) against
+    ``--tpu_remat auto`` without it (whole-step checkpointing), cuDNN
+    deterministic: bitwise; the peak memory of each. Returns the peaks."""
+    import torch
+    from fumi_tpu_torch.models import resnet12
+    from fumi_tpu_torch.train import steps
+    times, out = {}, {}
+    small = raw_samplers(dev, queries=(5,))[0]
+    episode = small.sample(small.generator(9))
+    episode = type(episode)(*(None if t is None else t[:2] for t in episode))
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, override in (("auto", None),
+                               ("stages 1100", (True, True, False, False))):
+            resnet12.STAGE_REMAT_OVERRIDE = override
+            cfg = raw_cfg(Config, "maml", "resnet12", remat="auto",
+                          batch_size=2, num_shots_test=5)
+            fam = steps.build_family(cfg, torch.Generator().manual_seed(0))
+            params = {k: v.to(dev) for k, v in fam.params.items()}
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            (loss, _), grads = steps.value_and_grad(fam, params, episode,
+                                                    None)
+            torch.cuda.synchronize()
+            times[f"{name} s"] = time.perf_counter() - t0
+            times[f"peak GB {name}"] = (torch.cuda.max_memory_allocated(dev)
+                                        - base) / 1e9
+            out[name] = (loss, grads)
+            del fam, params
+    finally:
+        resnet12.STAGE_REMAT_OVERRIDE = None
+        torch.backends.cudnn.deterministic = False
+    (l_a, g_a), (l_s, g_s) = out["auto"], out["stages 1100"]
+    same = torch.equal(l_a, l_s) and all(torch.equal(g_a[k], g_s[k])
+                                         for k in g_a)
+    print(f"maml resnet12 STAGE_REMAT_OVERRIDE (1, 1, 0, 0) vs --tpu_remat "
+          f"auto (2 tasks, 5+5 a class): loss {float(l_s):.6f} vs "
+          f"{float(l_a):.6f}, loss and meta-gradient bitwise equal {same}; "
+          f"peak memory {times['peak GB stages 1100']:.2f} GB vs "
+          f"{times['peak GB auto']:.2f} GB; a value_and_grad "
+          f"{times['stages 1100 s']:.3f} s vs {times['auto s']:.3f} s "
+          f"[{card}]")
+    if not same:
+        fail("resnet12 stage remat changed the loss or the meta-gradient")
+    del small, episode, out
+    torch.cuda.empty_cache()
+    return times
+
+
+PR11_PHASES = ("ema", "debug-nans", "host-sampler", "pth", "stage-remat")
+
+
+def pr11_phases(names, Config, dev, root, card, ctx, reset_counts,
+                read_counts, by_path) -> dict:
+    """Phases 7o-7s, the ``names`` of :data:`PR11_PHASES` in order, each in
+    its own directory under ``root``. ``ctx`` holds what they take from
+    the earlier phases: ``samplers`` (phase 5's train and phase 6's eval
+    sampler), ``request`` (phase 4's), ``table`` (the flagship table as
+    numpy, its ``ids`` and ``cset``) and ``driver_dirs`` (phase 7's run
+    dirs). The phases' times by name."""
+    times = {}
+    for name in names:
+        t0 = time.perf_counter()
+        where = os.path.join(root, f"phase-{name}")
+        os.makedirs(where)
+        if name == "ema":
+            times[name] = ema_phase(Config, dev, card, where,
+                                    ctx["samplers"], ctx["request"],
+                                    reset_counts, read_counts, by_path)
+        elif name == "debug-nans":
+            times[name] = debug_nans_phase(Config, dev, card,
+                                           ctx["samplers"][0], reset_counts,
+                                           read_counts, by_path)
+        elif name == "host-sampler":
+            times[name] = host_sampler_phase(
+                Config, dev, card, where, ctx["table"], ctx["ids"],
+                ctx["cset"], ctx["samplers"][0], reset_counts, read_counts,
+                by_path)
+        elif name == "pth":
+            times[name] = pth_phase(Config, dev, card, where,
+                                    ctx["driver_dirs"], ctx["request"],
+                                    reset_counts, read_counts, by_path)
+        elif name == "stage-remat":
+            times[name] = stage_remat_phase(Config, dev, card)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return times
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3695,6 +4341,14 @@ def main() -> int:
         pr10_times = pr10_phases(PR10_PHASES, Config, dev, driver_root, card,
                                  table, ids_np, cset, reset_counts,
                                  read_counts, by_path)
+        # ---- 7o-7s. training extensions, host samplers, .pth.tar, stage
+        # remat
+        pr11_times = pr11_phases(
+            PR11_PHASES, Config, dev, driver_root, card,
+            {"samplers": (train_smp, eval_smp), "request": request,
+             "table": table_np, "ids": ids_np, "cset": cset,
+             "driver_dirs": driver_dirs},
+            reset_counts, read_counts, by_path)
     finally:
         shutil.rmtree(driver_root, ignore_errors=True)
 
@@ -4145,6 +4799,9 @@ def main() -> int:
         {name: {k: (round(v, 6) if isinstance(v, float) else v)
                 for k, v in t.items()} for name, t in pr10_times.items()},
         default=str))
+
+    print("training extensions, host samplers, .pth.tar and stage remat "
+          "(7o-7s): " + json.dumps(pr11_times, default=str))
 
     # ---- 9. result ------------------------------------------------------
     launches = {name: sum(c[name] for c in by_path.values())

@@ -29,10 +29,18 @@ Device: the driver runs on the card; ``--disable_cuda`` selects the CPU
 driver raises. Random streams are the loop's (``train/loop.py``); model
 init draws from a CPU generator seeded with ``--seed``.
 
+``--tpu_host_sampler`` draws episodes on the host
+(``data/sampler.py:HostEpisodeSampler``, with ``--tpu_sampler_backend``,
+``--num_workers`` and ``--tpu_loader_mp_context``). ``--tpu_ema``,
+``--tpu_skip_nonfinite`` and ``--tpu_debug_nans`` are the training
+extensions (``train/optim.py``, ``train/steps.py:check_finite``).
+``--checkpoint`` takes a run dir or a reference ``.pth.tar`` file
+(``interop.py``).
+
 Not ported yet, each rejected with ``NotImplementedError`` naming its
-ROADMAP.md Queue 1 item: the host samplers (item 4b), multi-device and
-sweep modes (item 9), and the training extensions of item 10 (EMA,
-skipping non-finite steps, NaN debugging).
+ROADMAP.md Queue 1 item: multi-device and sweep modes, grad-accum and
+``--tpu_watch`` (item 9); a wandb run path for ``--checkpoint`` needs the
+network.
 """
 
 from __future__ import annotations
@@ -55,7 +63,10 @@ from fumi_tpu_torch.core.episode import EpisodeSpec
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.data.cub import load_cub
 from fumi_tpu_torch.data.inat_anim import load_inat_anim
-from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler, table_storage
+from fumi_tpu_torch.data.sampler import (DeviceEpisodeSampler,
+                                          HostEpisodeSampler,
+                                          MultiprocessSampler,
+                                          PrefetchingSampler, table_storage)
 from fumi_tpu_torch.data.supervised import supervised_from_class_set
 from fumi_tpu_torch.data.synthetic import (synthetic_dictionary,
                                            synthetic_splits)
@@ -92,8 +103,6 @@ def _check_driver(cfg: Config) -> None:
                 "--model clip reads precomputed text embeddings "
                 f"(--text_encoder BERT or precomputed), not "
                 f"{cfg.text_encoder} tokens")
-    if not cfg.device_sampler:
-        raise _not_ported("--tpu_host_sampler", "item 4b: the host samplers")
     if cfg.seed_sweep > 1 or cfg.mesh_dp > 1 or cfg.mesh_mp > 1 or \
             cfg.dist_coordinator is not None or cfg.dist_num_processes > 0:
         raise _not_ported("--tpu_seed_sweep/--tpu_mesh_*/--tpu_dist_*",
@@ -101,9 +110,6 @@ def _check_driver(cfg: Config) -> None:
     if cfg.grad_accum > 1 or cfg.watch:
         raise _not_ported("--tpu_grad_accum > 1 / --tpu_watch",
                           "item 9: scale-out extensions")
-    if cfg.ema > 0 or cfg.skip_nonfinite > 0 or cfg.debug_nans:
-        raise _not_ported("--tpu_ema/--tpu_skip_nonfinite/--tpu_debug_nans",
-                          "item 10: training extensions")
 
 
 def _load_data(cfg: Config):
@@ -165,13 +171,20 @@ def _specs(cfg: Config, text_dim: int, tokens: bool):
 
 def _samplers(cfg: Config, splits, image_table, image_ids,
               device: torch.device):
-    """Train, val and test device samplers over one table on the device,
-    stored as :func:`table_storage` says; ``--augment`` augments the train
-    support set only (the jitter at scale 0.1, or on raw images the flip
-    and crop)."""
+    """Train, val and test samplers. Device samplers over one table on the
+    device, stored as :func:`table_storage` says; ``--augment`` augments
+    the train support set only (the jitter at scale 0.1, or on raw images
+    the flip and crop). With ``--tpu_host_sampler``, host samplers over
+    the numpy table (seeds ``seed``, ``seed + 1``, ``seed + 2``), the
+    train sampler behind ``--num_workers`` loader processes (native
+    backend, no augmentation) or a prefetch thread, as the JAX driver
+    chooses."""
     cs = splits["train"]
     train_spec, eval_spec = _specs(cfg, cs.text_features.shape[-1],
                                    cs.text_is_tokens)
+    if not cfg.device_sampler:
+        return _host_samplers(cfg, splits, image_table, image_ids, device,
+                              train_spec, eval_spec)
     table = table_storage(torch.as_tensor(np.asarray(image_table)),
                           cfg.compute_dtype).to(device)
     ids = torch.as_tensor(np.asarray(image_ids)).to(device)
@@ -182,6 +195,36 @@ def _samplers(cfg: Config, splits, image_table, image_ids,
                                  **kw),
             DeviceEpisodeSampler(table, ids, splits["val"], eval_spec, **kw),
             DeviceEpisodeSampler(table, ids, splits["test"], eval_spec, **kw))
+
+
+def _host_samplers(cfg: Config, splits, image_table, image_ids, device,
+                   train_spec, eval_spec):
+    ar, be = cfg.allow_replacement, cfg.sampler_backend
+    kw = dict(allow_replacement=ar, backend=be, device=device)
+    train = HostEpisodeSampler(image_table, image_ids, splits["train"],
+                               train_spec, seed=cfg.seed,
+                               augment_scale=0.1 if cfg.augment else 0.0,
+                               **kw)
+    # "auto" resolves per machine, and the two backends' streams differ
+    print(f"host sampler backend: {train.backend_name} "
+          f"(--tpu_sampler_backend {be}; streams are backend-specific "
+          "per seed)")
+    if cfg.evaluate:
+        pass  # --evaluate never draws a train episode: start no loader
+    elif cfg.num_workers > 1 and train.backend_name == "native" \
+            and train.augment_scale == 0.0:
+        train = MultiprocessSampler(train, num_workers=cfg.num_workers,
+                                    mp_context=cfg.loader_mp_context)
+        print(f"loader: {cfg.num_workers} worker processes "
+              f"({cfg.loader_mp_context})")
+    elif cfg.num_workers > 0:
+        train = PrefetchingSampler(train, depth=2 * cfg.num_workers)
+        print("loader: prefetch thread")
+    return (train,
+            HostEpisodeSampler(image_table, image_ids, splits["val"],
+                               eval_spec, seed=cfg.seed + 1, **kw),
+            HostEpisodeSampler(image_table, image_ids, splits["test"],
+                               eval_spec, seed=cfg.seed + 2, **kw))
 
 
 def _save_predictions_csv(cfg: Config, writer: MetricWriter,
@@ -317,14 +360,22 @@ def _run(cfg: Config, dev: torch.device, writer: MetricWriter,
             print(f"auto-resume: {prev} "
                   f"(batch {resume_meta.get('batch_idx')})")
 
-    if not cfg.evaluate:
-        with profile_trace(cfg.profile_dir):
-            params = training_run(
-                cfg, steps, train_s, val_s, writer, run_dir, cfg.seed,
-                opt_state=restored_opt_state,
-                start_batch=int(resume_meta.get("batch_idx", -1)) + 1,
-                initial_best=resume_meta.get("best_loss"))
-    elif restored_opt_state is not None:
+    try:
+        if not cfg.evaluate:
+            with profile_trace(cfg.profile_dir):
+                params = training_run(
+                    cfg, steps, train_s, val_s, writer, run_dir, cfg.seed,
+                    opt_state=restored_opt_state,
+                    start_batch=int(resume_meta.get("batch_idx", -1)) + 1,
+                    initial_best=resume_meta.get("best_loss"))
+    finally:
+        # stop the loader processes or the prefetch thread
+        close = getattr(train_s, "close", None)
+        if close is not None:
+            close()
+    if cfg.evaluate and restored_opt_state is not None:
+        # --evaluate from a checkpoint: under --tpu_ema the smoothed
+        # weights live in the restored optimizer state
         params = eval_view(cfg, params, restored_opt_state)
 
     test_m = test_loop(cfg, steps, params, test_s, cfg.max_test_batches,

@@ -33,7 +33,11 @@ crop (pad 4) of :func:`augment_raw_images`, on the support images only;
 its noise (flip bits, crop offsets) comes from the generator, or through
 ``episode_from_noise(raw_aug=...)`` from the tests. :func:`table_storage`
 stores a floating table in bf16 under ``--tpu_compute_dtype bfloat16``.
-The host samplers wait for the harness (ROADMAP.md Queue 1, item 4b).
+
+The host samplers (``--tpu_host_sampler``) are the JAX package's:
+:class:`HostEpisodeSampler` (numpy or native indices, numpy assembly, a
+synchronous copy to the device), :class:`PrefetchingSampler` (a thread)
+and :class:`MultiprocessSampler` (loader processes).
 """
 
 from __future__ import annotations
@@ -279,3 +283,482 @@ class DeviceEpisodeSampler:
                               self.spec, gen,
                               use_pallas_gather=self.use_pallas_gather,
                               augment_scale=self.augment_scale)
+
+
+# ---------------------------------------------------------------------------
+# Host samplers (--tpu_host_sampler)
+# ---------------------------------------------------------------------------
+
+def _host_table(image_table) -> Tuple[np.ndarray, bool]:
+    """A numpy table the loader workers can gather from, and whether its
+    rows are bf16 (kept as their 16-bit patterns, int16: numpy has no
+    bf16; a torch bf16 tensor or an ml_dtypes bf16 array)."""
+    if torch.is_tensor(image_table):
+        t = image_table.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), True
+        return t.numpy(), False
+    arr = np.asarray(image_table)
+    if arr.dtype.name == "bfloat16":
+        return arr.view(np.int16), True
+    return arr, False
+
+
+class HostEpisodeSampler:
+    """The reference's sampling policy on the host.
+
+    The counterpart of the JAX package's ``HostEpisodeSampler``, with the
+    same streams: torchmeta's CombinationMetaDataset + ClassSplitter
+    (shuffle=True) policy, a uniform N-class combination and a per-class
+    permutation whose first K are the support and next Q the query,
+    deterministic under ``seed``. The indices come from the native sampler
+    (``fumi_tpu_torch/native``, xoshiro256** streams addressed by
+    ``(seed, episode counter)``) or, with ``backend="numpy"`` or where it
+    cannot be built, from a ``numpy.random.RandomState(seed)``; the two
+    backends draw the same policy but different streams. Both give
+    bitwise the JAX package's indices and rows for the same seed.
+
+    Assembly (:meth:`_assemble_numpy`) is numpy only, so loader processes
+    can run it; :meth:`_finish` copies the parts to ``device``
+    synchronously (the numpy buffers are the episode's own, never reused),
+    widens them as the device path does (uint8 pixels to [0, 1], bf16 to
+    fp32), and with ``augment_scale > 0`` augments the support set: raw
+    images by the flip and crop of :func:`augment_raw_images`, embeddings
+    by :func:`~fumi_tpu_torch.ops.kernels.augment_embeddings` (the CUDA
+    kernel on the card, its plain version on the CPU). The augmentation's
+    seed is drawn as the JAX package draws its key,
+    ``rng.randint(0, 2**31)``, so the numpy stream, and with it every later
+    episode of the numpy backend, stays the JAX package's.
+
+    ``allow_replacement=True`` lets classes thinner than K+Q wrap (numpy
+    backend only), as the device sampler's permissive mode does.
+    """
+
+    def __init__(self, image_table, image_ids, class_set: ClassSet,
+                 spec: EpisodeSpec, seed: int = 0, backend: str = "auto",
+                 allow_replacement: bool = False, augment_scale: float = 0.0,
+                 device: DeviceLike = None):
+        if not allow_replacement:
+            class_set.validate_episode(spec.num_shots, spec.num_query)
+        elif np.any(np.asarray(class_set.class_counts) < 1):
+            raise ValueError("split contains classes with zero images")
+        need = spec.num_shots + spec.num_query
+        self._wraps = bool(np.any(class_set.class_counts < need))
+        self.allow_replacement = allow_replacement
+        self._backend_arg = backend
+        self.spec = spec
+        self.image_table, self._bf16 = _host_table(image_table)
+        self.image_ids = np.asarray(image_ids, dtype=np.int32)
+        self.class_set = class_set
+        self.seed = seed
+        self.rng = np.random.RandomState(seed)
+        self.augment_scale = augment_scale
+        self.device = resolve_device(device)
+        self._counter = 0
+        self._native = None
+        self._load_native()
+
+    def _load_native(self) -> None:
+        if self._backend_arg in ("auto", "native") and not self._wraps:
+            # the C++ sampler assumes count >= K+Q; wrap mode stays numpy
+            from fumi_tpu_torch import native
+            self._native = native.load()
+            if self._backend_arg == "native" and self._native is None:
+                raise RuntimeError("native sampler unavailable (no g++?)")
+        elif self._backend_arg == "native" and self._wraps:
+            raise RuntimeError(
+                "--tpu_sampler_backend native cannot serve classes thinner "
+                "than K+Q (the with-replacement wrap is numpy-only)")
+
+    def __getstate__(self):
+        """Picklable for ``spawn`` loader workers: the ctypes handle is
+        dropped and loaded again on the other side (the library is built
+        already, so that is a dlopen)."""
+        state = self.__dict__.copy()
+        state["_native"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._load_native()
+
+    @property
+    def backend_name(self) -> str:
+        """The index backend in use: ``native`` or ``numpy`` (different
+        streams for the same seed)."""
+        return "numpy" if self._native is None else "native"
+
+    def _draw_indices(self, B, N, K, Q):
+        """``(class_idx (B, N), sel (B, N, K+Q))`` from the backend."""
+        cs = self.class_set
+        if self._native is not None:
+            from fumi_tpu_torch import native
+            class_idx, sel = native.sample_episodes_native(
+                self._native, self.seed, self._counter, cs.class_counts,
+                B, N, K + Q)
+            self._counter += 1
+            return class_idx, sel
+        class_idx = np.empty((B, N), dtype=np.int64)
+        sel = np.empty((B, N, K + Q), dtype=np.int64)
+        for b in range(B):
+            class_idx[b] = self.rng.choice(cs.num_classes, size=N,
+                                           replace=False)
+            for i, c in enumerate(class_idx[b]):
+                cnt = int(cs.class_counts[c])
+                # the modulo wrap is with-replacement for thin classes and
+                # a no-op when cnt >= K+Q
+                sel[b, i] = self.rng.permutation(cnt)[
+                    np.arange(K + Q) % max(cnt, 1)]
+        return class_idx, sel
+
+    def _indices_at(self, counter: int):
+        """The native draw of episode ``counter``, stateless: any loader
+        worker can compute any episode."""
+        if self._native is None:
+            raise RuntimeError("counter-addressed sampling needs the "
+                               "native backend")
+        from fumi_tpu_torch import native
+        spec = self.spec
+        return native.sample_episodes_native(
+            self._native, self.seed, counter, self.class_set.class_counts,
+            spec.batch_size, spec.num_ways,
+            spec.num_shots + spec.num_query)
+
+    def _assemble_numpy(self, class_idx, sel) -> dict:
+        """The episode's parts as numpy arrays from drawn indices; no
+        tensor and no device, so loader worker processes run it."""
+        spec = self.spec
+        cs = self.class_set
+        B, N, K, Q = (spec.batch_size, spec.num_ways, spec.num_shots,
+                      spec.num_query)
+        rows = np.take_along_axis(
+            cs.class_image_rows[class_idx], sel, axis=-1)  # (B, N, K+Q)
+        s_rows = rows[..., :K].reshape(B, N * K)
+        q_rows = rows[..., K:].reshape(B, N * Q)
+        text_cls = cs.text_features[class_idx]  # (B, N, E|T)
+        s_y = np.tile(np.repeat(np.arange(N, dtype=np.int32), K)[None],
+                      (B, 1))
+        q_y = np.tile(np.repeat(np.arange(N, dtype=np.int32), Q)[None],
+                      (B, 1))
+        return dict(support_im=self.image_table[s_rows],
+                    support_text=np.repeat(text_cls, K, axis=1),
+                    support_ids=self.image_ids[s_rows], support_y=s_y,
+                    query_im=self.image_table[q_rows],
+                    query_ids=self.image_ids[q_rows], query_y=q_y)
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _images(self, a: np.ndarray) -> torch.Tensor:
+        t = self._put(a)
+        return pixels_to_float(t.view(torch.bfloat16) if self._bf16 else t)
+
+    def _finish(self, parts: dict) -> Episode:
+        """The assembled parts on the device, widened and (train support
+        set) augmented, with the seed from this sampler's numpy stream."""
+        spec = self.spec
+        B, N, K = spec.batch_size, spec.num_ways, spec.num_shots
+        support_im = self._images(parts["support_im"])
+        query_im = self._images(parts["query_im"])
+        if self.augment_scale > 0.0:
+            seed = int(self.rng.randint(0, 2 ** 31))
+            shape = support_im.shape
+            if support_im.dim() == 5:
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+                flat = support_im.reshape((B * N * K,) + shape[2:])
+                support_im = augment_raw_images(
+                    flat, *raw_augment_noise(B * N * K, gen)).reshape(shape)
+            else:
+                flat = support_im.reshape(B * N * K, -1).contiguous()
+                aug_seed = torch.tensor([seed], dtype=torch.int64,
+                                        device=self.device)
+                support_im = kernels.augment_embeddings(
+                    flat, aug_seed, self.augment_scale).reshape(shape)
+        return Episode(
+            support_im=support_im,
+            support_text=self._put(parts["support_text"]),
+            # the encoders derive the padding mask from PAD tokens
+            support_text_mask=None,
+            support_ids=self._put(parts["support_ids"]),
+            support_y=self._put(parts["support_y"]),
+            query_im=query_im,
+            query_ids=self._put(parts["query_ids"]),
+            query_y=self._put(parts["query_y"]),
+        )
+
+    def sample(self) -> Episode:
+        spec = self.spec
+        class_idx, sel = self._draw_indices(
+            spec.batch_size, spec.num_ways, spec.num_shots, spec.num_query)
+        return self._finish(self._assemble_numpy(class_idx, sel))
+
+    def watch_clone(self) -> "HostEpisodeSampler":
+        """An independent sampler over the same tables with a derived seed,
+        for side-channel episodes that must not shift the training
+        stream."""
+        clone = HostEpisodeSampler.__new__(HostEpisodeSampler)
+        clone.__setstate__(dict(
+            self.__getstate__(), seed=self.seed + 0x5EED,
+            rng=np.random.RandomState(self.seed + 0x5EED), _counter=0))
+        return clone
+
+    def __iter__(self):
+        while True:
+            yield self.sample()
+
+
+class _WorkerError:
+    """A loader worker's exception on its way to the consumer."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class PrefetchingSampler:
+    """A background thread that stages ``depth`` episodes of a host
+    sampler ahead of the consumer (``--num_workers`` with one worker, the
+    numpy backend, or host augmentation). The stream is the wrapped
+    sampler's. An exception in the thread is re-raised by the next
+    :meth:`sample`, and by every one after it."""
+
+    def __init__(self, sampler: HostEpisodeSampler, depth: int = 2):
+        import queue
+        import threading
+        self.sampler = sampler
+        self.spec = sampler.spec
+        self._failed: Optional[BaseException] = None
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        import queue
+        while not self._stop.is_set():
+            try:
+                item = self.sampler.sample()
+            except BaseException as e:  # noqa: BLE001 - relayed, not hidden
+                item = _WorkerError(e)
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            if isinstance(item, _WorkerError):
+                return  # the stream is broken; draw no further
+
+    def sample(self) -> Episode:
+        if self._failed is not None:
+            raise self._failed
+        item = self._q.get()
+        if isinstance(item, _WorkerError):
+            self._failed = item.exc
+            raise item.exc
+        return item
+
+    def __iter__(self):
+        while True:
+            yield self.sample()
+
+    def close(self):
+        import queue
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5.0)
+
+
+def _mp_worker(sampler: HostEpisodeSampler, w: int, num_workers: int,
+               base: int, q, stop) -> None:
+    """Loader worker process ``w``: the episodes at counters ``base + w,
+    base + w + num_workers, ...`` (counter-addressed native draws and
+    numpy assembly; no tensor and no CUDA call, so a fork after the parent
+    touched the card is safe), sent as numpy parts. An exception rides the
+    queue; one that does not pickle is sent as a ``RuntimeError`` with its
+    traceback."""
+    import pickle
+    import queue
+    import traceback
+
+    c = base + w
+    while not stop.is_set():
+        try:
+            class_idx, sel = sampler._indices_at(c)
+            item = (c, sampler._assemble_numpy(class_idx, sel))
+        except BaseException as e:  # noqa: BLE001 - relayed, not hidden
+            try:
+                pickle.dumps(e)
+            except Exception:
+                e = RuntimeError(
+                    f"loader worker {w} died:\n" + "".join(
+                        traceback.format_exception(type(e), e,
+                                                   e.__traceback__)))
+            item = _WorkerError(e)
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                break
+            except queue.Full:
+                continue
+        if stop.is_set():
+            # shutdown: nobody drains the queue, so buffered data must not
+            # hold up the process's exit
+            q.cancel_join_thread()
+            return
+        if isinstance(item, _WorkerError):
+            return
+        c += num_workers
+
+
+class MultiprocessSampler:
+    """``--num_workers N`` loader processes over a native host sampler.
+
+    Episode ``c``'s indices depend only on ``(seed, c)``, so worker ``w``
+    computes counters ``w, w + N, w + 2N, ...`` on its own and the consumer
+    takes the workers' queues in turn: the stream is exactly the
+    single-process one, with assembly in parallel and beside the device's
+    work. Workers do numpy and C++ work only; the copy to the device, and
+    with it every tensor, is the consumer's (:meth:`HostEpisodeSampler.
+    _finish`). ``mp_context`` ``fork`` (default) shares the tables
+    copy-on-write; ``spawn`` pickles the sampler into each fresh
+    interpreter, whose import of the port initialises no CUDA. Both give
+    the same stream.
+
+    Needs the native backend (the numpy backend is a sequential stream)
+    and no host augmentation (its seeds come from the sequential stream);
+    the driver uses the prefetch thread for those.
+
+    Failure: a worker's exception is re-raised by :meth:`sample`, after
+    the episodes before it; a worker that dies without a word raises
+    instead of hanging. Reader threads do the blocking reads of the
+    workers' pipes and hand complete items on, so :meth:`sample` waits
+    with a timeout and checks that the worker lives.
+    """
+
+    def __init__(self, sampler: HostEpisodeSampler, num_workers: int,
+                 depth: int = 2, mp_context: str = "fork"):
+        import multiprocessing as mp
+        import queue
+        import threading
+        if sampler._native is None:
+            raise ValueError(
+                "MultiprocessSampler needs the native (counter-addressed) "
+                "sampler backend; the numpy backend is a sequential stream")
+        if sampler.augment_scale > 0.0:
+            raise ValueError(
+                "MultiprocessSampler does not support host-side "
+                "augmentation (sequential seed stream); use the prefetch "
+                "thread or the device sampler")
+        if num_workers < 1:
+            raise ValueError("num_workers must be >= 1")
+        if mp_context not in ("fork", "spawn"):
+            raise ValueError(f"mp_context must be fork|spawn, got "
+                             f"{mp_context!r}")
+        self.sampler = sampler
+        self.spec = sampler.spec
+        self.num_workers = num_workers
+        ctx = mp.get_context(mp_context)
+        self._stop = ctx.Event()
+        self._tstop = threading.Event()
+        self._base = sampler._counter
+        self._next = self._base
+        self._queues = [ctx.Queue(maxsize=max(1, depth))
+                        for _ in range(num_workers)]
+        # bounded at 1, so backpressure reaches the workers
+        self._out = [queue.Queue(maxsize=1) for _ in range(num_workers)]
+        self._failed: Optional[BaseException] = None
+        self._procs = [
+            ctx.Process(target=_mp_worker,
+                        args=(sampler, w, num_workers, self._base,
+                              self._queues[w], self._stop), daemon=True)
+            for w in range(num_workers)]
+        for p in self._procs:
+            p.start()
+        self._readers = [threading.Thread(target=self._reader_loop,
+                                          args=(w,), daemon=True)
+                         for w in range(num_workers)]
+        for t in self._readers:
+            t.start()
+
+    def _reader_loop(self, w: int) -> None:
+        import queue
+        while not self._tstop.is_set():
+            try:
+                item = self._queues[w].get(timeout=0.2)
+            except queue.Empty:
+                continue
+            except (EOFError, OSError) as e:
+                item = _WorkerError(RuntimeError(
+                    f"loader worker {w} queue broke: {e!r}"))
+            while not self._tstop.is_set():
+                try:
+                    self._out[w].put(item, timeout=0.2)
+                    break
+                except queue.Full:
+                    continue
+            if isinstance(item, _WorkerError):
+                return
+
+    def sample(self) -> Episode:
+        import queue
+        if self._failed is not None:
+            raise self._failed
+        w = (self._next - self._base) % self.num_workers
+        while True:
+            try:
+                item = self._out[w].get(timeout=1.0)
+                break
+            except queue.Empty:
+                if not self._procs[w].is_alive():
+                    # one grace read: the reader may still hand on an item
+                    # the worker finished before it died
+                    try:
+                        item = self._out[w].get(timeout=0.5)
+                        break
+                    except queue.Empty:
+                        pass
+                    self._failed = RuntimeError(
+                        f"loader worker {w} died without reporting "
+                        f"(exit code {self._procs[w].exitcode})")
+                    raise self._failed
+        if isinstance(item, _WorkerError):
+            self._failed = item.exc
+            raise item.exc
+        c, parts = item
+        if c != self._next:
+            raise RuntimeError(f"loader stream out of order: episode {c}, "
+                               f"expected {self._next}")
+        # the wrapped sampler's counter follows consumption; a direct draw
+        # from it while this loader lives would be replayed, so it raises
+        if self.sampler._counter != self._next:
+            raise RuntimeError(
+                f"base sampler drawn directly while MultiprocessSampler "
+                f"is live (base counter {self.sampler._counter}, stream "
+                f"at {self._next}); unwrap only after close()")
+        self._next += 1
+        self.sampler._counter = self._next
+        return self.sampler._finish(parts)
+
+    def __iter__(self):
+        while True:
+            yield self.sample()
+
+    def close(self):
+        # the workers leave through the stop event; the mp queues are
+        # never drained here (a read of a half-written message blocks)
+        self._stop.set()
+        self._tstop.set()
+        for p in self._procs:
+            p.join(timeout=2.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=2.0)
+        for q in self._queues:
+            q.cancel_join_thread()
+            q.close()
+        for t in self._readers:
+            t.join(timeout=2.0)

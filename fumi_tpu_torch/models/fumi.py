@@ -65,6 +65,9 @@ class FUMI:
     im_channels: int = 3
     resnet12_channels: Tuple[int, ...] = (64, 160, 320, 640)
     compute_dtype: Optional[torch.dtype] = None
+    # resnet12's per-stage checkpoint pattern (the experiment switch
+    # resnet12.STAGE_REMAT_OVERRIDE); None in production
+    stage_remat: Optional[Tuple[bool, ...]] = None
 
     @property
     def raw(self) -> bool:
@@ -162,8 +165,10 @@ class FUMI:
         """Base image net without head: Linear-ReLU-(Dropout) stack, or the
         raw-image backbone (per-task statistics for per-task weights)."""
         if self.raw:
+            kw = ({"stage_remat": self.stage_remat}
+                  if self.im_encoder_kind == "resnet12" else {})
             return raw_image_net(self.im_encoder_kind).backbone(
-                im_params, x, self.compute_dtype, prefix="im_net.")
+                im_params, x, self.compute_dtype, prefix="im_net.", **kw)
         for name in im_net_names(len(self.im_hid_dim)):
             x = torch.relu(layers.linear(im_params[name + ".weight"],
                                          im_params[name + ".bias"], x,

@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from fumi_tpu_torch.models import layers
 from fumi_tpu_torch.models.conv4 import (batch_stat_norm, conv_init,
@@ -29,9 +30,12 @@ Params = Dict[str, torch.Tensor]
 CHANNELS: Tuple[int, ...] = (64, 160, 320, 640)
 LEAK = 0.1
 UNITS = ("c1", "c2", "c3", "sc")
-# The JAX package's per-stage checkpoint pattern, a switch for an
-# experiment that measured negative there; None in production. The port
-# does not implement the pattern.
+# Stage-selective checkpointing, an experiment switch (the JAX package's):
+# stage i of a True entry keeps only its input for the backward pass and
+# recomputes the rest. It measured negative there against whole-step remat
+# (4.0 against 4.4 episodes/s on its TPU); None in production.
+# train/steps.py:resnet12_stage_remat hands it to MAML and FuMI when
+# --tpu_remat is auto, in place of the step checkpointing.
 STAGE_REMAT_OVERRIDE: Optional[Tuple[bool, ...]] = None
 
 
@@ -104,17 +108,26 @@ def num_blocks(params: Params, prefix: str = "") -> int:
 
 def backbone(params: Params, x: torch.Tensor,
              compute_dtype: Optional[torch.dtype] = None,
-             prefix: str = "") -> torch.Tensor:
+             prefix: str = "",
+             stage_remat: Optional[Tuple[bool, ...]] = None
+             ) -> torch.Tensor:
     """NHWC images (M, H, W, C) or (B, M, H, W, C) -> globally pooled fp32
-    features (M, channels[-1]) or (B, M, channels[-1])."""
-    if STAGE_REMAT_OVERRIDE is not None:
-        raise NotImplementedError(
-            "resnet12.STAGE_REMAT_OVERRIDE (per-stage checkpointing) is not "
-            "ported to the PyTorch package — Queue 1, item 10 (training "
-            "extensions) in ROADMAP.md")
+    features (M, channels[-1]) or (B, M, channels[-1]).
+
+    ``stage_remat[i]`` checkpoints stage i
+    (``torch.utils.checkpoint(use_reentrant=False)``): only its input is
+    kept for the backward pass, which recomputes the stage's convolutions,
+    norms and activations, also inside a second-order inner step. The
+    values are the same with and without it."""
     y, B = to_groups(x)
     for i in range(num_blocks(params, prefix)):
-        y = res_block(params, f"{prefix}blocks.{i}", y, B, compute_dtype)
+        name = f"{prefix}blocks.{i}"
+        if stage_remat is not None and i < len(stage_remat) and \
+                stage_remat[i]:
+            y = checkpoint(res_block, params, name, y, B, compute_dtype,
+                           use_reentrant=False)
+        else:
+            y = res_block(params, name, y, B, compute_dtype)
     # (M, B·C), accumulated in fp32 (fp64 stays fp64)
     pooled = torch.mean(y, dim=(2, 3),
                         dtype=torch.promote_types(y.dtype, torch.float32))
@@ -123,9 +136,11 @@ def backbone(params: Params, x: torch.Tensor,
 
 def apply(params: Params, x: torch.Tensor,
           compute_dtype: Optional[torch.dtype] = None,
-          prefix: str = "") -> torch.Tensor:
+          prefix: str = "",
+          stage_remat: Optional[Tuple[bool, ...]] = None) -> torch.Tensor:
     """Images -> (…, M, n_way) logits; MAML adapts it end to end."""
     return layers.linear(params[prefix + "head.weight"],
                          params[prefix + "head.bias"],
-                         backbone(params, x, compute_dtype, prefix),
+                         backbone(params, x, compute_dtype, prefix,
+                                  stage_remat),
                          compute_dtype)

@@ -23,7 +23,8 @@ for a conv4 or resnet12 model (``support_im`` (NK, H, W, C), batched
   MatchingNet's logits are ``log(probs + 1e-8)``, so every return mode
   renders its probabilities.
 - ``from_checkpoint`` / ``reload``: weights from a run dir the port's
-  driver wrote (``train/checkpoint.py``); a token-encoder run's
+  driver wrote (``train/checkpoint.py``) or a reference ``.pth.tar``
+  (``interop.py``), the EMA under ``--tpu_ema``; a token-encoder run's
   ``vocab.json`` rebuilds its encoder (:func:`serving_dictionary`).
 - Token text encoders (glove, w2v, RNN, RNNhid): ``support_text`` is
   (..., NK, T) int token ids, padded with the dictionary's PAD id where

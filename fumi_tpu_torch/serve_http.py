@@ -24,8 +24,9 @@ Endpoints (JSON in / JSON out), as the JAX package's:
   adapt). Body: ``{"query_im": [[...]], "return": ...?}``.
 - ``POST /v1/reload``: swap in the weights of a run dir without a
   rebuild; drops the adapted state (CLIP: the indexed gallery). Body:
-  ``{"checkpoint": "<run dir>", "best": true?}``. A reference ``.pth.tar``
-  file answers 400: its import is not ported (item 4b).
+  ``{"checkpoint": "<run dir or .pth.tar>", "best": true?}``; a reference
+  ``.pth.tar`` file is imported (``interop.py``), and one that does not
+  load answers 400, as in the JAX server.
 
 A token-encoder model (glove, w2v, RNN, RNNhid) takes ``support_text`` as
 int token ids; FuMI and AM3 requests without it answer 400.
@@ -212,9 +213,9 @@ class _Service:
                             else 1)}
 
     def reload(self, body: dict) -> dict:
-        """Swap in a run dir's weights; any adapted state (CLIP: the
-        gallery) is dropped. Body: ``{"checkpoint": "<run dir>", "best":
-        true?}``."""
+        """Swap in the weights of a run dir or a reference ``.pth.tar``;
+        any adapted state (CLIP: the gallery) is dropped. Body:
+        ``{"checkpoint": "<path>", "best": true?}``."""
         path = body.get("checkpoint")
         if not isinstance(path, str) or not path:
             raise ServeError(400, "missing field 'checkpoint' "

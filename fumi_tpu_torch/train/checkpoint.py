@@ -9,9 +9,15 @@ params state dict) and ``opt_state.pt`` (the optimizer state: nested dicts
 of tensors and the update count), written by ``torch.save`` from CPU
 copies and read with ``torch.load(weights_only=True)``.
 
-Not ported yet (ROADMAP.md Queue 1, item 4b): wandb run paths for
-``--checkpoint`` and uploads to a live wandb run, reference ``.pth.tar``
-files, and the JAX package's orbax / ``np_tree.npz`` checkpoints.
+A reference ``.pth.tar`` file (the original FuMI code's checkpoint, or
+one ``cli/export_torch.py`` wrote) is taken wherever a run dir is:
+:func:`load_checkpoint` routes a file to ``interop.load_torch_checkpoint``.
+
+Not ported: wandb run paths for ``--checkpoint`` and uploads to a live
+wandb run (they need the network; ROADMAP.md Queue 1, item 4b), and the
+JAX package's orbax / ``np_tree.npz`` checkpoints (orbax needs JAX; the
+tests carry such weights through ``bridge.py``, and a JAX run dir reaches
+the port as an exported ``.pth.tar``).
 """
 
 from __future__ import annotations
@@ -128,19 +134,17 @@ def find_latest_resumable(log_dir: str, model: Optional[str] = None,
 def resolve_checkpoint(checkpoint: str, model: str,
                        entity: str = "multimodal-image-cls",
                        project: Optional[str] = None) -> str:
-    """``--checkpoint`` as a local run dir: an existing directory passes
-    through. A reference ``.pth.tar`` file and a wandb run path raise."""
-    if os.path.isdir(checkpoint):
+    """``--checkpoint`` as a local path: an existing run dir, or a
+    reference ``.pth.tar`` file (which :func:`load_checkpoint` imports),
+    passes through. A wandb run path raises: resolving it needs the
+    network."""
+    if os.path.isdir(checkpoint) or os.path.isfile(checkpoint):
         return checkpoint
-    if os.path.isfile(checkpoint):
-        raise NotImplementedError(
-            f"--checkpoint {checkpoint!r}: importing a reference .pth.tar "
-            "file is not ported to the PyTorch package yet (ROADMAP.md "
-            "Queue 1, item 4b)")
     raise NotImplementedError(
-        f"--checkpoint {checkpoint!r} is not a local run dir; resolving "
-        f"wandb run paths ({entity}/{project or model}/<run_id>) is not "
-        "ported to the PyTorch package yet (ROADMAP.md Queue 1, item 4b)")
+        f"--checkpoint {checkpoint!r} is not a local run dir or file; "
+        f"resolving wandb run paths ({entity}/{project or model}/<run_id>) "
+        "needs the network and is not ported to the PyTorch package "
+        "(ROADMAP.md Queue 1, item 4b: not queued)")
 
 
 def _flat(tree, prefix="") -> Dict[str, Any]:
@@ -183,10 +187,15 @@ def load_checkpoint(run_dir: str, params_like, opt_state_like,
     of a run dir; ``params_like`` / ``opt_state_like`` give the structure,
     shapes and devices. A run with no ``best/`` falls back to ``ckpt/``.
     A mismatch raises ``ValueError`` with the flags the checkpoint was
-    written with."""
+    written with (``--tpu_ema``, ``--optim`` and ``--tpu_skip_nonfinite``
+    change the optimizer state's structure). ``run_dir`` may also be a
+    reference ``.pth.tar`` file: ``interop.load_torch_checkpoint`` maps it
+    onto the templates (a file that does not load is a ``ValueError``)."""
     run_dir = os.path.abspath(run_dir)
     if os.path.isfile(run_dir):
-        resolve_checkpoint(run_dir, "")  # raises: .pth.tar not ported
+        from fumi_tpu_torch import interop
+        return interop.load_torch_checkpoint(run_dir, params_like,
+                                             opt_state_like)
     name = "best" if best else "ckpt"
     if best and not os.path.isdir(os.path.join(run_dir, "best")) and \
             os.path.isdir(os.path.join(run_dir, "ckpt")):

@@ -20,7 +20,11 @@ With the device sampler the train steps run through ``make_chunked_train``
 in ``--tpu_chunk`` pieces (one host sync per piece) and are logged per
 step; evals through ``make_chunked_eval``. Any other sampler object is
 drawn one batch at a time with ``sampler.sample()``, as the JAX package's
-host-sampler path does.
+host-sampler path does (``data/sampler.py``'s host samplers draw from
+their own numpy streams). With ``--tpu_ema``, validation, the final test
+and the returned params see the EMA (:func:`eval_view`);
+``--tpu_debug_nans`` checks every train step
+(``train/steps.py:check_finite``).
 
 Random streams. Each is a ``torch.Generator`` on the params' device,
 seeded with :func:`stream_seed` ``= (seed mod 2**32) * 2**32 + stream *
@@ -45,6 +49,7 @@ from fumi_tpu_torch.core.config import Config
 from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler
 from fumi_tpu_torch.train import checkpoint as ckpt_lib
 from fumi_tpu_torch.train.logging import AverageMeter, MetricWriter
+from fumi_tpu_torch.train.optim import find_ema
 from fumi_tpu_torch.train.steps import (FamilySteps, make_chunked_eval,
                                         make_chunked_train)
 from fumi_tpu_torch.utils.profiling import Throughput, hbm_stats
@@ -160,11 +165,12 @@ def _flatten_artifacts(ms: Dict) -> Dict:
 
 
 def eval_view(cfg: Config, params, opt_state):
-    """The parameters evaluation should see: the params (the EMA view of
-    ``--tpu_ema`` is ROADMAP.md Queue 1, item 10)."""
+    """The parameters evaluation should see: the EMA when ``--tpu_ema`` is
+    on (and the state holds one), else the raw params."""
     if cfg.ema > 0:
-        raise NotImplementedError(
-            "--tpu_ema is not ported yet (ROADMAP.md Queue 1, item 10)")
+        ema = find_ema(opt_state)
+        if ema is not None:
+            return ema
     return params
 
 
@@ -205,7 +211,8 @@ def training_run(cfg: Config, steps: FamilySteps, train_sampler, val_sampler,
     if device_path:
         chunked = make_chunked_train(steps.family, steps.opt, train_sampler,
                                      chunk, accum=cfg.grad_accum,
-                                     watch=cfg.watch)
+                                     watch=cfg.watch,
+                                     debug_nans=cfg.debug_nans)
 
     def next_stop(batch_idx: int) -> int:
         """The next step index after which the loop must pause: an eval
@@ -233,7 +240,8 @@ def training_run(cfg: Config, steps: FamilySteps, train_sampler, val_sampler,
                 while done < n:
                     c = min(chunk, n - done)
                     params, opt_state, train_gen, ms = chunked(
-                        params, opt_state, train_gen, c)
+                        params, opt_state, train_gen, c,
+                        first_step=batch_idx + done)
                     _log_train_stack(writer, cfg, batch_idx + done, ms,
                                      is_am3)
                     done += c
@@ -241,7 +249,8 @@ def training_run(cfg: Config, steps: FamilySteps, train_sampler, val_sampler,
                 for j in range(n):
                     episode = _draw(train_sampler, train_gen)
                     params, opt_state, m = steps.train_step(
-                        params, opt_state, episode, train_gen)
+                        params, opt_state, episode, train_gen,
+                        step=batch_idx + j)
                     _log_train_stack(writer, cfg, batch_idx + j,
                                      {k: v.reshape(1) for k, v in m.items()},
                                      is_am3)

@@ -161,9 +161,10 @@ def remat_of(cfg: Config):
 
 
 def resnet12_stage_remat(cfg: Config):
-    """The JAX package's per-stage checkpoint switch
-    (``resnet12.STAGE_REMAT_OVERRIDE``), None in production; the port's
-    backbone raises if it is set."""
+    """The per-stage checkpoint pattern of the resnet12 backbone
+    (``resnet12.STAGE_REMAT_OVERRIDE``, the experiment switch) under
+    ``--tpu_remat auto``; None in production. MAML and FuMI hand it to the
+    backbone, in place of the step checkpointing (:func:`remat_of`)."""
     if cfg.im_encoder != "resnet12" or cfg.remat != "auto":
         return None
     from fumi_tpu_torch.models import resnet12
@@ -192,8 +193,11 @@ def build_maml_family(cfg: Config, gen: torch.Generator,
         net = mlp
         params = mlp.init(gen, cfg.im_emb_dim, cfg.num_ways, cfg.im_hid_dim)
 
+    kw = ({"stage_remat": resnet12_stage_remat(cfg)}
+          if cfg.im_encoder == "resnet12" else {})
+
     def apply_fn(p, x):
-        return net.apply(p, x, cd)
+        return net.apply(p, x, cd, **kw)
     # ANIL: only the head adapts
     adapt_mask = head_only_mask(params) if cfg.adapt_params == "head" \
         else None
@@ -264,7 +268,8 @@ def build_fumi_family(cfg: Config, gen: torch.Generator,
                          if cfg.im_encoder in RAW_IMAGE_ENCODERS else "mlp"),
         im_size=cfg.im_size, im_channels=cfg.im_channels,
         resnet12_channels=tuple(cfg.resnet12_channels),
-        compute_dtype=compute_dtype_of(cfg))
+        compute_dtype=compute_dtype_of(cfg),
+        stage_remat=resnet12_stage_remat(cfg))
     params = model.init_params(gen)
 
     def loss_for(n_steps, train, differentiable):
@@ -523,8 +528,14 @@ def make_opt(cfg: Config) -> optim.Optimizer:
         # drift the frozen encoder
         opt = optim.zero_updates_for_key(opt, "text_encoder")
     if cfg.ema > 0:
-        opt = optim.params_ema(cfg.ema)
+        # the EMA rides in the optimizer state, through the chunked
+        # drivers and checkpoints; chained INSIDE any apply_if_finite, so
+        # a skipped step does not move it either
+        opt = optim.chain(opt, optim.params_ema(cfg.ema))
     if cfg.skip_nonfinite > 0:
+        # a non-finite meta-gradient skips the update instead of writing
+        # NaNs into the params (optax applies it after that many
+        # consecutive skips)
         opt = optim.apply_if_finite(opt, cfg.skip_nonfinite)
     return opt
 
@@ -545,20 +556,50 @@ def value_and_grad(family: Family, params, episode, gen):
     return (loss.detach(), aux), grads
 
 
+def check_finite(step, loss, grads, new_params) -> None:
+    """``--tpu_debug_nans``: raise ``FloatingPointError`` naming train step
+    ``step`` and the first non-finite leaf of the loss, the gradients or
+    the updated params, in that order (each in state-dict order). One host
+    sync a step; it only reads the tensors, so a finite run computes
+    bitwise what it computes without the check."""
+    named = [("loss", loss)]
+    named += [(f"gradient of {k}", g) for k, g in grads.items()]
+    named += [(f"param {k}", p) for k, p in new_params.items()]
+    ok = torch.stack([torch.isfinite(t).all() for _, t in named]).tolist()
+    if not all(ok):
+        name = named[ok.index(False)][0]
+        raise FloatingPointError(
+            f"--tpu_debug_nans: train step {step} made a non-finite value "
+            f"in the {name}")
+
+
 def _train_step(family: Family, opt: optim.Optimizer, params, opt_state,
-                episode, gen):
+                episode, gen, debug_step=None):
+    """One step; with ``debug_step`` (an int) the result is checked by
+    :func:`check_finite`."""
     (loss, aux), grads = value_and_grad(family, params, episode, gen)
     with torch.no_grad():
         updates, opt_state = opt.update(grads, opt_state, params)
-        params = optim.apply_updates(params, updates)
+        new_params = optim.apply_updates(params, updates)
+        if debug_step is not None:
+            check_finite(debug_step, loss, grads, new_params)
         metrics = _train_metrics(family, loss, aux, episode, grads)
-    return params, opt_state, metrics
+    return new_params, opt_state, metrics
 
 
-def steps_from_family(family: Family, opt: optim.Optimizer) -> FamilySteps:
-    """Wrap a Family into train/eval steps."""
-    def train_step(params, opt_state, episode, gen):
-        return _train_step(family, opt, params, opt_state, episode, gen)
+def steps_from_family(family: Family, opt: optim.Optimizer,
+                      debug_nans: bool = False) -> FamilySteps:
+    """Wrap a Family into train/eval steps. ``debug_nans`` checks every
+    train step (:func:`check_finite`); ``train_step(..., step=i)`` names
+    the step, which otherwise counts on from the last one (from 0)."""
+    count = [0]
+
+    def train_step(params, opt_state, episode, gen, step=None):
+        if step is None:
+            step = count[0]
+        count[0] = step + 1
+        return _train_step(family, opt, params, opt_state, episode, gen,
+                           step if debug_nans else None)
 
     def eval_step(params, episode, gen):
         with torch.no_grad():
@@ -626,7 +667,7 @@ def make_steps(cfg: Config, gen: torch.Generator,
     family = build_family(cfg, gen, dictionary)
     family = family._replace(params={k: v.to(dev)
                                      for k, v in family.params.items()})
-    return steps_from_family(family, make_opt(cfg))
+    return steps_from_family(family, make_opt(cfg), cfg.debug_nans)
 
 
 # ---------------------------------------------------------------------------
@@ -642,21 +683,25 @@ def _stack(per_step) -> Dict[str, torch.Tensor]:
 
 def make_chunked_train(family: Family, opt: optim.Optimizer, sampler,
                        chunk: int, accum: int = 1,
-                       watch: bool = False) -> Callable:
-    """``(params, opt_state, gen, n=chunk) -> (params, opt_state, gen,
-    metrics)`` running ``n`` device-sampled train steps; each metric is
-    ``(n,)`` on the device (no host sync inside the chunk)."""
+                       watch: bool = False,
+                       debug_nans: bool = False) -> Callable:
+    """``(params, opt_state, gen, n=chunk, first_step=0) -> (params,
+    opt_state, gen, metrics)`` running ``n`` device-sampled train steps;
+    each metric is ``(n,)`` on the device (no host sync inside the chunk).
+    ``debug_nans`` checks each step (:func:`check_finite`, one sync a
+    step), numbering the steps from ``first_step``."""
     if accum > 1 or watch:
         raise NotImplementedError(
             "--tpu_grad_accum > 1 and --tpu_watch are not ported yet "
             "(ROADMAP.md Queue 1, item 9: scale-out extensions)")
 
-    def run(params, opt_state, gen, n=chunk):
+    def run(params, opt_state, gen, n=chunk, first_step=0):
         per_step = []
-        for _ in range(n):
+        for j in range(n):
             episode = sampler.sample(gen)
-            params, opt_state, m = _train_step(family, opt, params,
-                                               opt_state, episode, gen)
+            params, opt_state, m = _train_step(
+                family, opt, params, opt_state, episode, gen,
+                first_step + j if debug_nans else None)
             per_step.append(m)
         return params, opt_state, gen, _stack(per_step)
     return run

@@ -12,8 +12,9 @@ the JAX package's where both compute the same thing.
   FuMI's test metrics exactly; ``--tpu_auto_resume`` continues the batch
   counter of the newest run of the same family.
 - What the driver does not run yet raises ``NotImplementedError`` naming
-  its ROADMAP.md item; without CUDA and without ``--disable_cuda`` it
-  raises.
+  its ROADMAP.md item, and what it has run since the training extensions
+  and the host samplers were ported runs; without CUDA and without
+  ``--disable_cuda`` it raises.
 """
 
 import dataclasses
@@ -236,27 +237,51 @@ def test_auto_resume_continues_the_counter_of_its_own_family(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # the datasets, the registry, the meta-gradient variants, the raw-image
-    # backbones and the bf16 policy run since they were ported; the
-    # training extensions of item 10 still wait, on any of them
-    (["--model", "am3", "--text_encoder", "glove", "--im_encoder",
-      "conv4", "--tpu_skip_nonfinite", "2"], "item 10"),
-    (["--model", "maml", "--tpu_meta_grad", "reptile", "--im_encoder",
-      "resnet12", "--tpu_ema", "0.5"], "item 10"),
-    (["--model", "protonet", "--tpu_compute_dtype", "bfloat16",
-      "--tpu_debug_nans"], "item 10"),
-    (["--dataset", "cub", "--tpu_debug_nans"], "item 10"),
-    (["--tpu_host_sampler"], "item 4"), (["--tpu_seed_sweep", "2"],
-                                         "item 9"),
-    (["--tpu_mesh_mp", "2"], "item 9"), (["--tpu_ema", "0.9"], "item 10"),
+    (["--tpu_seed_sweep", "2"], "item 9"), (["--tpu_mesh_mp", "2"],
+                                            "item 9"),
     (["--tpu_profile_dir", "trace"], "item 9"),
     (["--tpu_import", "os", "--tpu_watch"], "item 9"),
+    # resolving a wandb run path needs the network
     (["--checkpoint", "someone/proj/run1"], "item 4"),
 ])
 def test_what_is_not_ported_raises_naming_its_item(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         cli_main.main(config.config_from_args(
             argv(tmp_path, "fumi") + extra))
+
+
+RAW_SMALL = ["--tpu_im_size", "16"]
+
+
+@pytest.mark.parametrize("extra", [
+    # the cases the driver rejected until the training extensions (item
+    # 10) and the host samplers (item 4b) were ported, raw images at 16x16
+    ["--model", "am3", "--text_encoder", "glove", "--im_encoder", "conv4",
+     "--tpu_skip_nonfinite", "2", *RAW_SMALL],
+    ["--model", "maml", "--tpu_meta_grad", "reptile", "--im_encoder",
+     "resnet12", "--tpu_ema", "0.5", *RAW_SMALL,
+     "--tpu_resnet12_channels", "4", "6", "8", "8"],
+    ["--model", "protonet", "--tpu_compute_dtype", "bfloat16",
+     "--tpu_debug_nans"],
+    ["--dataset", "cub", "--tpu_debug_nans"],
+    ["--tpu_host_sampler"], ["--tpu_ema", "0.9"],
+], ids=["am3-glove-conv4-skip", "maml-reptile-resnet12-ema",
+        "protonet-bf16-debug-nans", "cub-debug-nans", "host-sampler",
+        "fumi-ema"])
+def test_the_training_extensions_and_host_samplers_run(tmp_path, capsys,
+                                                       monkeypatch, extra):
+    """Each runs to a finite ``TEST`` line now. ``--dataset cub`` reads
+    the synthetic splits here (the CUB loader has its own tests)."""
+    from fumi_tpu_torch.data.synthetic import synthetic_splits
+    monkeypatch.setattr(cli_main, "load_cub", lambda data_dir: (
+        synthetic_splits(num_classes=32, images_per_class=40, im_dim=32,
+                         text_dim=16, seed=0)))
+    out = cli_main.main(config.config_from_args(
+        argv(tmp_path, "fumi", epochs=2, eval_freq=2) + extra))
+    assert np.isfinite(out["test/loss"]) and 0 <= out["test/acc"] <= 1
+    printed = capsys.readouterr().out
+    assert ("host sampler backend: native" in printed) == \
+        ("--tpu_host_sampler" in extra)
 
 
 def test_without_cuda_the_driver_raises_unless_asked_for_the_cpu(
@@ -309,10 +334,13 @@ def test_atomic_swap_restores_aside_renamed_state(tmp_path):
 
 def test_resolve_checkpoint_passes_a_local_dir_and_rejects_the_rest(
         tmp_path):
+    """A local run dir and a local ``.pth.tar`` file pass through (the
+    file is imported by ``load_checkpoint``); a wandb run path needs the
+    network and raises."""
     assert checkpoint.resolve_checkpoint(str(tmp_path), "fumi") == \
         str(tmp_path)
     ref = tmp_path / "best.pth.tar"
     ref.write_bytes(b"x")
-    for target in (str(ref), "entity/project/run"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            checkpoint.resolve_checkpoint(target, "fumi")
+    assert checkpoint.resolve_checkpoint(str(ref), "fumi") == str(ref)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        checkpoint.resolve_checkpoint("entity/project/run", "fumi")

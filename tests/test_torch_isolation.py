@@ -91,6 +91,18 @@ def test_the_backbone_and_bf16_modules_are_among_those_checked():
             "fumi_tpu_torch.data.synthetic"} <= set(port_modules())
 
 
+def test_the_extension_and_interop_modules_are_among_those_checked():
+    """The reference-checkpoint importer, its export CLI and the native
+    sampler's loader are walked by the import checks above; the loader's
+    source is the port's own copy, never the JAX package's library (which
+    ``tests/test_torch_host_sampler.py`` checks in a fresh process)."""
+    assert {"fumi_tpu_torch.interop", "fumi_tpu_torch.cli.export_torch",
+            "fumi_tpu_torch.native"} <= set(port_modules())
+    from fumi_tpu_torch import native
+    assert native.SOURCE.startswith(PKG_DIR + os.sep)
+    assert native.lib_path().startswith(os.path.join(PKG_DIR, "build"))
+
+
 def test_source_has_no_jax_or_fumi_tpu_import():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|fumi_tpu)(\.|\s|$)", re.M)

@@ -10,6 +10,7 @@ held against JAX too.
 import numpy as np
 import jax
 import pytest
+import torch
 
 from fumi_tpu.core.config import Config as JaxConfig
 from fumi_tpu.serve import FewShotClassifier as JaxClassifier
@@ -168,14 +169,24 @@ def test_unported_configs_raise(kw):
 
 def test_checkpoint_loading_not_ported(pairs, tmp_path):
     """Run dirs of the port's driver load (tests/test_torch_serve_checkpoint
-    .py); a reference .pth.tar file does not yet."""
+    .py), and since the import was ported so does a reference .pth.tar
+    (tests/test_torch_interop.py): the classifier serves the file's
+    weights; a file that does not load is a ``ValueError``."""
+    from fumi_tpu_torch import interop
+    clf = pairs["fumi"][1]
+    good = str(tmp_path / "fumi.pth.tar")
+    interop.export_torch_checkpoint(good, clf.params, "fumi")
+    served = FewShotClassifier.from_checkpoint(good, Config(**cfg_kw("fumi")),
+                                               device="cpu")
+    assert all(torch.equal(served.params[k], v)
+               for k, v in clf.params.items())
     ref = tmp_path / "best.pth.tar"
     ref.write_bytes(b"x")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="not a loadable torch checkpoint"):
         FewShotClassifier.from_checkpoint(str(ref), Config(**cfg_kw("fumi")),
                                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pairs["fumi"][1].reload(str(ref))
+    with pytest.raises(ValueError, match="not a loadable torch checkpoint"):
+        clf.reload(str(ref))
 
 
 def test_rand_encoder_seeds_independent_of_bucket():

@@ -127,8 +127,12 @@ def test_reload_and_from_checkpoint_reject_what_is_not_ported(runs,
     clf = FewShotClassifier.from_checkpoint(run, cfg, device="cpu")
     ref = tmp_path / "best.pth.tar"
     ref.write_bytes(b"x")
-    with pytest.raises(NotImplementedError, match="item 4b"):
+    # a .pth.tar is imported now; one that does not load is the caller's
+    # error, and the weights stay as they were
+    before = {k: v.clone() for k, v in clf.params.items()}
+    with pytest.raises(ValueError, match="not a loadable torch checkpoint"):
         clf.reload(str(ref))
+    assert all(torch.equal(clf.params[k], v) for k, v in before.items())
     with pytest.raises(ValueError, match="cannot restore"):
         clf.reload(str(tmp_path))  # no ckpt/ or best/
     assert serving_dictionary(cfg) is None

@@ -281,9 +281,8 @@ def test_reload_over_http(tmp_path):
         ref = tmp_path / "best.pth.tar"
         ref.write_bytes(b"x")
         status, payload = call(url, "/v1/reload", {"checkpoint": str(ref)})
-        assert status == 400
-        assert "not ported" in payload["error"] \
-            and "item 4b" in payload["error"]
+        assert status == 400  # as the JAX server answers a corrupt file
+        assert "not a loadable torch checkpoint" in payload["error"]
         assert call(url, "/v1/episode", body)[1]["result"] == after
     finally:
         server.shutdown()

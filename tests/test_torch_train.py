@@ -231,8 +231,25 @@ def test_zero_updates_for_key_matches():
 @pytest.mark.parametrize("kw,item", [(dict(ema=0.9), "item 10"),
                                      (dict(skip_nonfinite=3), "item 10")])
 def test_unported_optimizer_wrappers_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        steps.make_opt(Config(**cfg_kw("fumi", **kw)))
+    """The optimizer wrappers of ROADMAP.md item 10, which raised until
+    they were ported: ``make_opt`` now wraps the optimizer as the JAX
+    package's does, and one update of both agrees."""
+    cfg = Config(**cfg_kw("fumi", **kw))
+    t_opt = steps.make_opt(cfg)
+    j_opt = jax_steps.make_opt(JaxConfig(**cfg_kw("fumi", **kw)))
+    tp = {"w": torch.ones(3)}
+    state = t_opt.init(tp)
+    if "ema" in kw:
+        assert set(state) == {"0", "1"} and set(state["1"]) == {"ema"}
+    else:
+        assert set(state) == {"notfinite_count", "last_finite",
+                              "total_notfinite", "inner_state"}
+    g = np.array([1.0, -2.0, 0.5], np.float32)
+    upd, state = t_opt.update({"w": torch.from_numpy(g)}, state, tp)
+    jp = {"w": jnp.ones(3)}
+    j_upd, _ = j_opt.update({"w": jnp.asarray(g)}, j_opt.init(jp), jp)
+    np.testing.assert_allclose(upd["w"].numpy(), np.asarray(j_upd["w"]),
+                               rtol=1e-6, atol=1e-9)
 
 
 # ---------------------------------------------------------------------------
