@@ -147,6 +147,31 @@ fails:
    with a corrupt file (400), the import's load time;
 7s. ``resnet12.STAGE_REMAT_OVERRIDE`` against ``--tpu_remat auto`` at 2
    tasks of 5+5 a class: loss and meta-gradient bitwise, peak memory;
+7t. the seed sweep at S=4 for FuMI and MAML at the flagship width on
+   phase 5's sampler: a chunk of 10 lockstep steps (4
+   ``gather_episode_rows`` a step), each seed bitwise its standalone
+   chunk, MAML ``--tpu_seed_accum 2`` bitwise the ungrouped sweep, a
+   frozen seed holding, episodes/s beside one standalone run's, the busy
+   share of a sweep step, the sweep's eval through the fused kernels (one
+   launch a seed a meta-batch);
+7u. the driver with ``--tpu_seed_sweep 4`` for FuMI (phase 7's flags and
+   epochs): the report's ``_seed_ci95`` keys, four CSVs, the ``seed<k>/``
+   run dirs reproducing each seed's test numbers (seed 0 through
+   ``--evaluate --checkpoint``), ``--tpu_auto_resume`` of an interrupted
+   sweep equal to the uninterrupted one;
+7v. that run dir served as a ``SeedEnsemble`` (``serve_http`` detects
+   it): R=1 and R=4 requests through one ``fused_adapt`` launch a replica
+   against the engine, over HTTP with ``/v1/reload``, the latency at S=4
+   beside one replica's;
+7w. FuMI at B=16 with ``--tpu_grad_accum 4`` against the whole batch
+   (loss and meta-gradient within 1e-5), the peak memory and episodes/s
+   of each;
+7x. a FuMI chunk with ``--tpu_watch``: params bitwise the unwatched
+   chunk's, the counts summing to the sampled steps × the parameter
+   count, episodes/s beside the unwatched chunk;
+7y. a FuMI driver run with ``--tpu_profile_dir``: the trace names
+   ``gather_episode_rows`` and ``fused_adapt``, and its kernels' device
+   time by name;
 8. time each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, and each path; time a
    FuMI R=1 request through ``fused_adapt`` and through the autograd
@@ -164,7 +189,7 @@ fails:
 9. print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Every path of phases 4-7s sets the kernels' launch counts to 0 just before
+Every path of phases 4-7y sets the kernels' launch counts to 0 just before
 it runs and reads them just after; it fails if it did not launch each
 kernel it runs, as many times as the path runs it.
 
@@ -3195,12 +3220,7 @@ def raw_drivers_phase(dev, root, card, reset_counts, read_counts,
     bfloat16``; each run dir served with ``from_checkpoint`` (a request
     card against CPU), and the conv4 MAML run over HTTP (one raw request,
     5-D; the answer equal to the in-process one). Returns the times."""
-    import glob
-    import numpy as np
     import torch
-    from fumi_tpu_torch.cli import main as cli_main
-    from fumi_tpu_torch.core.config import config_from_args
-    from fumi_tpu_torch.serve import FewShotClassifier
     times = {}
     train_n, eval_n = driver_batches(VARIANT_EPOCHS, VARIANT_EP_TEST)
     common = ["--dataset", "synthetic", "--tpu_pallas_gather",
@@ -3213,68 +3233,86 @@ def raw_drivers_phase(dev, root, card, reset_counts, read_counts,
              ("fumi bf16", ["--model", "fumi", "--tpu_compute_dtype",
                             "bfloat16", "--tpu_pallas_fused_eval"]))
     for label, extra in cases:
-        log_dir = os.path.join(root, label.replace(" ", "-"))
-        argv = extra + common + ["--log_dir", log_dir]
-        cfg = config_from_args(argv)
-        buf = io.StringIO()
-        reset_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            test = cli_main.main(cfg, dev)
-        torch.cuda.synchronize()
-        times[f"driver {label} s"] = time.perf_counter() - t0
-        by_path[f"driver {label}"] = counts = read_counts()
-        run = glob.glob(os.path.join(log_dir, "runs", "*"))[0]
-        print(f"main path, driver {label}: TEST {test}; "
-              f"{times[f'driver {label} s']:.3f} s; launches {counts} "
-              f"[{card}]")
-        if not (np.isfinite(test["test/loss"])
-                and 0 <= test["test/acc"] <= 1 and counts == new_counts(
-                    gather_episode_rows=train_n + eval_n)):
-            fail(f"driver {label}: TEST {test}, launches {counts}, "
-                 f"expected {train_n + eval_n} gathers")
-        clf = FewShotClassifier.from_checkpoint(run, cfg, best=False,
-                                                device=dev)
-        if "conv4" in label:
-            request = raw_request(35)
-        else:
-            srng = np.random.RandomState(36)
-            request = (srng.randn(S, D).astype(np.float32),
-                       np.repeat(np.arange(WAYS), SHOTS).astype(np.int32),
-                       srng.randn(QN, D).astype(np.float32),
-                       srng.randn(S, E).astype(np.float32))
-        times[f"request {label} ms"] = served_vs_fp64(
-            f"{label} from its run dir", clf, request)
-        if label == "maml conv4":
-            s_im, s_y, q_im, _ = request
-            body = {"support_im": s_im[None].tolist(),
-                    "support_y": s_y[None].tolist(),
-                    "query_im": q_im[None].tolist(), "return": "logits"}
-            # the same cuDNN algorithms for both answers: 100 steps through
-            # batch-stat norms carry the backward's atomics' rounding to
-            # ~1e-3 from run to run
-            torch.backends.cudnn.deterministic = True
-            try:
-                want = clf.episode_logits_batch(s_im[None], s_y[None],
-                                                q_im[None])
-                with loopback(clf) as call:
-                    t0 = time.perf_counter()
-                    status, answer = call("/v1/episode_batch", body)
-                    times["http raw ms"] = 1e3 * (time.perf_counter() - t0)
-            finally:
-                torch.backends.cudnn.deterministic = False
-            got = np.asarray(answer.get("result", []), np.float32)
-            err = float(np.abs(got - want).max()) if got.shape == \
-                want.shape else float("inf")
-            print(f"http raw request (5-D, 1x{S}x{RAW_SIZE}x{RAW_SIZE}x"
-                  f"{RAW_CHANNELS} support, {RAW_REQUEST_Q} queries): status "
-                  f"{status}, max|diff| to in process {err:.3e} (tolerance "
-                  f"1e-5), {times['http raw ms']:.1f} ms [{card}]")
-            if status != 200 or err > 1e-5:
-                fail("http raw request: wrong status or answer")
-        del clf
-        torch.cuda.empty_cache()
+        # the conv4 cases run cuDNN's deterministic algorithms: the
+        # backward's atomics otherwise make each run train other weights,
+        # and 100 served SGD steps through batch-stat norms at FuMI's
+        # logit scale (~25) carry that into both devices' distance to fp64
+        # (0.02 to 4 from run to run, on either device); with one set of
+        # weights each run reads the same distances, and the HTTP answer
+        # is the in-process one to the bit
+        torch.backends.cudnn.deterministic = "conv4" in label
+        try:
+            raw_driver_case(label, extra + common, root, dev, card,
+                            reset_counts, read_counts, by_path, times,
+                            train_n + eval_n)
+        finally:
+            torch.backends.cudnn.deterministic = False
     return times
+
+
+def raw_driver_case(label, argv, root, dev, card, reset_counts, read_counts,
+                    by_path, times, gathers) -> None:
+    """One case of :func:`raw_drivers_phase`: the driver on ``argv``
+    (``gathers`` episode launches), its run dir served against fp64, and
+    for conv4 MAML one raw request over HTTP; its times into ``times``."""
+    import glob
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.config import config_from_args
+    from fumi_tpu_torch.serve import FewShotClassifier
+    log_dir = os.path.join(root, label.replace(" ", "-"))
+    cfg = config_from_args(argv + ["--log_dir", log_dir])
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        test = cli_main.main(cfg, dev)
+    torch.cuda.synchronize()
+    times[f"driver {label} s"] = time.perf_counter() - t0
+    by_path[f"driver {label}"] = counts = read_counts()
+    run = glob.glob(os.path.join(log_dir, "runs", "*"))[0]
+    print(f"main path, driver {label}: TEST {test}; "
+          f"{times[f'driver {label} s']:.3f} s; launches {counts} "
+          f"[{card}]")
+    if not (np.isfinite(test["test/loss"])
+            and 0 <= test["test/acc"] <= 1
+            and counts == new_counts(gather_episode_rows=gathers)):
+        fail(f"driver {label}: TEST {test}, launches {counts}, "
+             f"expected {gathers} gathers")
+    clf = FewShotClassifier.from_checkpoint(run, cfg, best=False,
+                                            device=dev)
+    if "conv4" in label:
+        request = raw_request(35)
+    else:
+        srng = np.random.RandomState(36)
+        request = (srng.randn(S, D).astype(np.float32),
+                   np.repeat(np.arange(WAYS), SHOTS).astype(np.int32),
+                   srng.randn(QN, D).astype(np.float32),
+                   srng.randn(S, E).astype(np.float32))
+    times[f"request {label} ms"] = served_vs_fp64(
+        f"{label} from its run dir", clf, request)
+    if label == "maml conv4":
+        s_im, s_y, q_im, _ = request
+        body = {"support_im": s_im[None].tolist(),
+                "support_y": s_y[None].tolist(),
+                "query_im": q_im[None].tolist(), "return": "logits"}
+        want = clf.episode_logits_batch(s_im[None], s_y[None], q_im[None])
+        with loopback(clf) as call:
+            t0 = time.perf_counter()
+            status, answer = call("/v1/episode_batch", body)
+            times["http raw ms"] = 1e3 * (time.perf_counter() - t0)
+        got = np.asarray(answer.get("result", []), np.float32)
+        err = float(np.abs(got - want).max()) if got.shape == \
+            want.shape else float("inf")
+        print(f"http raw request (5-D, 1x{S}x{RAW_SIZE}x{RAW_SIZE}x"
+              f"{RAW_CHANNELS} support, {RAW_REQUEST_Q} queries): status "
+              f"{status}, max|diff| to in process {err:.3e} (tolerance "
+              f"1e-5), {times['http raw ms']:.1f} ms [{card}]")
+        if status != 200 or err > 1e-5:
+            fail("http raw request: wrong status or answer")
+    del clf
+    torch.cuda.empty_cache()
 
 
 def time_raw_bf16_gathers(table, dev) -> dict:
@@ -3979,6 +4017,562 @@ def pr11_phases(names, Config, dev, root, card, ctx, reset_counts,
     return times
 
 
+# ---------------------------------------------------------------------------
+# Phases 7t-7y: the seed sweep, its driver, the seed ensemble, grad-accum,
+# --tpu_watch and --tpu_profile_dir
+# ---------------------------------------------------------------------------
+
+# S=4 seeds (the JAX package's flagship sweep), chunks of 10 lockstep
+# steps; grad-accum at B=16 in 4 micro-batches, chunks of 5 steps; the
+# watched chunk is 16 steps (two sampled blocks of WATCH_STRIDE 8); the
+# traced driver run trains 5 steps
+SWEEP_S, SWEEP_CHUNK, FROZEN_STEPS = 4, 10, 2
+ACCUM_B, ACCUM, ACCUM_CHUNK = 16, 4, 5
+WATCH_CHUNK, TRACE_EPOCHS = 16, 4
+
+
+def trees_equal(a, b) -> bool:
+    """Nested state dicts bitwise equal (tensors) or equal (ints)."""
+    import torch
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(trees_equal(a[k], b[k]) for k in a)
+    if torch.is_tensor(a):
+        return torch.equal(a, b)
+    return a == b
+
+
+def sweep_phase(Config, dev, card, samplers, reset_counts, read_counts,
+                by_path) -> dict:
+    """Phase 7t: FuMI and MAML sweeps of S=4 seeds at the flagship width
+    on phase 5's sampler (kernel gather): a timed chunk of 10 lockstep
+    steps (S ``gather_episode_rows`` a step), each seed's params and
+    optimizer state bitwise those of a standalone chunk of that seed (its
+    init, its generator) on the same card, timed too; MAML with
+    ``--tpu_seed_accum 2`` bitwise the same; a frozen seed holding its
+    state while its generator advances; the busy share of a sweep step;
+    and the sweep's eval through the fused kernel (one launch a seed a
+    meta-batch), seed 0's within 1e-6 of its standalone eval. Returns the
+    times."""
+    import torch
+    from fumi_tpu_torch.train import steps, sweep
+    from fumi_tpu_torch.train.loop import TRAIN, VAL, stream_generator
+    train_smp, eval_smp = samplers
+    times = {}
+    for model in ("fumi", "maml"):
+        cfg = train_cfg(Config, model, seed_sweep=SWEEP_S,
+                        pallas_fused_eval=True)
+        seeds = sweep.sweep_seeds(cfg)
+        family = sweep.build_sweep_family(cfg, device=dev)
+        opt = steps.make_opt(cfg)
+        init = [sweep.unstack_tree(family.params, i) for i in range(SWEEP_S)]
+        states = [opt.init(p) for p in init]
+
+        def gens():
+            return [stream_generator(s, TRAIN, 0, dev) for s in seeds]
+
+        def chunk(accum_seeds=1, live=(True,) * SWEEP_S, n=SWEEP_CHUNK):
+            run = sweep.make_sweep_chunked_train(family, opt, train_smp,
+                                                 SWEEP_CHUNK,
+                                                 seed_accum=accum_seeds)
+            return run(init, states, gens(), list(live), n)
+        chunk(n=1)  # warm
+        box = {}
+        reset_counts()
+        seconds = synced_s(lambda: box.update(out=chunk()))
+        counts = read_counts()
+        add_counts(by_path, f"sweep train {model} S={SWEEP_S}", counts)
+        p, s, g, ms = box["out"]
+        eps = SWEEP_CHUNK * B * SWEEP_S / seconds
+        if counts != new_counts(gather_episode_rows=SWEEP_S * SWEEP_CHUNK) \
+                or not bool(torch.isfinite(ms["loss"]).all()):
+            fail(f"sweep train {model}: launches {counts} or non-finite "
+                 "losses")
+        solo_s, same = [], []
+        for i, seed in enumerate(seeds):
+            st = steps.make_steps(cfg.replace(seed=seed, seed_sweep=0),
+                                  torch.Generator().manual_seed(seed),
+                                  device=dev)
+            run = steps.make_chunked_train(st.family, st.opt, train_smp,
+                                           SWEEP_CHUNK)
+            sbox = {}
+            solo_s.append(synced_s(lambda: sbox.update(out=run(
+                st.params, st.opt.init(st.params),
+                stream_generator(seed, TRAIN, 0, dev)))))
+            sp, ss, _, sm = sbox["out"]
+            same.append(trees_equal(p[i], sp) and trees_equal(s[i], ss)
+                        and torch.equal(ms["loss"][:, i], sm["loss"]))
+        solo_eps = SWEEP_CHUNK * B / solo_s[0]
+        times[f"sweep {model} eps"] = eps
+        times[f"standalone {model} eps"] = solo_eps
+        print(f"main path, sweep train {model} S={SWEEP_S}: {SWEEP_CHUNK} "
+              f"lockstep steps in {seconds:.3f} s = {eps:.1f} episodes/s "
+              f"(all seeds); one standalone run {solo_eps:.1f} episodes/s "
+              f"({solo_s[0]:.3f} s for the same steps of seed 0); each "
+              f"seed bitwise its standalone chunk: {same}; launches "
+              f"{counts} [{card}]")
+        if not all(same):
+            fail(f"sweep train {model}: a replica differs from its "
+                 "standalone chunk")
+
+        if model == "maml":
+            reset_counts()
+            grouped = chunk(accum_seeds=2)
+            counts = read_counts()
+            add_counts(by_path, f"sweep train maml --tpu_seed_accum 2",
+                       counts)
+            equal = all(trees_equal(grouped[0][i], p[i])
+                        and trees_equal(grouped[1][i], s[i])
+                        for i in range(SWEEP_S))
+            print(f"main path, sweep train maml --tpu_seed_accum 2: bitwise "
+                  f"the ungrouped sweep {equal}; launches {counts}")
+            if not equal or counts != new_counts(
+                    gather_episode_rows=SWEEP_S * SWEEP_CHUNK):
+                fail("--tpu_seed_accum 2 changed the sweep")
+
+        live = [True, False] + [True] * (SWEEP_S - 2)
+        fp, fs, fg, _ = chunk(live=live, n=FROZEN_STEPS)
+        held = trees_equal(fp[1], init[1]) and trees_equal(fs[1], states[1])
+        ref = chunk(n=FROZEN_STEPS)
+        advanced = torch.equal(fg[1].get_state(), ref[2][1].get_state())
+        print(f"sweep train {model}: a frozen seed held its params and "
+              f"optimizer state {held}, its generator advanced as a live "
+              f"seed's {advanced}")
+        if not (held and advanced):
+            fail(f"sweep train {model}: the frozen seed did not hold")
+
+        wall_ms = 1e3 * seconds / SWEEP_CHUNK
+        traced = device_profile(lambda: chunk(n=2))
+        if traced is None:
+            print(f"sweep {model}: device busy share not measured (the "
+                  f"profiler recorded no device time) [{card}]")
+        else:
+            dev_ms = traced[0] / 2
+            times[f"sweep {model} busy"] = dev_ms / wall_ms
+            print(f"sweep {model} S={SWEEP_S}: device time {dev_ms:.3f} ms "
+                  f"a lockstep step in {traced[1] / 2:.0f} device "
+                  f"operations against {wall_ms:.3f} ms of wall time: busy "
+                  f"{100 * dev_ms / wall_ms:.1f}% [{card}]")
+
+        kernel = "fused_adapt" if model == "fumi" else \
+            "fused_maml_adapt_batched"
+        views = [sweep.unstack_tree(family.params, i)
+                 for i in range(SWEEP_S)]
+        reset_counts()
+        ev = sweep.make_sweep_chunked_eval(family, eval_smp)(
+            views, [stream_generator(s, VAL, 1, dev) for s in seeds],
+            EVAL_BATCHES)
+        counts = read_counts()
+        add_counts(by_path, f"sweep eval {model} S={SWEEP_S}", counts)
+        solo = steps.make_chunked_eval(family, eval_smp)(
+            views[0], stream_generator(seeds[0], VAL, 1, dev),
+            EVAL_BATCHES)[1]
+        diff = float((ev["loss"][0] - solo["loss"]).abs().max())
+        print(f"main path, sweep eval {model}: {EVAL_BATCHES} meta-batches "
+              f"a seed, loss {ev['loss'].mean(dim=1).tolist()}; seed 0 vs "
+              f"its standalone eval max|diff| {diff:.3e} (tolerance 1e-6); "
+              f"launches {counts}")
+        want = new_counts(gather_episode_rows=SWEEP_S * EVAL_BATCHES,
+                          **{kernel: SWEEP_S * EVAL_BATCHES})
+        if counts != want or not diff <= 1e-6:
+            fail(f"sweep eval {model}: launches {counts}, expected {want}, "
+                 "or seed 0 differs from its standalone eval")
+    return times
+
+
+def sweep_driver_phase(dev, root, card, reset_counts, read_counts,
+                       by_path) -> dict:
+    """Phase 7u: ``cli.main --tpu_seed_sweep 4`` for FuMI at the flagship
+    width on ``--dataset synthetic --augment --tpu_pallas_gather
+    --tpu_pallas_fused_eval`` (phase 7's epochs): the report's keys, four
+    CSVs, the ``seed<k>/`` run dirs (``--evaluate --checkpoint seed0``
+    reproduces seed 0's test numbers; every seed's dir, tested on the
+    sweep's data with its own test stream, reproduces its own), and
+    ``--tpu_auto_resume`` of a sweep interrupted after batch 11 equal to
+    the uninterrupted one. Returns the times and the run dir with its
+    arguments."""
+    import glob
+    import numpy as np
+    import torch
+    from fumi_tpu_torch.cli import main as cli_main
+    from fumi_tpu_torch.core.config import config_from_args
+    from fumi_tpu_torch.train import checkpoint, loop, steps
+
+    def args_for(log_dir, epochs=DRIVER_EPOCHS, *extra):
+        return ["--model", "fumi", "--dataset", "synthetic", "--augment",
+                "--tpu_pallas_gather", "--tpu_pallas_fused_eval", "--epochs",
+                str(epochs), "--eval_freq", str(DRIVER_EVAL_FREQ),
+                "--num_ep_test", str(DRIVER_EP_TEST), "--seed", "0",
+                "--wandb_offline", "--log_dir", log_dir, *extra]
+    sweep_flags = ("--tpu_seed_sweep", str(SWEEP_S))
+    times = {}
+    log_dir = os.path.join(root, "sweep")
+    args = args_for(log_dir, DRIVER_EPOCHS, *sweep_flags)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cli_main.cli(args)
+    times["driver sweep s"] = time.perf_counter() - t0
+    counts = read_counts()
+    add_counts(by_path, f"driver fumi --tpu_seed_sweep {SWEEP_S}", counts)
+    want = new_counts(gather_episode_rows=SWEEP_S * (DRIVER_TRAIN_STEPS
+                                                     + DRIVER_EVAL_BATCHES),
+                      fused_adapt=SWEEP_S * DRIVER_EVAL_BATCHES)
+    (run,) = glob.glob(os.path.join(log_dir, "runs", "*"))
+    csvs = sorted(glob.glob(os.path.join(log_dir, "results", "*.csv")))
+    rows = [len(open(c).read().splitlines()) - 1 for c in csvs]
+    keys = all(f"test/{k}" in out and f"test/{k}_seed_ci95" in out
+               and all(f"test/seed{s}/{k}" in out for s in range(SWEEP_S))
+               for k in ("loss", "acc"))
+    print(f"main path, driver fumi --tpu_seed_sweep {SWEEP_S}: SWEEP TEST "
+          f"{ {k: v for k, v in out.items() if '/' not in k[5:]} } in "
+          f"{times['driver sweep s']:.3f} s; CSVs "
+          f"{[os.path.basename(c) for c in csvs]} with {rows} rows; "
+          f"launches {counts} [{card}]")
+    if counts != want or not keys or rows != [DRIVER_TEST_BATCHES * B] * \
+            SWEEP_S or not all(np.isfinite(v) for v in out.values()):
+        fail(f"driver sweep: launches {counts} (expected {want}), the "
+             "report's keys or the CSVs")
+
+    again = cli_main.cli(args_for(
+        log_dir + "_evaluate", DRIVER_EPOCHS, "--evaluate", "--checkpoint",
+        os.path.join(run, "seed0")))
+    diff0 = max(abs(again[k] - out[f"test/seed0/{k[5:]}"]) for k in again)
+    cfg = config_from_args(args)
+    splits, table, ids, _ = cli_main._load_data(cfg)
+    test_s = cli_main._samplers(cfg, splits, table, ids, dev)[2]
+    diffs = []
+    for s in range(SWEEP_S):
+        solo = cfg.replace(seed=s, seed_sweep=0)
+        st = steps.make_steps(solo, torch.Generator(), device=dev)
+        p, state, _ = checkpoint.load_checkpoint(
+            os.path.join(run, f"seed{s}"), st.params, st.opt.init(st.params))
+        got = loop.test_loop(solo, st, loop.eval_view(solo, p, state),
+                             test_s, solo.max_test_batches,
+                             loop.stream_generator(s, loop.TEST, 0, dev))
+        diffs.append(max(abs(got[k] - out[f"test/seed{s}/{k}"])
+                         for k in ("loss", "acc")))
+    print(f"driver sweep: --evaluate --checkpoint <run>/seed0 vs seed 0's "
+          f"test max|diff| {diff0:.3e}; each seed<k>/ tested on the sweep's "
+          f"data vs its test numbers {['%.3e' % d for d in diffs]} "
+          "(tolerance 1e-6)")
+    if not (diff0 <= 1e-6 and max(diffs) <= 1e-6):
+        fail("driver sweep: the seed<k>/ run dirs do not reproduce the "
+             "seeds' test numbers")
+
+    crash_dir = os.path.join(root, "sweep-crash")
+    cli_main.cli(args_for(crash_dir, DRIVER_EVAL_FREQ + 1, *sweep_flags))
+    t0 = time.perf_counter()
+    resumed = cli_main.cli(args_for(crash_dir, DRIVER_EPOCHS, *sweep_flags,
+                                    "--tpu_auto_resume"))
+    times["driver sweep resumed s"] = time.perf_counter() - t0
+    diff = max(abs(resumed[k] - out[k]) for k in out)
+    print(f"driver sweep: interrupted after batch {DRIVER_EVAL_FREQ + 1}, "
+          f"resumed with --tpu_auto_resume: max|diff| to the uninterrupted "
+          f"report {diff:.3e} (tolerance 1e-6), keys equal "
+          f"{set(resumed) == set(out)}")
+    if set(resumed) != set(out) or not diff <= 1e-6:
+        fail("driver sweep: the resumed sweep differs from the "
+             "uninterrupted one")
+    times["run"] = (run, args)
+    return times
+
+
+def ensemble_phase(dev, card, sweep_run, request, batch, reset_counts,
+                   read_counts, by_path) -> dict:
+    """Phase 7v: phase 7u's sweep run dir served as a ``SeedEnsemble``
+    (``serve_http.build_classifier`` detects it): a FuMI request (M=100)
+    and a batch of R=4 each through S ``fused_adapt`` launches (one a
+    replica for the whole batch), against the autograd engine
+    (``force_engine``): within 1e-3, the argmax differing only on ties
+    that the fp64 loop decides for the kernel; the same request over HTTP
+    (loopback) within 1e-5 of in process, ``/v1/reload`` answering 200;
+    the request's latency at S=4 beside one replica's."""
+    import contextlib as ctx
+    import numpy as np
+    from fumi_tpu_torch import serve_http
+    from fumi_tpu_torch.core.config import config_from_args
+    from fumi_tpu_torch.serve import (FewShotClassifier, SeedEnsemble,
+                                      replica_seed)
+    run, args = sweep_run
+    cfg = config_from_args(args)
+    printed = io.StringIO()
+    with ctx.redirect_stdout(printed):
+        ens = serve_http.build_classifier(cfg, run)
+    print(printed.getvalue(), end="")
+    detected = f"seed ensemble: {SWEEP_S} replicas from {run}/seed*/" in \
+        printed.getvalue()
+    s_im, s_y, q_im, s_tx = request
+    b_im, b_y, b_q, b_tx = batch
+    reset_counts()
+    one = ens.episode_logits(s_im, s_y, q_im, support_text=s_tx)
+    counts_one = read_counts()
+    add_counts(by_path, f"serve seed ensemble fumi S={SWEEP_S} R=1",
+               counts_one)
+    reset_counts()
+    many = ens.episode_logits_batch(b_im, b_y, b_q, support_text=b_tx)
+    counts_many = read_counts()
+    add_counts(by_path, f"serve seed ensemble fumi S={SWEEP_S} R={B}",
+               counts_many)
+    engine = SeedEnsemble(cfg, ens.params, device=dev)
+    engine._episode_fn = engine._base._build_episode_fn(force_engine=True)
+    eng = np.concatenate([engine.episode_logits(
+        s_im, s_y, q_im, support_text=s_tx)[None], engine.episode_logits_batch(
+        b_im, b_y, b_q, support_text=b_tx)])
+    got = np.concatenate([one[None], many])
+    probs = 0.0
+    for i in range(SWEEP_S):
+        solo = FewShotClassifier(cfg.replace(seed_sweep=0),
+                                 {k: v[i] for k, v in ens.params.items()},
+                                 device=dev)
+        exact = np.concatenate([
+            served_exact("fumi", solo, s_im[None], s_y[None], q_im[None],
+                         s_tx[None]),
+            served_exact("fumi", solo, b_im, b_y, b_q, b_tx)])
+        e = np.exp(exact - exact.max(-1, keepdims=True))
+        probs = probs + e / e.sum(-1, keepdims=True) / SWEEP_S
+    exact = np.log(probs + 1e-9)
+    diff = float(np.abs(got - eng).max())
+    ties, same = served_argmax(got, eng, exact)
+    print(f"main path, serve the sweep run dir as a seed ensemble "
+          f"(detected {detected}): kernel vs engine max|diff| {diff:.3e} "
+          f"(tolerance 1e-3), argmax differs on {ties} rows, each a tie the "
+          f"fp64 loop decides for the kernel {same}; launches R=1 "
+          f"{counts_one}, R={B} {counts_many}")
+    if not (detected and diff <= 1e-3 and same
+            and counts_one == new_counts(fused_adapt=SWEEP_S)
+            and counts_many == new_counts(fused_adapt=SWEEP_S)):
+        fail("serving the seed ensemble: detection, launches, or the kernel "
+             "and the engine disagree")
+    assert replica_seed(0, 0) != replica_seed(0, 1)
+
+    body = {"support_im": s_im.tolist(), "support_y": s_y.tolist(),
+            "query_im": q_im.tolist(), "support_text": s_tx.tolist(),
+            "return": "logits"}
+    with loopback(ens) as call:
+        status, answer = call("/v1/episode", body)
+        http_diff = float(np.abs(np.asarray(answer["result"]) - one).max())
+        reload = call("/v1/reload", {"checkpoint": run})[0]
+        again = call("/v1/episode", body)
+        t_http = host_ms(lambda: call("/v1/episode", body))
+    print(f"serve seed ensemble over HTTP: {status}, max|diff| to in "
+          f"process {http_diff:.3e} (tolerance 1e-5); /v1/reload {reload}, "
+          f"then {again[0]}")
+    if not (status == 200 and http_diff <= 1e-5 and reload == 200
+            and again[0] == 200):
+        fail("serving the seed ensemble over HTTP")
+    solo = FewShotClassifier.from_checkpoint(os.path.join(run, "seed0"),
+                                             cfg.replace(seed_sweep=0),
+                                             device=dev)
+    times = {
+        "ensemble R=1 ms": host_ms(lambda: ens.episode_logits(
+            s_im, s_y, q_im, support_text=s_tx)),
+        "one replica R=1 ms": host_ms(lambda: solo.episode_logits(
+            s_im, s_y, q_im, support_text=s_tx)),
+        f"ensemble R={B} ms": host_ms(lambda: ens.episode_logits_batch(
+            b_im, b_y, b_q, support_text=b_tx)),
+        f"one replica R={B} ms": host_ms(lambda: solo.episode_logits_batch(
+            b_im, b_y, b_q, support_text=b_tx)),
+        "ensemble R=1 over HTTP ms": t_http}
+    print("serve seed ensemble latency: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items()) + f" [{card}]")
+    return times
+
+
+def grad_accum_phase(Config, dev, card, table, ids, cset, reset_counts,
+                     read_counts, by_path) -> dict:
+    """Phase 7w: FuMI at B=16 (flagship width, dropout 0) with
+    ``--tpu_grad_accum 4`` against the whole batch on the same episode:
+    the loss within 1e-5 of itself and the meta-gradient within 1e-5 of
+    its largest entry; then a chunk of 5 steps each way from the same
+    state and generator (one ``gather_episode_rows`` a step either way:
+    the 16 tasks gathered once, then split), with the peak memory and
+    episodes/s of each."""
+    import torch
+    from fumi_tpu_torch.core.episode import EpisodeSpec
+    from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler
+    from fumi_tpu_torch.train import steps
+    cfg = train_cfg(Config, "fumi").replace(batch_size=ACCUM_B, dropout=0.0)
+    smp = DeviceEpisodeSampler(table, ids, cset,
+                               EpisodeSpec(ACCUM_B, WAYS, SHOTS, TRAIN_Q,
+                                           D, E),
+                               use_pallas_gather=True, device=dev)
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0), device=dev)
+    episode = smp.sample(smp.generator(5))
+    (l1, _), g1 = steps.value_and_grad(st.family, st.params, episode, None)
+    (l4, _), g4 = steps.accum_value_and_grad(st.family, ACCUM)(
+        st.params, episode, None)
+    loss_rel = abs(float(l4) - float(l1)) / abs(float(l1))
+    scale = max(float(g.abs().max()) for g in g1.values())
+    grad_rel = max(float((g4[k] - g1[k]).abs().max()) for k in g1) / scale
+    print(f"grad-accum fumi B={ACCUM_B}: accum {ACCUM} vs the whole batch on "
+          f"the same episode: loss rel diff {loss_rel:.3e}, meta-gradient "
+          f"max|diff| / max|g| {grad_rel:.3e} (tolerance 1e-5)")
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-5):
+        fail("grad-accum: the accumulated meta-gradient differs from the "
+             "whole batch's")
+    times = {}
+    for accum in (1, ACCUM):
+        run = steps.make_chunked_train(st.family, st.opt, smp, ACCUM_CHUNK,
+                                       accum=accum)
+        run(st.params, st.opt.init(st.params), smp.generator(1), 1)  # warm
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        box = {}
+        reset_counts()
+        seconds = synced_s(lambda: box.update(out=run(
+            st.params, st.opt.init(st.params), smp.generator(1))))
+        counts = read_counts()
+        add_counts(by_path, f"train fumi B={ACCUM_B} --tpu_grad_accum "
+                            f"{accum}", counts)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        eps = ACCUM_CHUNK * ACCUM_B / seconds
+        times[f"accum {accum}"] = {"eps": eps, "peak_mib": peak / 2 ** 20}
+        print(f"main path, train fumi B={ACCUM_B} --tpu_grad_accum {accum}: "
+              f"{eps:.1f} episodes/s, peak memory above the resting state "
+              f"{peak / 2 ** 20:.1f} MiB; launches {counts} [{card}]")
+        if counts != new_counts(gather_episode_rows=ACCUM_CHUNK) or \
+                not bool(torch.isfinite(box["out"][3]["loss"]).all()):
+            fail(f"grad-accum {accum}: launches {counts} or non-finite "
+                 "losses")
+    return times
+
+
+def watch_phase(Config, dev, card, train_smp, reset_counts, read_counts,
+                by_path) -> dict:
+    """Phase 7x: a FuMI chunk of 16 steps with ``--tpu_watch`` against the
+    same chunk without it, from the same state and generator (in turns:
+    without, with, with, without): params bitwise equal, the bucket counts
+    of the two sampled steps summing to 2 × the parameter count, and the
+    episodes/s of each."""
+    import torch
+    from fumi_tpu_torch.train import steps, watch
+    cfg = train_cfg(Config, "fumi")
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0), device=dev)
+    n_params = sum(v.numel() for v in st.params.values())
+    runs = {w: steps.make_chunked_train(st.family, st.opt, train_smp,
+                                        WATCH_CHUNK, watch=w)
+            for w in (False, True)}
+    eps, outs = {False: [], True: []}, {}
+    for w in (False, True, True, False):
+        box = {}
+        reset_counts()
+        seconds = synced_s(lambda: box.update(out=runs[w](
+            st.params, st.opt.init(st.params), train_smp.generator(1))))
+        counts = read_counts()
+        if w:
+            add_counts(by_path, "train fumi --tpu_watch", counts)
+        if counts != new_counts(gather_episode_rows=WATCH_CHUNK):
+            fail(f"train fumi --tpu_watch {w}: launches {counts}")
+        eps[w].append(WATCH_CHUNK * B / seconds)
+        outs[w] = box["out"]
+    same = trees_equal(outs[True][0], outs[False][0])
+    _, counts, sampled = watch.split_watch_counts(outs[True][3])
+    total = sum(int(v.sum()) for v in counts.values())
+    want = WATCH_CHUNK // watch.WATCH_STRIDE
+    print(f"main path, train fumi --tpu_watch: params bitwise the unwatched "
+          f"chunk's {same}; {sampled} sampled steps, counts sum {total} = "
+          f"{want} x {n_params} params {total == want * n_params}; "
+          f"{', '.join(f'{e:.1f}' for e in eps[True])} episodes/s, "
+          f"unwatched {', '.join(f'{e:.1f}' for e in eps[False])} (in "
+          f"turns) [{card}]")
+    if not (same and sampled == want and total == want * n_params):
+        fail("--tpu_watch changed the chunk or miscounted")
+    return {"watch eps": eps[True], "unwatched eps": eps[False]}
+
+
+def trace_phase(dev, root, card, reset_counts, read_counts,
+                by_path) -> dict:
+    """Phase 7y: a short FuMI driver run (``--epochs 4 --eval_freq 2``)
+    with ``--tpu_profile_dir``: the trace file's events name the
+    ``gather_episode_rows`` and ``fused_adapt`` ranges; the device time of
+    the kernels on the trace, by name."""
+    import glob
+    import numpy as np
+    from fumi_tpu_torch.cli import main as cli_main
+    trace_dir = os.path.join(root, "trace")
+    args = ["--model", "fumi", "--dataset", "synthetic",
+            "--tpu_pallas_gather", "--tpu_pallas_fused_eval", "--epochs",
+            str(TRACE_EPOCHS), "--eval_freq", "2", "--num_ep_test",
+            str(DRIVER_EP_TEST), "--seed", "0", "--wandb_offline",
+            "--tpu_profile_dir", trace_dir, "--log_dir",
+            os.path.join(root, "trace-run")]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cli_main.cli(args)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    add_counts(by_path, "driver fumi --tpu_profile_dir", counts)
+    paths = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(paths) != 1:
+        fail(f"--tpu_profile_dir wrote {paths}")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e.get("name") for e in events
+              if e.get("cat") == "user_annotation"}
+    kernels_by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            t = kernels_by_name.setdefault(e["name"][:60], [0.0, 0])
+            t[0] += e.get("dur", 0.0)
+            t[1] += 1
+    top = sorted(kernels_by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    named = {"gather_episode_rows", "fused_adapt"} <= ranges
+    print(f"main path, driver fumi --tpu_profile_dir: TEST {out} in "
+          f"{seconds:.3f} s; trace {os.path.basename(paths[0])} "
+          f"({os.path.getsize(paths[0]) / 2 ** 20:.1f} MiB, {len(events)} "
+          f"events) names gather_episode_rows and fused_adapt {named}; "
+          f"launches {counts}")
+    print("trace: device time by kernel (us, launches): " + (", ".join(
+        f"{k} {v[0]:.1f} ({v[1]})" for k, v in top) if top else
+        "not measured (the trace holds no kernel events)") + f" [{card}]")
+    if not named or not np.isfinite(out["test/loss"]):
+        fail("the --tpu_profile_dir trace does not name the kernels")
+    return {"kernels": {k: v for k, v in top}}
+
+
+PR12_PHASES = ("sweep", "sweep-driver", "ensemble", "grad-accum", "watch",
+               "trace")
+
+
+def pr12_phases(names, Config, dev, root, card, ctx, reset_counts,
+                read_counts, by_path) -> dict:
+    """Phases 7t-7y, the ``names`` of :data:`PR12_PHASES` in order, each in
+    its own directory under ``root``. ``ctx`` holds ``samplers`` (phase
+    5's train and phase 6's eval sampler), ``request`` and ``batch``
+    (phase 4's), and the flagship ``table`` on the card with its ``ids``
+    and ``cset``; ``ensemble`` serves the run dir ``sweep-driver`` wrote.
+    The phases' times by name."""
+    times, sweep_run = {}, None
+    for name in names:
+        t0 = time.perf_counter()
+        where = os.path.join(root, f"phase-{name}")
+        os.makedirs(where)
+        if name == "sweep":
+            times[name] = sweep_phase(Config, dev, card, ctx["samplers"],
+                                      reset_counts, read_counts, by_path)
+        elif name == "sweep-driver":
+            times[name] = sweep_driver_phase(dev, where, card, reset_counts,
+                                             read_counts, by_path)
+            sweep_run = times[name].pop("run")
+        elif name == "ensemble":
+            times[name] = ensemble_phase(dev, card, sweep_run,
+                                         ctx["request"], ctx["batch"],
+                                         reset_counts, read_counts, by_path)
+        elif name == "grad-accum":
+            times[name] = grad_accum_phase(Config, dev, card, ctx["table"],
+                                           ctx["ids"], ctx["cset"],
+                                           reset_counts, read_counts,
+                                           by_path)
+        elif name == "watch":
+            times[name] = watch_phase(Config, dev, card, ctx["samplers"][0],
+                                      reset_counts, read_counts, by_path)
+        elif name == "trace":
+            times[name] = trace_phase(dev, where, card, reset_counts,
+                                      read_counts, by_path)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return times
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4348,6 +4942,14 @@ def main() -> int:
             {"samplers": (train_smp, eval_smp), "request": request,
              "table": table_np, "ids": ids_np, "cset": cset,
              "driver_dirs": driver_dirs},
+            reset_counts, read_counts, by_path)
+        # ---- 7t-7y. the seed sweep, its driver, the seed ensemble,
+        # grad-accum, --tpu_watch and --tpu_profile_dir
+        pr12_times = pr12_phases(
+            PR12_PHASES, Config, dev, driver_root, card,
+            {"samplers": (train_smp, eval_smp), "request": request,
+             "batch": (b_im, b_y, b_q, b_tx), "table": table, "ids": ids_np,
+             "cset": cset},
             reset_counts, read_counts, by_path)
     finally:
         shutil.rmtree(driver_root, ignore_errors=True)
@@ -4802,6 +5404,8 @@ def main() -> int:
 
     print("training extensions, host samplers, .pth.tar and stage remat "
           "(7o-7s): " + json.dumps(pr11_times, default=str))
+    print("seed sweep, sweep driver, seed ensemble, grad-accum, watch and "
+          "trace (7t-7y): " + json.dumps(pr12_times, default=str))
 
     # ---- 9. result ------------------------------------------------------
     launches = {name: sum(c[name] for c in by_path.values())

@@ -33,14 +33,19 @@ init draws from a CPU generator seeded with ``--seed``.
 (``data/sampler.py:HostEpisodeSampler``, with ``--tpu_sampler_backend``,
 ``--num_workers`` and ``--tpu_loader_mp_context``). ``--tpu_ema``,
 ``--tpu_skip_nonfinite`` and ``--tpu_debug_nans`` are the training
-extensions (``train/optim.py``, ``train/steps.py:check_finite``).
-``--checkpoint`` takes a run dir or a reference ``.pth.tar`` file
+extensions (``train/optim.py``, ``train/steps.py:check_finite``);
+``--tpu_grad_accum`` micro-batches the meta-gradient, ``--tpu_watch``
+logs histograms (``train/watch.py``) and ``--tpu_profile_dir`` writes a
+``torch.profiler`` trace of training. ``--tpu_seed_sweep S`` trains S
+seeds in lockstep (``train/sweep.py:sweep_main``, ``--tpu_seed_accum``):
+per-seed run dirs ``seed<k>/``, the ``SWEEP TEST`` line and one CSV a
+seed. ``--checkpoint`` takes a run dir or a reference ``.pth.tar`` file
 (``interop.py``).
 
 Not ported yet, each rejected with ``NotImplementedError`` naming its
-ROADMAP.md Queue 1 item: multi-device and sweep modes, grad-accum and
-``--tpu_watch`` (item 9); a wandb run path for ``--checkpoint`` needs the
-network.
+ROADMAP.md Queue 1 item: the multi-device modes (``--tpu_mesh_dp > 1``,
+``--tpu_mesh_mp > 1``, ``--tpu_dist_*``: item 9); a wandb run path for
+``--checkpoint`` needs the network.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from fumi_tpu_torch.train.loop import (TEST, eval_view, stream_generator,
                                        test_loop, training_run)
 from fumi_tpu_torch.train.optim import init_optim
 from fumi_tpu_torch.train.steps import make_steps
+from fumi_tpu_torch.train.sweep import sweep_main
 from fumi_tpu_torch.utils.profiling import profile_trace
 
 
@@ -103,13 +109,11 @@ def _check_driver(cfg: Config) -> None:
                 "--model clip reads precomputed text embeddings "
                 f"(--text_encoder BERT or precomputed), not "
                 f"{cfg.text_encoder} tokens")
-    if cfg.seed_sweep > 1 or cfg.mesh_dp > 1 or cfg.mesh_mp > 1 or \
+    if cfg.mesh_dp > 1 or cfg.mesh_mp > 1 or \
             cfg.dist_coordinator is not None or cfg.dist_num_processes > 0:
-        raise _not_ported("--tpu_seed_sweep/--tpu_mesh_*/--tpu_dist_*",
-                          "item 9: scale-out extensions")
-    if cfg.grad_accum > 1 or cfg.watch:
-        raise _not_ported("--tpu_grad_accum > 1 / --tpu_watch",
-                          "item 9: scale-out extensions")
+        # --tpu_mesh_dp 0 or 1 is the single-device layout
+        raise _not_ported("--tpu_mesh_dp > 1/--tpu_mesh_mp > 1/--tpu_dist_*",
+                          "item 9: the multi-device part")
 
 
 def _load_data(cfg: Config):
@@ -316,6 +320,19 @@ def _run(cfg: Config, dev: torch.device, writer: MetricWriter,
             json.dump(dict(dictionary), f)
     if cfg.model == "clip":
         return _run_clip(cfg, dev, writer, run_dir, splits, image_table)
+
+    if cfg.seed_sweep > 1:
+        # S replicas in lockstep, each the standalone run of its seed
+        samplers = _samplers(cfg, splits, image_table, image_ids, dev)
+        try:
+            return sweep_main(cfg, dictionary, samplers, writer, run_dir,
+                              results_path, dev)
+        finally:
+            # stop the loader processes or the prefetch thread
+            for smp in samplers:
+                close = getattr(smp, "close", None)
+                if close is not None:
+                    close()
 
     steps = make_steps(cfg, torch.Generator().manual_seed(cfg.seed),
                        device=dev, dictionary=dictionary)

@@ -34,6 +34,9 @@ for a conv4 or resnet12 model (``support_im`` (NK, H, W, C), batched
   fail the CUDA context, and every later request with it). The JAX
   package pads T up to a power of two to reuse compiled programs; the
   port compiles nothing per shape and takes every T as it comes.
+- :class:`SeedEnsemble`: the replicas of a ``--tpu_seed_sweep`` run dir
+  (its ``seed<k>/`` exports), each adapted on the request, their class
+  probabilities averaged, behind the same surface.
 - :class:`ClipRetrieval`: CLIP serving, a gallery indexed once and
   ranked against many texts; a text or image batch of another width
   raises :class:`RequestError`.
@@ -191,16 +194,6 @@ def _check_width(x: np.ndarray, width: int, name: str) -> None:
                            f"model; got shape {x.shape}")
 
 
-def _check_slice(cfg: Config) -> None:
-    """Reject the serving configs the port does not serve yet. The model
-    configs the port lacks are rejected by ``build_family``, each naming
-    the ROADMAP item that will port it."""
-    if cfg.seed_sweep > 1:
-        raise NotImplementedError(
-            "not ported to the PyTorch package yet — --tpu_seed_sweep "
-            "(SeedEnsemble): Queue 1, item 9 (scale-out) in ROADMAP.md")
-
-
 def serving_dictionary(cfg: Config, run_dir: Optional[str] = None):
     """The token dictionary a glove/w2v/RNN/RNNhid model is served with;
     ``None`` for the other text encoders. The run dir's ``vocab.json``
@@ -251,7 +244,6 @@ class FewShotClassifier:
     def __init__(self, cfg: Config, params: Optional[Dict] = None,
                  dictionary=None, device: DeviceLike = None):
         cfg = cfg.validate()
-        _check_slice(cfg)
         self.cfg = cfg
         self.family = build_family(
             cfg, torch.Generator().manual_seed(cfg.seed), dictionary)
@@ -606,6 +598,194 @@ class FewShotClassifier:
         if return_probs:
             return _np_softmax(logits)
         return np.argmax(logits, axis=-1).astype(np.int32)
+
+
+def replica_seed(seed: int, i: int) -> int:
+    """Generator seed of replica ``i`` of a :class:`SeedEnsemble` for the
+    episode seed ``seed``: a function of (seed, i) only, the JAX package's
+    ``fold_in(key, i)``."""
+    return (int(seed) * 0xD1B54A32D192ED03
+            + (i + 1) * 0x632BE59BD9B4E019) % (1 << 63)
+
+
+class SeedEnsemble:
+    """Seed-ensemble serving: the S replicas of a ``--tpu_seed_sweep`` run
+    (its per-seed exports, ``train/sweep.py:export_seed_runs``) each adapt
+    on the request, and the answer averages their class probabilities.
+    The surface is :class:`FewShotClassifier`'s (``adapt``, ``logits``,
+    ``classify``, ``episode_logits[_batch]``, ``reload``), so the HTTP
+    front-end serves an ensemble as it serves one model. The returned
+    "logits" are ``log(mean_s softmax(logits_s) + 1e-9)``: every return
+    mode renders the ensemble's distribution.
+
+    ``params`` is the stacked ``(S, ...)`` state dict of the replicas'
+    serving views. Each replica runs the single-replica classifier's own
+    functions on its slice: on the one-call paths the episode function,
+    which runs ``ops/kernels.py:fused_adapt`` where it applies, one launch
+    a replica for all R episodes of a request (the JAX package vmaps its
+    engine over the replicas instead, as a ``pallas_call`` has no batching
+    rule over a stacked params axis; the function is the same). Replica
+    ``i`` draws the noise of episode seed ``s`` from :func:`replica_seed`
+    ``(s, i)``, on the stateful and the one-call paths alike, so
+    ``solo.episode_logits(..., seed=replica_seed(s, i))`` reproduces it.
+    """
+
+    def __init__(self, cfg: Config, params, dictionary=None,
+                 device: DeviceLike = None, _base=None):
+        cfg = cfg.replace(seed_sweep=0)  # the config of one replica
+        # _base: a built single-replica classifier (from_sweep_run passes
+        # the one whose params served as the load template)
+        self._base = (_base if _base is not None
+                      else FewShotClassifier(cfg, None, dictionary,
+                                             device=device))
+        self.cfg = self._base.cfg
+        self.device = self._base.device
+        if params is None:
+            raise ValueError("SeedEnsemble needs stacked (S, ...) params "
+                             "(e.g. SeedEnsemble.from_sweep_run)")
+        self._set_params(params)
+        self._episode_fn = None
+
+    def _set_params(self, params) -> None:
+        self.params = {k: torch.as_tensor(v, dtype=torch.float32).to(
+            self.device) for k, v in params.items()}
+        self.num_seeds = next(iter(self.params.values())).shape[0]
+        # each replica's slice of the stack, a view
+        self._replicas = [{k: v[i] for k, v in self.params.items()}
+                          for i in range(self.num_seeds)]
+        self._classify_fn = None
+
+    @classmethod
+    def from_sweep_run(cls, run_dir: str, cfg: Optional[Config] = None,
+                       best: bool = True, device: DeviceLike = None
+                       ) -> "SeedEnsemble":
+        """An ensemble of a sweep run dir's ``seed<k>/`` exports; ``cfg``
+        defaults to the run's ``config.json``."""
+        if cfg is None:
+            from fumi_tpu_torch.core.config import config_from_json
+            cfg = config_from_json(os.path.join(run_dir, "config.json"))
+        cfg = cfg.replace(seed_sweep=0)
+        base = FewShotClassifier(cfg, None, serving_dictionary(cfg, run_dir),
+                                 device=device)
+        self = cls(cfg, cls._load_stacked(run_dir, base, best), _base=base)
+        self._run_dir = run_dir
+        return self
+
+    @staticmethod
+    def _load_stacked(run_dir: str, base: FewShotClassifier, best: bool):
+        """The ``seed<k>/`` exports' serving views (the EMA under
+        ``--tpu_ema``), stacked in seed order."""
+        seed_dirs = find_seed_exports(run_dir)
+        if not seed_dirs:
+            raise FileNotFoundError(
+                f"no seed*/ exports under {run_dir} (a --tpu_seed_sweep "
+                "run writes them at the end of training)")
+        from fumi_tpu_torch.train.sweep import stack_trees
+        return stack_trees([base._load(d, best) for d in seed_dirs])
+
+    @property
+    def text_is_tokens(self) -> bool:
+        return self._base.text_is_tokens
+
+    @property
+    def text_dtype(self):
+        return self._base.text_dtype
+
+    @staticmethod
+    def _reduce(logits_s: torch.Tensor) -> torch.Tensor:
+        """(S, ..., N) replica logits -> the ensemble's log-probabilities."""
+        return torch.log(torch.softmax(logits_s, dim=-1).mean(dim=0) + 1e-9)
+
+    def adapt(self, support_im, support_text=None, support_y=None,
+              seed: int = 0) -> None:
+        """Adapt every replica on this support set (replica ``i`` with
+        :func:`replica_seed` ``(seed, i)``)."""
+        _check_support_y(self.cfg, support_y)
+        support_im = np.asarray(support_im, dtype=np.float32)
+        support_text = self._base._prep_text(support_text,
+                                             support_im.shape[0])
+        adapt_fn, classify_fn = self._base._engine_fns()
+        dev = self.device
+        s_im = _tensor(support_im[None], np.float32, dev)
+        s_tx = _tensor(support_text[None], self.text_dtype, dev)
+        s_y = _tensor(np.asarray(support_y)[None], np.int32, dev)
+        replicas = self._replicas
+        with torch.no_grad():
+            states = [adapt_fn(p, s_im, s_tx, s_y, [replica_seed(seed, i)])
+                      for i, p in enumerate(replicas)]
+
+        def classify(q):
+            with torch.no_grad():
+                return self._reduce(torch.stack([
+                    classify_fn(p, state, q[None])[0]
+                    for p, state in zip(replicas, states)]))
+        self._classify_fn = classify
+
+    def logits(self, query_im) -> np.ndarray:
+        if self._classify_fn is None:
+            raise RuntimeError("call adapt(...) before classify/logits")
+        M, query_im = _bucket_queries(query_im, axis=0,
+                                      enabled=self._base._bucket_m)
+        out = self._classify_fn(_tensor(query_im, np.float32, self.device))
+        return out.cpu().numpy()[:M]
+
+    def classify(self, query_im, return_probs: bool = False):
+        """(M, D) queries -> (M,) int labels (or (M, N) probs)."""
+        logits = self.logits(query_im)
+        if return_probs:
+            return _np_softmax(logits)
+        return np.argmax(logits, axis=-1).astype(np.int32)
+
+    def _episode_request(self, s_im, s_y, q_im, s_text, seeds):
+        if self._episode_fn is None:
+            self._episode_fn = self._base._build_episode_fn()
+        dev = self.device
+        args = (_tensor(s_im, np.float32, dev), _tensor(s_y, np.int32, dev),
+                _tensor(q_im, np.float32, dev),
+                _tensor(s_text, self.text_dtype, dev))
+        with torch.no_grad():
+            out = torch.stack([
+                self._episode_fn(p, *args,
+                                 [replica_seed(sd, i) for sd in seeds])
+                for i, p in enumerate(self._replicas)])
+            return self._reduce(out).cpu().numpy()
+
+    def episode_logits(self, support_im, support_y, query_im,
+                       support_text=None, seed: int = 0) -> np.ndarray:
+        """One episode through every replica: (M, N) ensemble logits."""
+        _check_support_y(self.cfg, support_y)
+        support_im = np.asarray(support_im, dtype=np.float32)
+        support_y = np.asarray(support_y, dtype=np.int32)
+        support_text = self._base._prep_text(support_text,
+                                             support_im.shape[0])
+        M, query_im = _bucket_queries(query_im, axis=0,
+                                      enabled=self._base._bucket_m)
+        out = self._episode_request(support_im[None], support_y[None],
+                                    query_im[None], support_text[None],
+                                    [int(seed)])
+        return out[0, :M]
+
+    def episode_logits_batch(self, support_im, support_y, query_im,
+                             support_text=None, seed: int = 0) -> np.ndarray:
+        """R episodes through every replica: (R, M, N) ensemble logits."""
+        R, M, support_im, support_y, support_text, query_im, seeds = \
+            _prep_batched_request(self.cfg, self._base._prep_text,
+                                  support_im, support_y, query_im,
+                                  support_text, seed,
+                                  bucket_m=self._base._bucket_m)
+        out = self._episode_request(support_im, support_y, query_im,
+                                    support_text, seeds)
+        return out[:R, :M]
+
+    def reload(self, run_dir: Optional[str] = None,
+               best: bool = True) -> None:
+        """Swap in every replica of a sweep run dir (default the one served)
+        with no rebuild; the adapted state is dropped."""
+        run_dir = run_dir or getattr(self, "_run_dir", None)
+        if run_dir is None:
+            raise ValueError("reload needs a sweep run dir")
+        self._set_params(self._load_stacked(run_dir, self._base, best))
+        self._run_dir = run_dir
 
 
 class ClipRetrieval:

@@ -51,7 +51,10 @@ Run::
 
 The full training flag surface applies, so the server rebuilds the
 trained architecture; it runs on the card unless ``--disable_cuda`` asks
-for the CPU.
+for the CPU. A ``--tpu_seed_sweep`` run dir (its ``seed<k>/`` exports)
+serves as a :class:`fumi_tpu_torch.serve.SeedEnsemble` (``seed ensemble:
+S replicas from ...``), and ``/v1/reload`` of a sweep run dir reloads
+every replica.
 
 Concurrency: ``ThreadingHTTPServer`` handles requests on worker threads,
 and one lock serialises the classifier's work, as the JAX package's does:
@@ -74,7 +77,7 @@ import numpy as np
 import torch
 
 from fumi_tpu_torch.serve import (ClipRetrieval, FewShotClassifier,
-                                  RequestError, _np_softmax,
+                                  RequestError, SeedEnsemble, _np_softmax,
                                   find_seed_exports, serving_dictionary,
                                   warmup)
 
@@ -421,17 +424,20 @@ def build_classifier(cfg, run_dir: Optional[str]):
     """What ``main`` serves: a :class:`ClipRetrieval` for ``--model clip``,
     else a :class:`FewShotClassifier`; from a run dir, or the seeded init
     without one (a token model's dictionary then comes from the driver's
-    dataset). Seed-sweep run dirs raise, naming their ROADMAP item."""
+    dataset). A seed-sweep run dir (``seed<k>/`` exports) serves as a
+    :class:`SeedEnsemble`."""
     device = "cpu" if cfg.disable_cuda else None
     if cfg.model == "clip":
         if run_dir:
             return ClipRetrieval.from_checkpoint(run_dir, cfg, device=device)
         return ClipRetrieval(cfg, None, device=device)
     if run_dir and find_seed_exports(run_dir):
-        raise NotImplementedError(
-            f"not ported to the PyTorch package yet — serving the seed "
-            f"ensemble of the --tpu_seed_sweep run {run_dir!r} "
-            "(SeedEnsemble): Queue 1, item 9 in ROADMAP.md")
+        # a --tpu_seed_sweep run dir: the ensemble of its seed<k>/ exports
+        # (the same strict seed<k> rule as the ensemble's loader)
+        clf = SeedEnsemble.from_sweep_run(run_dir, cfg, device=device)
+        print(f"seed ensemble: {clf.num_seeds} replicas from "
+              f"{run_dir}/seed*/")
+        return clf
     if run_dir:
         return FewShotClassifier.from_checkpoint(run_dir, cfg,
                                                  device=device)

@@ -57,6 +57,24 @@ class MetricWriter:
             self._since_flush = 0
         self.summary.update(scalars)
 
+    def log_arrays(self, arrays: Dict, step: Optional[int] = None) -> None:
+        """Log a record of lists (``--tpu_watch``'s count vectors and
+        bucket labels): one JSONL row, and ``wandb.Histogram`` objects of
+        the count vectors on a live wandb run."""
+        rec = {k: v.tolist() if hasattr(v, "tolist") else v
+               for k, v in arrays.items()}
+        if self._wandb is not None:
+            wb = {k: self._wandb.Histogram(
+                np_histogram=(v, list(range(len(v) + 1))))
+                for k, v in rec.items() if isinstance(v, list) and v
+                and isinstance(v[0], (int, float))}
+            if wb:
+                self._wandb.log(wb, step=step)
+        if step is not None:
+            rec["_step"] = step
+        self._jsonl.write(json.dumps(rec) + "\n")
+        self._jsonl.flush()
+
     def flush(self) -> None:
         self._jsonl.flush()
         self._since_flush = 0

@@ -1,8 +1,7 @@
 """Episodic training and eval harness for the episodic families.
 
 The counterpart of ``fumi_tpu/train/loop.py`` (its single-device paths;
-the mesh engines and ``--tpu_watch`` are ROADMAP.md Queue 1, item 9). It
-keeps the reference harness's quirks as the JAX package does:
+the mesh engines are ROADMAP.md Queue 1, item 9). It keeps the reference harness's quirks as the JAX package does:
 
 - an initial validation pass seeds ``best_loss``;
 - validation and a checkpoint every ``--eval_freq`` batches; AM3 evaluates
@@ -24,7 +23,10 @@ host-sampler path does (``data/sampler.py``'s host samplers draw from
 their own numpy streams). With ``--tpu_ema``, validation, the final test
 and the returned params see the EMA (:func:`eval_view`);
 ``--tpu_debug_nans`` checks every train step
-(``train/steps.py:check_finite``).
+(``train/steps.py:check_finite``); ``--tpu_grad_accum`` micro-batches each
+step's meta-gradient; ``--tpu_watch`` writes the params' and the sampled
+meta-gradients' histograms at every eval boundary (:class:`_Watch`,
+``train/watch.py``).
 
 Random streams. Each is a ``torch.Generator`` on the params' device,
 seeded with :func:`stream_seed` ``= (seed mod 2**32) * 2**32 + stream *
@@ -32,8 +34,9 @@ seeded with :func:`stream_seed` ``= (seed mod 2**32) * 2**32 + stream *
 and dropout, stream ``VAL`` the validation passes (index 0 for the initial
 pass, ``batch_idx + 1`` for the pass at that batch, so a pass's episodes
 depend on the seed and the batch only), stream ``TEST`` the final test
-pass. They are deterministic per seed and are not the JAX package's
-streams.
+pass, stream ``WATCH`` (index ``batch_idx``) the forward noise of the
+host-sampler path's ``--tpu_watch`` gradient sample. They are
+deterministic per seed and are not the JAX package's streams.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ AM3_TRAIN_KEYS = ("loss", "acc", "f1", "prec", "rec", "avg_lamda",
                   "grad_norm")
 CHUNK = 1000  # train steps per driver call (one host sync each)
 ARTIFACT_KEYS = ("preds", "targets", "lamda", "query_idx", "support_idx")
-TRAIN, VAL, TEST = 1, 2, 3
+TRAIN, VAL, TEST, WATCH = 1, 2, 3, 4
 
 
 def stream_seed(seed: int, stream: int, index: int = 0) -> int:
@@ -213,6 +216,8 @@ def training_run(cfg: Config, steps: FamilySteps, train_sampler, val_sampler,
                                      chunk, accum=cfg.grad_accum,
                                      watch=cfg.watch,
                                      debug_nans=cfg.debug_nans)
+    watch = _Watch(steps, train_sampler, writer, seed, dev,
+                   device_path) if cfg.watch else None
 
     def next_stop(batch_idx: int) -> int:
         """The next step index after which the loop must pause: an eval
@@ -242,6 +247,8 @@ def training_run(cfg: Config, steps: FamilySteps, train_sampler, val_sampler,
                     params, opt_state, train_gen, ms = chunked(
                         params, opt_state, train_gen, c,
                         first_step=batch_idx + done)
+                    if watch is not None:
+                        ms = watch.absorb(ms)
                     _log_train_stack(writer, cfg, batch_idx + done, ms,
                                      is_am3)
                     done += c
@@ -275,6 +282,8 @@ def training_run(cfg: Config, steps: FamilySteps, train_sampler, val_sampler,
                 rec["episodes_per_sec"] = eps_rate
                 rec.update(hbm_stats(dev))
                 writer.log(rec, step=batch_idx)
+                if watch is not None:
+                    watch.log_boundary(params, batch_idx)
                 ckpt_lib.save_checkpoint(
                     run_dir, params, opt_state, batch_idx, best_loss,
                     is_best,
@@ -296,6 +305,56 @@ def training_run(cfg: Config, steps: FamilySteps, train_sampler, val_sampler,
         params, opt_state, _ = ckpt_lib.load_checkpoint(
             run_dir, params, opt_state, best=True)
     return eval_view(cfg, params, opt_state)
+
+
+class _Watch:
+    """``--tpu_watch`` in the loop. On the device path the chunked driver
+    histograms the sampled meta-gradients (``train/steps.py:
+    make_chunked_train``); :meth:`absorb` takes the counts out of each
+    chunk's metrics (the one fetch a chunk) and sums them until the next
+    eval boundary. On the host-sampler path :meth:`log_boundary` takes a
+    point sample instead: the meta-gradient of one episode of
+    ``watch_clone()``, a sampler with a seed of its own, so a watched run
+    draws the same training episodes as an unwatched one; its forward noise
+    comes from stream ``WATCH`` at the boundary's index."""
+
+    def __init__(self, steps, train_sampler, writer, seed, dev,
+                 device_path):
+        self.steps, self.writer, self.seed, self.dev = steps, writer, seed, dev
+        self.accumulate = device_path
+        self.train_sampler = train_sampler
+        self.counts: Dict[str, np.ndarray] = {}
+        self.n_steps = 0
+        self._clone = None
+
+    def absorb(self, ms):
+        from fumi_tpu_torch.train.watch import split_watch_counts
+        ms, counts, n = split_watch_counts(ms)
+        for k, v in counts.items():
+            self.counts[k] = self.counts.get(k, 0) + v
+        self.n_steps += n
+        return ms
+
+    def log_boundary(self, params, batch_idx: int) -> None:
+        from fumi_tpu_torch.train.steps import value_and_grad
+        from fumi_tpu_torch.train.watch import log_watch, watch_record
+        name = self.steps.family.name if self.steps.family else None
+        if self.accumulate:
+            rec = watch_record(params, name, grad_counts=dict(self.counts))
+            rec["watch/grad_steps"] = np.int64(self.n_steps)
+            self.counts, self.n_steps = {}, 0
+        else:
+            grads = None
+            if self.steps.family is not None:
+                if self._clone is None:
+                    base = getattr(self.train_sampler, "sampler",
+                                   self.train_sampler)
+                    self._clone = base.watch_clone()
+                _, grads = value_and_grad(
+                    self.steps.family, params, self._clone.sample(),
+                    stream_generator(self.seed, WATCH, batch_idx, self.dev))
+            rec = watch_record(params, name, grads)
+        log_watch(self.writer, rec, step=batch_idx)
 
 
 def _train_log_keys(m: Dict, is_am3: bool):

@@ -47,6 +47,7 @@ device-sampled steps per call and return the per-step metrics stacked to
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -66,6 +67,7 @@ from fumi_tpu_torch.models import layers, mlp, text_encoders
 from fumi_tpu_torch.ops import fewshot, kernels
 from fumi_tpu_torch.ops import metrics as metrics_ops
 from fumi_tpu_torch.train import optim
+from fumi_tpu_torch.train import watch as watch_lib
 
 
 class Family(NamedTuple):
@@ -83,6 +85,9 @@ class Family(NamedTuple):
     #  classify_fn(p, state, q_im) -> logits), each batched over the
     # request's R episodes (s_im (R, NK, D), q_im (R, M, D) -> (R, M, N))
     serve: Optional[Callable] = None
+    # how --tpu_grad_accum combines each train aux key over micro-batches:
+    # "mean" | "sum" | "concat" (:func:`accum_value_and_grad`)
+    train_aux_reduce: Optional[Dict[str, str]] = None
 
 
 class FamilySteps(NamedTuple):
@@ -100,6 +105,7 @@ class FamilySteps(NamedTuple):
 
 EVAL_REDUCE = {"loss": "mean", "acc": "mean", "preds": "concat",
                "targets": "concat"}
+TRAIN_AUX_REDUCE = {"acc": "mean", "preds": "concat"}
 
 
 def plain_full_gd_adaptation(cfg: Config) -> bool:
@@ -242,7 +248,8 @@ def build_maml_family(cfg: Config, gen: torch.Generator,
     return Family(name="maml", params=params,
                   train_loss=loss_for(cfg.num_train_adapt_steps, True),
                   eval_raw=eval_raw, eval_finalize=lambda raw: raw,
-                  eval_reduce=dict(EVAL_REDUCE), model=apply_fn)
+                  eval_reduce=dict(EVAL_REDUCE), model=apply_fn,
+                  train_aux_reduce=dict(TRAIN_AUX_REDUCE))
 
 
 def _make_text_encoder(cfg: Config, gen: torch.Generator, dictionary):
@@ -305,7 +312,8 @@ def build_fumi_family(cfg: Config, gen: torch.Generator,
     return Family(name="fumi", params=params,
                   train_loss=loss_for(cfg.num_train_adapt_steps, True, True),
                   eval_raw=eval_raw, eval_finalize=lambda raw: raw,
-                  eval_reduce=dict(EVAL_REDUCE), model=model)
+                  eval_reduce=dict(EVAL_REDUCE), model=model,
+                  train_aux_reduce=dict(TRAIN_AUX_REDUCE))
 
 
 def build_am3_family(cfg: Config, gen: torch.Generator,
@@ -357,7 +365,9 @@ def build_am3_family(cfg: Config, gen: torch.Generator,
                   eval_reduce={"loss": "mean", "conf": "sum",
                                "avg_lamda": "mean", "preds": "concat",
                                "targets": "concat", "lamda": "concat"},
-                  model=model)
+                  model=model,
+                  train_aux_reduce={"conf": "sum", "avg_lamda": "mean",
+                                    "preds": "concat"})
 
 
 def embedding_head_init(cfg: Config, gen: torch.Generator
@@ -573,18 +583,115 @@ def check_finite(step, loss, grads, new_params) -> None:
             f"in the {name}")
 
 
-def _train_step(family: Family, opt: optim.Optimizer, params, opt_state,
-                episode, gen, debug_step=None):
-    """One step; with ``debug_step`` (an int) the result is checked by
-    :func:`check_finite`."""
-    (loss, aux), grads = value_and_grad(family, params, episode, gen)
+def micro_generator(gen: Optional[torch.Generator], i: int
+                    ) -> Optional[torch.Generator]:
+    """The generator of micro-batch ``i`` of an accumulated step (the JAX
+    package's ``fold_in(rng, i)``): a new generator on ``gen``'s device,
+    seeded with 63 bits of the BLAKE2b hash of ``gen``'s state and ``i``.
+    Reading the state is a host-side copy (a CUDA generator's state is its
+    seed and offset), so it makes no device sync; ``gen`` itself does not
+    advance. None stays None."""
+    if gen is None:
+        return None
+    h = hashlib.blake2b(gen.get_state().numpy().tobytes()
+                        + int(i).to_bytes(4, "little"), digest_size=8)
+    return torch.Generator(device=gen.device).manual_seed(
+        int.from_bytes(h.digest(), "little") >> 1)
+
+
+def accum_value_and_grad(family: Family, accum: int) -> Callable:
+    """``(params, episode, gen) -> ((loss, aux), grads)`` of the meta-batch
+    in ``accum`` micro-batches (``--tpu_grad_accum``), one after another:
+    the B tasks are split into ``accum`` slices of B/accum, so the
+    second-order graph held at once scales with B/accum. Every family's
+    loss is a mean over tasks, so the mean of the micro-batches' losses
+    and gradients is the meta-batch's, up to the order of the sums.
+    Micro-batch ``i`` draws its forward noise (dropout, the ``rand``
+    encoder) from :func:`micro_generator` ``(gen, i)``, so a stochastic
+    forward is the same in distribution as the whole batch's, not bitwise.
+
+    The aux is combined as ``family.train_aux_reduce`` declares ("mean",
+    "sum" or "concat" along the task axis); an undeclared key follows the
+    shape rule: ``conf`` (a count matrix) is summed, a scalar averaged, a
+    leaf whose leading size is B/accum concatenated, and any other leaf
+    raises ``ValueError``. The rule cannot tell a per-task leaf from one
+    whose leading size happens to equal B/accum (per-class with num_ways
+    == B/accum): a family with such an aux declares it."""
+    if accum <= 1:
+        return lambda p, episode, gen: value_and_grad(family, p, episode,
+                                                      gen)
+    declared = family.train_aux_reduce or {}
+
+    def combine(k, v, micro_size):
+        # v: (accum,) + the micro-batch's aux shape
+        how = declared.get(k)
+        if how == "mean":
+            return _mean0(v)
+        if how == "sum":
+            return v.sum(0)
+        if how == "concat":
+            return v.reshape((-1,) + tuple(v.shape[2:]))
+        if how is not None:
+            raise ValueError(f"train_aux_reduce[{k!r}] = {how!r} "
+                             "(mean|sum|concat)")
+        if k == "conf":
+            return v.sum(0)
+        if v.dim() <= 1:
+            return _mean0(v)
+        if v.shape[1] != micro_size:
+            raise ValueError(
+                f"--tpu_grad_accum cannot combine aux leaf {k!r}: "
+                f"per-micro-batch shape {tuple(v.shape[1:])} is neither "
+                f"scalar, 'conf' (summed counts), nor per-task (leading dim "
+                f"{micro_size}) — declare it via Family.train_aux_reduce")
+        return v.reshape((-1,) + tuple(v.shape[2:]))
+
+    def run(params, episode, gen):
+        micro_size = episode.support_im.shape[0] // accum
+        outs = []
+        for i in range(accum):
+            part = slice(i * micro_size, (i + 1) * micro_size)
+            micro = type(episode)(*(None if x is None else x[part]
+                                    for x in episode))
+            outs.append(value_and_grad(family, params, micro,
+                                       micro_generator(gen, i)))
+        loss = torch.stack([l for (l, _), _ in outs]).mean(0)
+        grads = {k: torch.stack([g[k] for _, g in outs]).mean(0)
+                 for k in params}
+        auxs = [a for (_, a), _ in outs]
+        aux = {k: combine(k, torch.stack([torch.as_tensor(a[k])
+                                          for a in auxs]), micro_size)
+               for k in auxs[0]}
+        return (loss, aux), grads
+
+    return run
+
+
+def _mean0(v: torch.Tensor) -> torch.Tensor:
+    return (v if v.is_floating_point() else v.to(torch.float32)).mean(0)
+
+
+def _step_and_grads(family: Family, opt: optim.Optimizer, params, opt_state,
+                    episode, gen, debug_step=None, grad_fn=None):
+    """One step, and its meta-gradient; ``grad_fn`` is
+    :func:`accum_value_and_grad`'s (default: the whole batch's)."""
+    grad_fn = grad_fn or accum_value_and_grad(family, 1)
+    (loss, aux), grads = grad_fn(params, episode, gen)
     with torch.no_grad():
         updates, opt_state = opt.update(grads, opt_state, params)
         new_params = optim.apply_updates(params, updates)
         if debug_step is not None:
             check_finite(debug_step, loss, grads, new_params)
         metrics = _train_metrics(family, loss, aux, episode, grads)
-    return new_params, opt_state, metrics
+    return new_params, opt_state, metrics, grads
+
+
+def _train_step(family: Family, opt: optim.Optimizer, params, opt_state,
+                episode, gen, debug_step=None):
+    """One step; with ``debug_step`` (an int) the result is checked by
+    :func:`check_finite`."""
+    return _step_and_grads(family, opt, params, opt_state, episode, gen,
+                           debug_step)[:3]
 
 
 def steps_from_family(family: Family, opt: optim.Optimizer,
@@ -688,22 +795,32 @@ def make_chunked_train(family: Family, opt: optim.Optimizer, sampler,
     """``(params, opt_state, gen, n=chunk, first_step=0) -> (params,
     opt_state, gen, metrics)`` running ``n`` device-sampled train steps;
     each metric is ``(n,)`` on the device (no host sync inside the chunk).
-    ``debug_nans`` checks each step (:func:`check_finite`, one sync a
-    step), numbering the steps from ``first_step``."""
-    if accum > 1 or watch:
-        raise NotImplementedError(
-            "--tpu_grad_accum > 1 and --tpu_watch are not ported yet "
-            "(ROADMAP.md Queue 1, item 9: scale-out extensions)")
+    ``accum`` > 1 computes each step's meta-gradient in micro-batches
+    (:func:`accum_value_and_grad`) from the same B tasks, gathered in one
+    launch and then split. ``watch`` adds ``watch_counts/<component>``
+    rows, (n // K, NUM_BUCKETS), K = ``min(watch.WATCH_STRIDE, n)``: the
+    histogram of the meta-gradient of the last step of each block of K
+    (``train/watch.py``); it reads the gradients only, so the params are
+    bitwise those of an unwatched chunk. ``debug_nans`` checks each step
+    (:func:`check_finite`, one sync a step), numbering the steps from
+    ``first_step``."""
+    grad_fn = accum_value_and_grad(family, accum)
 
     def run(params, opt_state, gen, n=chunk, first_step=0):
-        per_step = []
+        stride = max(1, min(watch_lib.WATCH_STRIDE, n)) if watch else 0
+        per_step, counts = [], []
         for j in range(n):
             episode = sampler.sample(gen)
-            params, opt_state, m = _train_step(
+            params, opt_state, m, grads = _step_and_grads(
                 family, opt, params, opt_state, episode, gen,
-                first_step + j if debug_nans else None)
+                first_step + j if debug_nans else None, grad_fn)
             per_step.append(m)
-        return params, opt_state, gen, _stack(per_step)
+            if stride and (j + 1) % stride == 0:
+                counts.append(watch_lib.grad_histogram_metrics(
+                    grads, family.name))
+        ms = _stack(per_step)
+        ms.update(_stack(counts))
+        return params, opt_state, gen, ms
     return run
 
 

@@ -6,14 +6,19 @@ The counterpart of ``fumi_tpu/utils/profiling.py``:
   ``torch.cuda.memory_stats`` under the JAX package's names;
 - :class:`Throughput`: episodes/s with exponential smoothing, fed by the
   training loop;
-- :func:`profile_trace`: ``--tpu_profile_dir`` wrote a ``jax.profiler``
-  trace; a ``torch.profiler`` counterpart is ROADMAP.md Queue 1, item 9,
-  so a non-empty directory raises.
+- :func:`profile_trace`: ``--tpu_profile_dir``, a ``torch.profiler``
+  trace of the run's CPU and (on a card) CUDA activity, written as a
+  Chrome trace JSON into the directory (open it in Perfetto or
+  ``chrome://tracing``). The kernel wrappers of ``ops/kernels.py`` open a
+  range named after themselves while a profiler runs, so the timeline
+  names ``gather_episode_rows``, ``fused_adapt`` and the others above the
+  CUDA kernels they launch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Optional
 
@@ -22,13 +27,27 @@ import torch
 
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str]):
-    """No-op without ``log_dir``; raises with one (not ported yet)."""
-    if log_dir:
-        raise NotImplementedError(
-            "--tpu_profile_dir is not ported to the PyTorch package yet "
-            "(ROADMAP.md Queue 1, item 9: scale-out extensions and "
-            "utils/profiling.py)")
-    yield
+    """Trace the block into ``log_dir/trace_<pid>_<ms>.pt.trace.json`` (CPU
+    activity, and CUDA activity where a card is present); a no-op without
+    ``log_dir``. Yields the profiler (None without one)."""
+    if not log_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    try:
+        yield prof
+    finally:
+        prof.__exit__(None, None, None)
+        path = os.path.join(log_dir, f"trace_{os.getpid()}_"
+                            f"{int(time.time() * 1e3)}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profile trace: {path}")
 
 
 def hbm_stats(device: Optional[torch.device] = None) -> dict:

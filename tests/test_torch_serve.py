@@ -154,16 +154,25 @@ def test_classify_before_adapt():
 @pytest.mark.parametrize("kw", [
     # AM3, the raw-image backbones, bf16, iMAML, ANIL and the token
     # encoders serve since they were ported (tests/test_torch_raw_serve.py
-    # serves raw and bf16 configs); CLIP serves through ClipRetrieval and
-    # a seed sweep waits for item 9
+    # serves raw and bf16 configs); CLIP serves through ClipRetrieval; a
+    # seed sweep's run dir serves through SeedEnsemble
+    # (tests/test_torch_seed_ensemble.py)
     dict(model="clip"), dict(seed_sweep=2),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_configs_raise(kw):
+    if kw.get("model") != "clip":
+        # a sweep's config serves one replica, as the JAX package's
+        # FewShotClassifier does; an ensemble needs its stacked params
+        from fumi_tpu_torch.serve import SeedEnsemble
+        cfg = Config(**cfg_kw("fumi", **kw))
+        assert FewShotClassifier(cfg, device="cpu").cfg.seed_sweep == 2
+        with pytest.raises(ValueError, match="stacked"):
+            SeedEnsemble(cfg, None, device="cpu")
+        return
     # CLIP is no episodic family (the registry has none by that name): it
     # serves through ClipRetrieval, which the refusal names
-    match = "ClipRetrieval" if kw.get("model") == "clip" else "ROADMAP.md"
-    with pytest.raises(NotImplementedError, match=match):
-        FewShotClassifier(Config(**cfg_kw(kw.pop("model", "fumi"), **kw)),
+    with pytest.raises(NotImplementedError, match="ClipRetrieval"):
+        FewShotClassifier(Config(**cfg_kw(kw.pop("model"), **kw)),
                           device="cpu")
 
 

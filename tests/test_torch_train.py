@@ -356,10 +356,34 @@ def test_chunked_drivers_metric_keys_and_shapes(model):
 
 @pytest.mark.parametrize("kw", [dict(accum=2), dict(watch=True)])
 def test_chunked_train_unported_options_raise(kw):
+    """The options this test once saw rejected run since they were ported
+    (tests/test_torch_grad_accum.py, tests/test_torch_watch.py): a chunk
+    with ``accum=2`` ends within 1e-4 of the whole-batch chunk on the same
+    episodes (dropout 0), one with ``watch=True`` bitwise equal to it, with
+    one row of gradient counts a block of ``WATCH_STRIDE`` steps."""
+    from fumi_tpu_torch.train import watch
     _, jfam = jax_family("maml")
     cfg, fam = port_family("maml", jfam)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        steps.make_chunked_train(fam, steps.make_opt(cfg), None, 2, **kw)
+    cs, table, ids = synthetic_class_set(num_classes=10, images_per_class=12,
+                                         im_dim=D, text_dim=E)
+    smp = sampler.DeviceEpisodeSampler(table, ids, cs,
+                                       EpisodeSpec(B, N, K, Q, D, E),
+                                       device="cpu")
+    opt = steps.make_opt(cfg)
+    n = watch.WATCH_STRIDE + 1
+    outs = [steps.make_chunked_train(fam, opt, smp, n, **o)(
+        fam.params, opt.init(fam.params), smp.generator(1))
+        for o in ({}, kw)]
+    (p0, _, _, m0), (p1, _, _, m1) = outs
+    for k in p0:
+        if kw.get("watch"):
+            assert torch.equal(p0[k], p1[k]), k
+        else:
+            np.testing.assert_allclose(p1[k].numpy(), p0[k].numpy(), **TOL)
+    rows = {k: v for k, v in m1.items() if k.startswith("watch_counts/")}
+    assert bool(rows) == bool(kw.get("watch"))
+    assert all(v.shape == (1, watch.NUM_BUCKETS) for v in rows.values())
+    assert m1["loss"].shape == m0["loss"].shape == (n,)
 
 
 @pytest.mark.parametrize("kw,item", [
