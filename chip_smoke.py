@@ -172,6 +172,25 @@ fails:
 7y. a FuMI driver run with ``--tpu_profile_dir``: the trace names
    ``gather_episode_rows`` and ``fused_adapt``, and its kernels' device
    time by name;
+7z. the multi-device engines (``parallel/``) at the flagship widths with
+   dropout 0 (B=4, 5-way 5-shot, 5 second-order inner steps, Adam), the
+   ranks started by ``parallel/launch.py:spawn_world``: (a) two ranks
+   sharing the card over gloo: one dp=2 step on a held episode against
+   the serial step (rtol 2e-4, atol 1e-5), a chunk of 10 steps on each
+   rank's own B/dp tasks (one ``gather_episode_rows`` a rank a step) with
+   the params bitwise equal across the ranks, train episodes/s beside the
+   serial chunk's (in turns), the card's busy share and the packed
+   all-reduce's time, eval of 8 held meta-batches through ``fused_adapt``
+   (FuMI) and ``fused_maml_adapt_batched`` (MAML) on each rank's tasks
+   against the serial eval (loss 1e-5, acc 1e-6, preds equal) and a chunk
+   of the ranks' own draws; (b) dp=1 x mp=2 steps of FuMI and MAML (wide
+   weights sharded, Megatron's row-parallel product) against the serial
+   step; (e) a CLIP SGD step over the ranks' rows against the serial step,
+   a CLIP epoch, and an S=4 sweep (two seeds a rank) whose every seed is
+   bitwise the single-rank sweep's; (c) a one-rank NCCL world's dp chunk
+   bitwise the serial chunk; (d) the driver as two ``--tpu_dist_*``
+   processes on the card: identical ``TEST`` lines, run dirs ``-p0`` and
+   ``-p1`` with ``ckpt/``. The ranks' launches are summed by path;
 8. time each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, and each path; time a
    FuMI R=1 request through ``fused_adapt`` and through the autograd
@@ -189,8 +208,9 @@ fails:
 9. print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Every path of phases 4-7y sets the kernels' launch counts to 0 just before
-it runs and reads them just after; it fails if it did not launch each
+Every path of phases 4-7z sets the kernels' launch counts to 0 just before
+it runs and reads them just after (phase 7z in each rank, the ranks'
+counts summed; the two driver processes of 7z (d) report none); it fails if it did not launch each
 kernel it runs, as many times as the path runs it.
 
 It imports no JAX. Without a CUDA device, or outside a checkout of the
@@ -4573,6 +4593,569 @@ def pr12_phases(names, Config, dev, root, card, ctx, reset_counts,
     return times
 
 
+# ---------------------------------------------------------------------------
+# Phase 7z: the multi-device engines on one card
+# ---------------------------------------------------------------------------
+
+# two ranks share the card over gloo (NCCL refuses two ranks on one
+# device); chunks of 10 dp steps, timed twice in each world; the CLIP
+# epoch and the S=4 sweep at phase 7u's seeds, 4 epochs, a validation every
+# 2; a rank's collective timed over 20 all-reduces of the gradient's size
+MD_CHUNK, MD_COLLECTIVES = 10, 20
+MD_SWEEP_EPOCHS, MD_SWEEP_EVAL_FREQ, MD_SWEEP_EP_TEST = 4, 2, 8
+MD_CLIP_SGD_LR = 1e-2
+MD_TOL = dict(rtol=2e-4, atol=1e-5)  # tests/test_parallel.py:84-86
+# the ranks run on the card (False rehearses the phase on CPU ranks)
+MD_USE_CUDA = True
+# the sizes the parent runs at, handed to the ranks with their work
+MD_SIZES = ("B", "WAYS", "SHOTS", "TRAIN_Q", "EVAL_Q", "D", "E", "TH", "H1",
+            "H2", "STEPS", "INNER_STEPS", "EVAL_BATCHES", "SWEEP_S",
+            "CLIP_BATCH", "MD_CHUNK", "MD_SWEEP_EPOCHS",
+            "MD_SWEEP_EVAL_FREQ", "MD_SWEEP_EP_TEST", "MD_USE_CUDA")
+MD_PATHS = ("dp2 train fumi", "dp2 eval fumi (steps)", "dp2 eval fumi",
+            "dp2 eval maml (steps)", "dp2 eval maml", "mp2 step fumi",
+            "mp2 step maml", "dp2 clip epoch", "dp2 sweep fumi S=4",
+            "nccl dp1 train fumi")
+
+
+def md_cfg(Config, model: str, **kw):
+    """Phase 7z's configs: the flagship training config with dropout 0, so
+    a held step sees no dropout draws."""
+    return train_cfg(Config, model, **kw).replace(dropout=0.0)
+
+
+def md_s(fn, dev) -> float:
+    """Host seconds of ``fn()`` up to the end of its work on ``dev``."""
+    import torch
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    return time.perf_counter() - t0
+
+
+def md_rank_start(ctx):
+    """A rank's first step: the parent's sizes, and the rank's device."""
+    from fumi_tpu_torch.core import distributed
+    globals().update(ctx["sizes"])
+    return distributed.rank_device()
+
+
+def md_counts():
+    from fumi_tpu_torch.ops import kernels
+    return {name: getattr(kernels, name).launches for name in KERNEL_NAMES}
+
+
+def md_reset():
+    from fumi_tpu_torch.ops import kernels
+    for name in KERNEL_NAMES:
+        getattr(kernels, name).launches = 0
+
+
+def md_samplers(ctx, dev):
+    """Phase 5's train and phase 6's eval sampler on this rank's card."""
+    import torch
+    from fumi_tpu_torch.core.episode import EpisodeSpec
+    from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler
+    table = torch.from_numpy(ctx["table"]).to(dev)
+    kw = dict(use_pallas_gather=True, device=dev)
+    return (DeviceEpisodeSampler(table, ctx["ids"], ctx["cset"],
+                                 EpisodeSpec(B, WAYS, SHOTS, TRAIN_Q, D, E),
+                                 **kw),
+            DeviceEpisodeSampler(table, ctx["ids"], ctx["cset"],
+                                 EpisodeSpec(B, WAYS, SHOTS, EVAL_Q, D, E),
+                                 **kw))
+
+
+def md_episode(np_episode, dev):
+    from fumi_tpu_torch import bridge
+    return bridge.episode_from_numpy(np_episode, device=dev)
+
+
+def md_gloo_rank(rank: int, ctx: dict) -> dict:
+    """One of the two ranks that share the card: (a) the dp engine's step
+    on the held episode, a timed chunk and its busy share, the collective's
+    time, eval through the fused kernels; (b) the 2-D engine's step; (e)
+    a dp CLIP epoch and a dp sweep. Each path's launches come back beside
+    its results."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from fumi_tpu_torch.cli.main import _NullWriter
+    from fumi_tpu_torch.core import mesh as mesh_lib
+    from fumi_tpu_torch.core.config import Config
+    from fumi_tpu_torch.data.supervised import supervised_from_class_set
+    from fumi_tpu_torch.parallel import engine, pjit_engine
+    from fumi_tpu_torch.train import clip_loop, optim, steps, sweep
+    dev = md_rank_start(ctx)
+    out = {"backend": dist.get_backend(), "device": str(dev),
+           "launches": {}}
+    train_smp, eval_smp = md_samplers(ctx, dev)
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+    dp = mesh_lib.make_mesh(2, 1)
+    held = md_episode(ctx["episode"], dev)
+
+    # (a) one step on the held episode, then a chunk on the rank's tasks
+    cfg = md_cfg(Config, "fumi")
+    par = engine.make_parallel_steps(cfg, torch.Generator().manual_seed(0),
+                                     dp, dev)
+    out["step fumi"] = par.train_step(par.params, par.opt.init(par.params),
+                                      held, gen(12))[0]
+    run = engine.make_parallel_chunked_train(cfg, par.family, par.opt,
+                                             train_smp, dp, MD_CHUNK)
+    p, s, g, _ = run(par.params, par.opt.init(par.params),
+                     train_smp.generator(1))  # warm
+    secs = []
+    for turn in range(2):
+        dist.barrier()
+        md_reset()
+        box = {}
+        secs.append(md_s(lambda: box.update(out=run(p, s, g)), dev))
+        if turn == 0:
+            out["launches"]["dp2 train fumi"] = md_counts()
+    p, s, g, ms = box["out"]
+    out["chunk"] = (p, ms["loss"])
+    out["chunk s"] = secs
+    ran = []
+
+    def three_steps():
+        ran.append(1)
+        run(p, s, g, 3)
+    traced = None
+    try:
+        if dev.type == "cuda":
+            traced = device_profile(three_steps)
+    except Exception as e:  # a measurement, not a check
+        out["profile error"] = repr(e)
+    if not ran:
+        three_steps()  # the other rank waits in this chunk's all-reduces
+    out["device ms a step"] = None if traced is None else traced[0] / 3
+    out["operations a step"] = None if traced is None else traced[1] / 3
+    flat = torch.zeros(sum(v.numel() for v in p.values()) + 1, device=dev)
+    dist.barrier()
+    out["collective ms"] = 1e3 * md_s(lambda: [
+        mesh_lib.all_reduce_(flat, dp.dp_group)
+        for _ in range(MD_COLLECTIVES)], dev) / MD_COLLECTIVES
+    out["collective numel"] = flat.numel()
+
+    # eval of the held meta-batches (the single-step API), and of a chunk
+    # of the rank's own draws, through the fused kernels
+    for model in ("fumi", "maml"):
+        ecfg = md_cfg(Config, model, pallas_fused_eval=True)
+        est = engine.make_parallel_steps(ecfg,
+                                         torch.Generator().manual_seed(0),
+                                         dp, dev)
+        evs = [md_episode(e, dev) for e in ctx["eval episodes"]]
+        md_reset()
+        got = [est.eval_step(est.params, e, gen(3)) for e in evs]
+        out["launches"][f"dp2 eval {model} (steps)"] = md_counts()
+        out[f"eval {model}"] = [(r["loss"], r["acc"], r["preds"])
+                                for r in got]
+        erun = engine.make_parallel_chunked_eval(ecfg, est.family, eval_smp,
+                                                 dp)
+        erun(est.params, eval_smp.generator(98), 1)  # warm
+        dist.barrier()
+        md_reset()
+        box = {}
+        sec = md_s(lambda: box.update(out=erun(
+            est.params, eval_smp.generator(99), EVAL_BATCHES)), dev)
+        out["launches"][f"dp2 eval {model}"] = md_counts()
+        out[f"eval {model} chunk"] = (sec, box["out"][1]["loss"])
+
+    # (b) the 2-D engine, dp=1 x mp=2, on the held episode
+    mp = mesh_lib.make_mesh(1, 2)
+    for model in ("fumi", "maml"):
+        mcfg = md_cfg(Config, model)
+        st = pjit_engine.make_pjit_steps(
+            mcfg, torch.Generator().manual_seed(0), mp, dev)
+        s0 = st.opt.init(st.params)
+        st.train_step(st.params, s0, held, gen(12))  # warm
+        dist.barrier()
+        md_reset()
+        box = {}
+        sec = md_s(lambda: box.update(out=st.train_step(
+            st.params, s0, held, gen(12))), dev)
+        out["launches"][f"mp2 step {model}"] = md_counts()
+        out[f"mp step {model}"] = (box["out"][0], sec, sorted(
+            k for k, v in pjit_engine.param_pspecs(st.params, mp).items()
+            if v == pjit_engine.SHARDED))
+
+    # (e) a CLIP epoch over the two ranks' rows, and one SGD step of it
+    ccfg = Config(model="clip", dataset="synthetic", im_emb_dim=D,
+                  text_emb_dim=E, clip_latent_dim=512, batch_size=CLIP_BATCH,
+                  lr=CLIP_LR, seed=0)
+    model, cparams = clip_loop.make_clip(ccfg,
+                                         torch.Generator().manual_seed(0))
+    cparams = {k: v.to(dev) for k, v in cparams.items()}
+    text, image, valid = ctx["clip batch"]
+    sgd = optim.init_optim("SGD", MD_CLIP_SGD_LR, 0.0, 0.0)
+    out["clip step"] = clip_loop.dp_train_step(
+        model, sgd, cparams, sgd.init(cparams), text.to(dev), image.to(dev),
+        valid, dp)[::2]
+    opt = optim.init_optim(ccfg.optim, ccfg.lr, ccfg.weight_decay,
+                           ccfg.momentum)
+    data = (supervised_from_class_set(ctx["cset"]), ctx["table"])
+    dist.barrier()
+    md_reset()
+    box = {}
+    sec = md_s(lambda: box.update(out=clip_loop.train_epoch(
+        ccfg, model, opt, cparams, opt.init(cparams), data,
+        np.random.RandomState(0), dp)), dev)
+    out["launches"]["dp2 clip epoch"] = md_counts()
+    out["clip epoch"] = (box["out"][0], box["out"][2], sec)
+
+    # (e) the S=4 sweep over the two ranks: seeds 0-1 here, 2-3 there
+    scfg = md_cfg(Config, "fumi", seed_sweep=SWEEP_S, mesh_dp=2,
+                  pallas_fused_eval=True, epochs=MD_SWEEP_EPOCHS,
+                  eval_freq=MD_SWEEP_EVAL_FREQ, num_ep_test=MD_SWEEP_EP_TEST)
+    smesh = sweep.sweep_mesh(scfg)
+    fam = sweep.build_sweep_family(scfg, None, dev,
+                                   sweep.seed_shard(SWEEP_S, smesh))
+    dist.barrier()
+    md_reset()
+    box = {}
+    sec = md_s(lambda: box.update(out=sweep.sweep_training_run(
+        scfg, fam, steps.make_opt(scfg), train_smp, eval_smp,
+        _NullWriter("sweep"), ctx["sweep dir"], mesh=smesh)), dev)
+    out["launches"]["dp2 sweep fumi S=4"] = md_counts()
+    out["sweep"] = (sweep.gather_seeds(box["out"][0], smesh), sec)
+    return out
+
+
+def md_nccl_rank(rank: int, ctx: dict) -> dict:
+    """(c) A world of one rank on the card, so NCCL: the dp engine's chunk
+    with its gradient all-reduced over that world (a group of one rank,
+    so the numbers are the serial chunk's)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from fumi_tpu_torch.core import mesh as mesh_lib
+    from fumi_tpu_torch.core.config import Config
+    from fumi_tpu_torch.parallel import engine
+    from fumi_tpu_torch.train import steps
+    dev = md_rank_start(ctx)
+    train_smp, _ = md_samplers(ctx, dev)
+    mesh = dataclasses.replace(mesh_lib.make_mesh(1, 1),
+                               dp_group=dist.group.WORLD,
+                               group=dist.group.WORLD)
+    cfg = md_cfg(Config, "fumi")
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0), dev)
+    run = engine.make_parallel_chunked_train(cfg, st.family, st.opt,
+                                             train_smp, mesh, MD_CHUNK)
+    md_reset()
+    box = {}
+    sec = md_s(lambda: box.update(out=run(
+        st.params, st.opt.init(st.params), train_smp.generator(1))), dev)
+    return {"backend": dist.get_backend(), "params": box["out"][0],
+            "s": sec, "launches": {"nccl dp1 train fumi": md_counts()}}
+
+
+def md_driver(root: str, card: str) -> dict:
+    """(d) The driver as two ``--tpu_dist_*`` processes sharing the card
+    (gloo), FuMI at phase 7's flags and depth: identical ``TEST`` lines,
+    run dirs ``-p0`` and ``-p1`` each with ``ckpt/``. Returns the wall
+    seconds."""
+    import ast
+    import re
+    import socket
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    log_dir = os.path.join(root, "dist")
+    args = [sys.executable, "-m", "fumi_tpu_torch.cli.main", "--model",
+            "fumi", "--dataset", "synthetic", "--augment",
+            "--tpu_pallas_gather", "--tpu_pallas_fused_eval", "--epochs",
+            str(DRIVER_EPOCHS), "--eval_freq", str(DRIVER_EVAL_FREQ),
+            "--num_ep_test", str(DRIVER_EP_TEST), "--seed", "0",
+            "--wandb_offline", "--log_dir", log_dir,
+            "--tpu_dist_coordinator", f"localhost:{port}",
+            "--tpu_dist_num_processes", "2"]
+    share = "backend gloo (2 ranks share 1 card)"
+    if not MD_USE_CUDA:
+        args.append("--disable_cuda")
+        share = "backend gloo"
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(args + ["--tpu_dist_process_id", str(i)],
+                              cwd=HERE, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for i, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"driver process {i} of 2 failed:\n{o[-3000:]}")
+    lines = []
+    for i, o in enumerate(outs):
+        m = re.search(r"TEST: (\{.*\})", o)
+        run_line = next((ln for ln in o.splitlines()
+                         if ln.startswith("running on")), "")
+        print(f"main path, driver process {i}/2: {run_line}")
+        if m is None or share not in run_line:
+            fail(f"driver process {i}: no TEST line or not two gloo ranks "
+                 f"on one card:\n{o[-3000:]}")
+        lines.append(ast.literal_eval(m.group(1)))
+    runs = sorted(os.listdir(os.path.join(log_dir, "runs")))
+    dirs_ok = (len(runs) == 2 and runs[0].endswith("-p0")
+               and runs[1].endswith("-p1")
+               and all(os.path.isdir(os.path.join(log_dir, "runs", r, "ckpt"))
+                       for r in runs))
+    print(f"main path, driver as two --tpu_dist_* processes on one card: "
+          f"TEST {lines[0]}; identical {lines[0] == lines[1]}; run dirs "
+          f"{runs}; {wall:.1f} s of wall time for both [{card}]")
+    if lines[0] != lines[1] or not dirs_ok:
+        fail("the two driver processes disagree or their run dirs are wrong")
+    return {"driver 2 processes s": wall}
+
+
+def md_close(label: str, got, want) -> float:
+    """The largest |difference| of two state dicts; fails past MD_TOL."""
+    import numpy as np
+    worst = 0.0
+    for k, w in want.items():
+        g, w = got[k].detach().cpu().numpy(), w.detach().cpu().numpy()
+        worst = max(worst, float(np.abs(g - w).max()))
+        if not np.allclose(g, w, **MD_TOL):
+            fail(f"{label}: {k} off by {np.abs(g - w).max():.3e} "
+                 f"(rtol 2e-4, atol 1e-5)")
+    return worst
+
+
+def multi_device_phase(Config, dev, root, card, table_np, ids_np, cset,
+                       by_path) -> dict:
+    """Phase 7z. The serial references on this process's card, then a world
+    of two gloo ranks sharing it (``md_gloo_rank``), the serial chunk timed
+    again (turns), a one-rank NCCL world (``md_nccl_rank``) and the driver
+    as two ``--tpu_dist_*`` processes (``md_driver``). Each rank's
+    launches are summed into ``by_path``. Returns the times."""
+    import numpy as np
+    import torch
+    from fumi_tpu_torch import bridge
+    from fumi_tpu_torch.data.supervised import (epoch_batches,
+                                                supervised_from_class_set)
+    from fumi_tpu_torch.parallel.launch import spawn_world
+    from fumi_tpu_torch.train import clip_loop, optim, steps, sweep
+    from fumi_tpu_torch.cli.main import _NullWriter
+    times = {}
+    train_smp, eval_smp = md_samplers(
+        {"table": table_np, "ids": ids_np, "cset": cset}, dev)
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+    held = train_smp.sample(gen(11))
+    egen = gen(3)
+    evals = [eval_smp.sample(egen) for _ in range(EVAL_BATCHES)]
+
+    # serial references on the card
+    serial = {}
+    for model in ("fumi", "maml"):
+        st = steps.make_steps(md_cfg(Config, model),
+                              torch.Generator().manual_seed(0), dev)
+        serial[f"step {model}"] = st.train_step(
+            st.params, st.opt.init(st.params), held, gen(12))[0]
+        est = steps.make_steps(md_cfg(Config, model, pallas_fused_eval=True),
+                               torch.Generator().manual_seed(0), dev)
+        serial[f"eval {model}"] = [est.eval_step(est.params, e, gen(3))
+                                   for e in evals]
+    cfg = md_cfg(Config, "fumi")
+    st = steps.make_steps(cfg, torch.Generator().manual_seed(0), dev)
+    srun = steps.make_chunked_train(st.family, st.opt, train_smp, MD_CHUNK)
+    sp, ss, sg, _ = srun(st.params, st.opt.init(st.params),
+                         train_smp.generator(1))
+    serial_s = [md_s(lambda: srun(sp, ss, sg), dev)]
+    nccl_ref = srun(st.params, st.opt.init(st.params),
+                    train_smp.generator(1))[0]
+
+    ccfg = Config(model="clip", dataset="synthetic", im_emb_dim=D,
+                  text_emb_dim=E, clip_latent_dim=512, batch_size=CLIP_BATCH,
+                  lr=CLIP_LR, seed=0)
+    cmodel, cparams = clip_loop.make_clip(ccfg,
+                                          torch.Generator().manual_seed(0))
+    cparams = {k: v.to(dev) for k, v in cparams.items()}
+    sup = supervised_from_class_set(cset)
+    image, text, ids, valid_n = next(epoch_batches(
+        sup, table_np, CLIP_BATCH, np.random.RandomState(5)))
+    image, text, u = clip_loop.dedupe_batch(image, text, ids, valid_n)
+    clip_batch = (torch.from_numpy(text), torch.from_numpy(image), u)
+    sgd = optim.init_optim("SGD", MD_CLIP_SGD_LR, 0.0, 0.0)
+    clip_step = clip_loop.train_step(
+        cmodel, sgd, cparams, sgd.init(cparams), clip_batch[0].to(dev),
+        clip_batch[1].to(dev), u)[::2]
+    copt = optim.init_optim(ccfg.optim, ccfg.lr, ccfg.weight_decay,
+                            ccfg.momentum)
+    clip_s = md_s(lambda: serial.update(clip=clip_loop.train_epoch(
+        ccfg, cmodel, copt, cparams, copt.init(cparams), (sup, table_np),
+        np.random.RandomState(0))), dev)
+
+    scfg = md_cfg(Config, "fumi", seed_sweep=SWEEP_S, pallas_fused_eval=True,
+                  epochs=MD_SWEEP_EPOCHS, eval_freq=MD_SWEEP_EVAL_FREQ,
+                  num_ep_test=MD_SWEEP_EP_TEST)
+    sweep_dir = os.path.join(root, "sweep-dp2")
+    sweep_s = md_s(lambda: serial.update(sweep=sweep.sweep_training_run(
+        scfg, sweep.build_sweep_family(scfg, None, dev), steps.make_opt(scfg),
+        train_smp, eval_smp, _NullWriter("sweep"),
+        os.path.join(root, "sweep-1"))[0]), dev)
+
+    # (a), (b), (e): two ranks share the card over gloo
+    sizes = {k: globals()[k] for k in MD_SIZES}
+    ctx = {"sizes": sizes, "table": table_np, "ids": ids_np, "cset": cset,
+           "episode": bridge.episode_to_numpy(held),
+           "eval episodes": [bridge.episode_to_numpy(e) for e in evals],
+           "clip batch": clip_batch, "sweep dir": sweep_dir}
+    t0 = time.perf_counter()
+    ranks = [r.value for r in spawn_world(md_gloo_rank, 2, ctx,
+                                          store_dir=root,
+                                          use_cuda=MD_USE_CUDA)]
+    times["gloo world s"] = time.perf_counter() - t0
+    serial_s.append(md_s(lambda: srun(sp, ss, sg), dev))
+    for r in ranks:
+        if r["backend"] != "gloo" or r["device"] != str(dev):
+            fail(f"phase 7z: a rank on {r['device']} over {r['backend']}, "
+                 "expected two gloo ranks on cuda:0")
+
+    # (a) the step, the params across ranks, eval
+    err = max(md_close(f"dp2 step fumi, rank {i}", r["step fumi"],
+                       serial["step fumi"]) for i, r in enumerate(ranks))
+    same = trees_equal(ranks[0]["chunk"][0], ranks[1]["chunk"][0])
+    dp_eps = [MD_CHUNK * B / s for s in ranks[0]["chunk s"]]
+    serial_eps = [MD_CHUNK * B / s for s in serial_s]
+    step_ms = 1e3 * min(ranks[0]["chunk s"]) / MD_CHUNK
+    dev_ms = [r["device ms a step"] for r in ranks]
+    busy = (None if None in dev_ms
+            else 100 * sum(dev_ms) / step_ms)
+    print(f"main path, dp=2 train fumi (two gloo ranks on one card, B/dp=2 "
+          f"tasks a rank): one step on the held episode within {err:.3e} of "
+          f"the serial step (rtol 2e-4, atol 1e-5); params after a chunk of "
+          f"{MD_CHUNK} bitwise equal across the ranks: {same}; episodes/s "
+          f"(all ranks) {dp_eps[0]:.1f}, {dp_eps[1]:.1f} against serial "
+          f"{serial_eps[0]:.1f}, {serial_eps[1]:.1f} (turns: serial, dp, "
+          f"dp, serial); device time a step "
+          f"{', '.join('not measured' if d is None else f'{d:.3f} ms' for d in dev_ms)} "
+          f"(ranks 0, 1; torch.profiler, 3 steps) in {step_ms:.3f} ms of "
+          f"wall time: card busy "
+          f"{'not measured' if busy is None else f'{busy:.1f}%'}; one packed "
+          f"all-reduce of {ranks[0]['collective numel']} fp32 (the "
+          f"gradient and loss) {ranks[0]['collective ms']:.3f} ms "
+          f"(gloo, rank 0) [{card}]")
+    if not same:
+        fail("dp=2: the ranks' params differ after a chunk")
+    times.update({"dp2 train eps": dp_eps, "serial train eps": serial_eps,
+                  "dp2 step ms": step_ms, "dp2 device ms": dev_ms,
+                  "dp2 busy %": busy,
+                  "dp2 collective ms": ranks[0]["collective ms"]})
+    for model in ("fumi", "maml"):
+        want = serial[f"eval {model}"]
+        for i, r in enumerate(ranks):
+            for j, ((loss, acc, preds), w) in enumerate(zip(
+                    r[f"eval {model}"], want)):
+                if abs(float(loss) - float(w["loss"])) > 1e-5 or \
+                        abs(float(acc) - float(w["acc"])) > 1e-6 or \
+                        not torch.equal(preds, w["preds"].cpu()):
+                    fail(f"dp2 eval {model}, rank {i}, meta-batch {j}: "
+                         f"{float(loss)}/{float(acc)} against "
+                         f"{float(w['loss'])}/{float(w['acc'])}")
+        sec, losses = ranks[0][f"eval {model} chunk"]
+        times[f"dp2 eval {model} eps"] = EVAL_BATCHES * B / sec
+        print(f"main path, dp=2 eval {model} through the fused kernel: "
+              f"{EVAL_BATCHES} held meta-batches, loss, acc (1e-5, 1e-6) and "
+              f"preds (equal) the serial eval's on both ranks; a chunk of "
+              f"{EVAL_BATCHES} of the ranks' own draws {sec:.3f} s = "
+              f"{times[f'dp2 eval {model} eps']:.1f} episodes/s, loss "
+              f"{float(losses.mean()):.4f} [{card}]")
+        if not bool(torch.isfinite(losses).all()):
+            fail(f"dp2 eval {model}: non-finite losses")
+
+    # (b) the 2-D engine
+    for model in ("fumi", "maml"):
+        errs = [md_close(f"mp2 step {model}, rank {i}",
+                         r[f"mp step {model}"][0], serial[f"step {model}"])
+                for i, r in enumerate(ranks)]
+        sec, sharded = ranks[0][f"mp step {model}"][1:]
+        times[f"mp2 step {model} ms"] = 1e3 * sec
+        print(f"dp=1 x mp=2 step {model}: within {max(errs):.3e} of the "
+              f"serial step on both ranks (rtol 2e-4, atol 1e-5); sharded "
+              f"{sharded}; {1e3 * sec:.1f} ms a step [{card}]")
+        if not sharded:
+            fail(f"mp2 {model}: no leaf sharded")
+
+    # (e) CLIP and the sweep
+    (p, loss) = ranks[0]["clip step"]
+    cerr = md_close("dp2 clip SGD step", p, clip_step[0])
+    if abs(float(loss) - float(clip_step[1])) > 1e-5:
+        fail(f"dp2 clip step: loss {float(loss)} against "
+             f"{float(clip_step[1])}")
+    cp, n_steps, csec = ranks[0]["clip epoch"]
+    csame = trees_equal(cp, ranks[1]["clip epoch"][0])
+    cdiff = max(float((cp[k].to(dev) - serial["clip"][0][k]).abs().max())
+                for k in cp)
+    finite = all(bool(torch.isfinite(v).all()) for v in cp.values())
+    print(f"dp=2 CLIP: an SGD step within {cerr:.3e} of the serial step; an "
+          f"epoch of {n_steps} Adam steps {csec:.3f} s ({n_steps / csec:.1f} "
+          f"steps/s) against serial {clip_s:.3f} s, params bitwise across "
+          f"the ranks {csame}, {cdiff:.3e} from the serial epoch's [{card}]")
+    if not (csame and finite):
+        fail("dp2 clip epoch: ranks differ or non-finite params")
+    times.update({"dp2 clip epoch s": csec, "serial clip epoch s": clip_s})
+    swept, ssec = ranks[0]["sweep"]
+    ssame = trees_equal(swept, {k: v.cpu() for k, v in serial["sweep"].items()})
+    print(f"dp=2 sweep S={SWEEP_S} (2 seeds a rank, {MD_SWEEP_EPOCHS + 1} "
+          f"steps, fused eval): every seed's params bitwise the single-rank "
+          f"sweep's: {ssame}; {ssec:.3f} s against {sweep_s:.3f} s [{card}]")
+    if not ssame:
+        fail("dp2 sweep: a seed differs from the single-rank sweep")
+    times.update({"dp2 sweep s": ssec, "serial sweep s": sweep_s})
+
+    # (c) one rank, NCCL
+    nccl = spawn_world(md_nccl_rank, 1, {"sizes": sizes, "table": table_np,
+                                          "ids": ids_np, "cset": cset},
+                       store_dir=root, use_cuda=MD_USE_CUDA)[0]
+    nsame = trees_equal({k: v for k, v in nccl.value["params"].items()},
+                        {k: v.cpu() for k, v in nccl_ref.items()})
+    print(f"one-rank world: backend {nccl.value['backend']}, a chunk of "
+          f"{MD_CHUNK} dp steps with the gradient all-reduced over it, "
+          f"bitwise the serial chunk: {nsame}; {nccl.value['s']:.3f} s "
+          f"[{card}]")
+    want_backend = "nccl" if MD_USE_CUDA else "gloo"
+    if nccl.value["backend"] != want_backend or not nsame:
+        fail("the one-rank NCCL world did not run NCCL or differs")
+
+    # launches, the ranks' counts summed
+    expect = {
+        "dp2 train fumi": new_counts(gather_episode_rows=2 * MD_CHUNK),
+        "dp2 eval fumi (steps)": new_counts(fused_adapt=2 * EVAL_BATCHES),
+        "dp2 eval fumi": new_counts(fused_adapt=2 * EVAL_BATCHES,
+                                    gather_episode_rows=2 * EVAL_BATCHES),
+        "dp2 eval maml (steps)": new_counts(
+            fused_maml_adapt_batched=2 * EVAL_BATCHES),
+        "dp2 eval maml": new_counts(fused_maml_adapt_batched=2 * EVAL_BATCHES,
+                                    gather_episode_rows=2 * EVAL_BATCHES),
+        "mp2 step fumi": new_counts(), "mp2 step maml": new_counts(),
+        "dp2 clip epoch": new_counts(),
+        "nccl dp1 train fumi": new_counts(gather_episode_rows=MD_CHUNK)}
+    for r in ranks + [nccl.value]:
+        for label, counts in r["launches"].items():
+            add_counts(by_path, label, counts)
+    for label, want in expect.items():
+        if by_path[label] != want:
+            fail(f"phase 7z {label}: launches {by_path[label]}, expected "
+                 f"{want}")
+    sw = by_path["dp2 sweep fumi S=4"]
+    if not (sw["gather_episode_rows"] > 0 and sw["fused_adapt"] > 0):
+        fail(f"dp2 sweep: launches {sw}")
+    print(f"phase 7z launches, the ranks' counts summed: "
+          f"{ {k: by_path[k] for k in MD_PATHS} }")
+
+    # (d) the driver as two processes
+    times.update(md_driver(root, card))
+    return times
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4951,6 +5534,12 @@ def main() -> int:
              "batch": (b_im, b_y, b_q, b_tx), "table": table, "ids": ids_np,
              "cset": cset},
             reset_counts, read_counts, by_path)
+        # ---- 7z. the multi-device engines on one card --------------------
+        t0 = time.perf_counter()
+        md_times = multi_device_phase(Config, dev, driver_root, card,
+                                      table_np, ids_np, cset, by_path)
+        print(f"phase multi-device: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(driver_root, ignore_errors=True)
 
@@ -5406,6 +5995,7 @@ def main() -> int:
           "(7o-7s): " + json.dumps(pr11_times, default=str))
     print("seed sweep, sweep driver, seed ensemble, grad-accum, watch and "
           "trace (7t-7y): " + json.dumps(pr12_times, default=str))
+    print("multi-device engines (7z): " + json.dumps(md_times, default=str))
 
     # ---- 9. result ------------------------------------------------------
     launches = {name: sum(c[name] for c in by_path.values())

@@ -42,10 +42,27 @@ per-seed run dirs ``seed<k>/``, the ``SWEEP TEST`` line and one CSV a
 seed. ``--checkpoint`` takes a run dir or a reference ``.pth.tar`` file
 (``interop.py``).
 
-Not ported yet, each rejected with ``NotImplementedError`` naming its
-ROADMAP.md Queue 1 item: the multi-device modes (``--tpu_mesh_dp > 1``,
-``--tpu_mesh_mp > 1``, ``--tpu_dist_*``: item 9); a wandb run path for
-``--checkpoint`` needs the network.
+Several devices. One rank is one device (``core/distributed.py``): a
+JAX process holds every device of its host, a port process is one rank.
+``--tpu_dist_coordinator/--tpu_dist_num_processes/--tpu_dist_process_id``
+(or torchrun's environment) make each process one rank of a world, joined
+before anything else runs; each writes its own run dir, suffixed ``-p<rank>``,
+with its own whole checkpoint, and only rank 0 logs to wandb. A single
+process given ``--tpu_mesh_dp N`` and/or ``--tpu_mesh_mp M`` starts the
+``N · M`` ranks itself (``parallel/launch.py``: one card each, or CPU
+ranks under ``--disable_cuda``); rank 0 alone writes the run dir and
+prints the ``TEST`` line, as the JAX package's one process does. The mesh
+is decided before the steps are built, as the JAX driver decides it:
+``--tpu_mesh_mp > 1`` runs the 2-D engine (``parallel/pjit_engine.py``),
+dp > 1 the episode-parallel one (``parallel/engine.py``), ``--tpu_mesh_dp
+0`` picks the largest dp that divides ``--batch_size`` and fits the
+world's ranks. CLIP shards its rows over the world's ranks
+(``train/clip_loop.py``) and a seed sweep its seeds
+(``train/sweep.py``). The backend is NCCL where every rank has a card of
+its own, gloo where ranks share a card or run on the CPU; the ``running
+on`` line names it.
+
+A wandb run path for ``--checkpoint`` needs the network and raises.
 """
 
 from __future__ import annotations
@@ -61,6 +78,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fumi_tpu_torch.core import distributed
+from fumi_tpu_torch.core import mesh as mesh_lib
 from fumi_tpu_torch.core.config import (Config, TOKEN_TEXT_ENCODERS,
                                         config_from_args)
 from fumi_tpu_torch.models import RAW_IMAGE_ENCODERS
@@ -87,12 +106,6 @@ from fumi_tpu_torch.train.sweep import sweep_main
 from fumi_tpu_torch.utils.profiling import profile_trace
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md "
-        f"Queue 1, {item})")
-
-
 def _check_driver(cfg: Config) -> None:
     """Reject what the driver does not run yet, before any work."""
     if cfg.model == "clip":
@@ -109,11 +122,6 @@ def _check_driver(cfg: Config) -> None:
                 "--model clip reads precomputed text embeddings "
                 f"(--text_encoder BERT or precomputed), not "
                 f"{cfg.text_encoder} tokens")
-    if cfg.mesh_dp > 1 or cfg.mesh_mp > 1 or \
-            cfg.dist_coordinator is not None or cfg.dist_num_processes > 0:
-        # --tpu_mesh_dp 0 or 1 is the single-device layout
-        raise _not_ported("--tpu_mesh_dp > 1/--tpu_mesh_mp > 1/--tpu_dist_*",
-                          "item 9: the multi-device part")
 
 
 def _load_data(cfg: Config):
@@ -268,20 +276,86 @@ def _save_predictions_csv(cfg: Config, writer: MetricWriter,
     return path
 
 
+class _NullWriter:
+    """The writer of a spawned rank other than rank 0: rank 0's run name,
+    and nothing written."""
+
+    def __init__(self, run_name: str):
+        self.run_name = run_name
+        self.summary: dict = {}
+
+    def log(self, metrics, step=None) -> None:
+        pass
+
+    def log_arrays(self, arrays, step=None) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def finish(self) -> None:
+        pass
+
+
+def _spawned_form(cfg: Config) -> bool:
+    """``--tpu_mesh_dp N``/``--tpu_mesh_mp M`` in one process: the driver
+    starts the ``N · M`` ranks itself."""
+    return (not distributed.is_initialized()
+            and max(cfg.mesh_dp, 1) * cfg.mesh_mp > 1)
+
+
+def _driver_rank(rank: int, cfg: Config) -> dict:
+    """One rank of the driver's spawned world; ranks other than 0 print
+    nothing."""
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    return main(cfg, distributed.rank_device())
+
+
+def _spawn_driver(cfg: Config) -> dict:
+    from fumi_tpu_torch.parallel.launch import spawn_world
+    dp, mp = max(cfg.mesh_dp, 1), cfg.mesh_mp
+    n = dp * mp
+    if not cfg.disable_cuda:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have == 0:
+            raise RuntimeError("CUDA is not available; pass --disable_cuda "
+                               "to run the ranks on the CPU")
+        if n > have:
+            raise ValueError(f"mesh ({dp}x{mp}) needs {n} devices, have "
+                             f"{have}")
+    print(f"spawning {n} ranks for the ({dp}, {mp}) mesh "
+          f"({'cuda' if not cfg.disable_cuda else 'cpu'})", flush=True)
+    return spawn_world(_driver_rank, n, cfg,
+                       use_cuda=not cfg.disable_cuda)[0].value
+
+
 def main(cfg: Config, device: DeviceLike = None) -> dict:
     """Train (unless ``--evaluate``) and test one run; returns the test
     metrics as ``{"test/<name>": value}``."""
     cfg = cfg.validate()
     _check_driver(cfg)
+    if _spawned_form(cfg):
+        return _spawn_driver(cfg)
     dev = resolve_device("cpu" if cfg.disable_cuda else device)
     results_path = os.path.join(cfg.log_dir, "results")
     os.makedirs(results_path, exist_ok=True)
-    writer = MetricWriter(
-        results_path, use_wandb=not cfg.wandb_offline,
-        offline=cfg.wandb_offline,
-        wandb_kwargs=dict(entity=cfg.wandb_entity, project=cfg.wandb_project,
-                          group=cfg.wandb_experiment,
-                          job_type="eval" if cfg.evaluate else "train"))
+    if distributed.writes_run():
+        writer = MetricWriter(
+            results_path,
+            use_wandb=not cfg.wandb_offline and distributed.is_primary(),
+            offline=cfg.wandb_offline, run_suffix=distributed.process_tag(),
+            wandb_kwargs=dict(entity=cfg.wandb_entity,
+                              project=cfg.wandb_project,
+                              group=cfg.wandb_experiment,
+                              job_type="eval" if cfg.evaluate else "train"))
+    else:
+        writer = None
+    if distributed.spawned():
+        # the ranks of a spawned world run in rank 0's run dir
+        name = distributed.broadcast_object(writer.run_name if writer
+                                            else None)
+        writer = writer or _NullWriter(name)
     try:
         return _run(cfg, dev, writer, results_path)
     finally:
@@ -309,15 +383,16 @@ def _run(cfg: Config, dev: torch.device, writer: MetricWriter,
     splits, image_table, image_ids, dictionary = _load_data(cfg)
     cfg = adopt_raw_geometry(cfg, image_table)
     run_dir = os.path.join(cfg.log_dir, "runs", writer.run_name)
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=1, default=str)
-    if cfg.text_encoder in TOKEN_TEXT_ENCODERS and dictionary:
-        # the vocabulary ships with the run, so serving rebuilds the
-        # encoder without the dataset (the trained table is in the
-        # checkpoint)
-        with open(os.path.join(run_dir, "vocab.json"), "w") as f:
-            json.dump(dict(dictionary), f)
+    if distributed.writes_run():
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=1, default=str)
+        if cfg.text_encoder in TOKEN_TEXT_ENCODERS and dictionary:
+            # the vocabulary ships with the run, so serving rebuilds the
+            # encoder without the dataset (the trained table is in the
+            # checkpoint)
+            with open(os.path.join(run_dir, "vocab.json"), "w") as f:
+                json.dump(dict(dictionary), f)
     if cfg.model == "clip":
         return _run_clip(cfg, dev, writer, run_dir, splits, image_table)
 
@@ -334,8 +409,7 @@ def _run(cfg: Config, dev: torch.device, writer: MetricWriter,
                 if close is not None:
                     close()
 
-    steps = make_steps(cfg, torch.Generator().manual_seed(cfg.seed),
-                       device=dev, dictionary=dictionary)
+    steps = _make_steps(cfg, dev, dictionary)
     train_s, val_s, test_s = _samplers(cfg, splits, image_table, image_ids,
                                        dev)
 
@@ -368,7 +442,8 @@ def _run(cfg: Config, dev: torch.device, writer: MetricWriter,
             steps = steps._replace(params=params)
             # carry the interrupted run's best/ forward, so the reload
             # after training works even if this segment never improves
-            for n in ("best", "best.meta.json"):
+            for n in (("best", "best.meta.json")
+                      if distributed.writes_run() else ()):
                 src, dst = os.path.join(prev, n), os.path.join(run_dir, n)
                 if os.path.isdir(src):
                     shutil.copytree(src, dst, dirs_exist_ok=True)
@@ -402,8 +477,38 @@ def _run(cfg: Config, dev: torch.device, writer: MetricWriter,
                if isinstance(v, (int, float))}
     print(f"\n TEST: {scalars}")
     writer.log({f"test/{k}": v for k, v in scalars.items()})
-    _save_predictions_csv(cfg, writer, results_path, test_m)
+    if distributed.writes_run():
+        _save_predictions_csv(cfg, writer, results_path, test_m)
     return {f"test/{k}": v for k, v in scalars.items()}
+
+
+def _make_steps(cfg: Config, dev: torch.device, dictionary):
+    """The steps of the mesh the world and the flags give, decided before
+    any is built (the JAX driver's order): mp > 1 the 2-D engine, dp > 1
+    the episode-parallel engine, else the serial steps. A world's ranks
+    must all sit on the mesh."""
+    gen = torch.Generator().manual_seed(cfg.seed)
+    world = distributed.world_size()
+    dp, mp = cfg.mesh_dp, cfg.mesh_mp
+    if dp == 0 and world > 1:
+        # auto: the largest dp that divides the meta-batch and fits the
+        # ranks left over by the model axis
+        dp = mesh_lib.auto_dp(cfg.batch_size, max(1, world // mp))
+    dp = max(dp, 1)
+    if dp * mp == 1:
+        return make_steps(cfg, gen, device=dev, dictionary=dictionary)
+    if dp * mp != world:
+        raise ValueError(
+            f"mesh ({dp}x{mp}) must cover the world's {world} ranks: one "
+            "rank is one device of the mesh")
+    mesh = mesh_lib.make_mesh(dp, mp)
+    print(f"mesh: dp={dp} x mp={mp} over {world} ranks "
+          f"({distributed.backend()})")
+    if mp > 1:
+        from fumi_tpu_torch.parallel.pjit_engine import make_pjit_steps
+        return make_pjit_steps(cfg, gen, mesh, dev, dictionary)
+    from fumi_tpu_torch.parallel.engine import make_parallel_steps
+    return make_parallel_steps(cfg, gen, mesh, dev, dictionary)
 
 
 def _run_clip(cfg: Config, dev: torch.device, writer: MetricWriter,
@@ -422,10 +527,19 @@ def _run_clip(cfg: Config, dev: torch.device, writer: MetricWriter,
             project=cfg.wandb_project)
         params, _, _ = ckpt_lib.load_checkpoint(ckpt_dir, params,
                                                 opt.init(params), best=True)
+    clip_mesh = None
+    world = distributed.world_size()
+    if world > 1:
+        # rows over every rank (the JAX driver's auto dp over its devices)
+        dp = mesh_lib.auto_dp(cfg.batch_size, world)
+        if dp != world:
+            raise ValueError(f"CLIP shards --batch_size {cfg.batch_size} "
+                             f"over all {world} ranks; it must divide it")
+        clip_mesh = mesh_lib.make_mesh(dp, 1)
     if not cfg.evaluate:
         params = clip_loop.training_run(
             cfg, model, params, opt, data["train"], data["val"], writer,
-            run_dir, np.random.RandomState(cfg.seed))
+            run_dir, np.random.RandomState(cfg.seed), mesh=clip_mesh)
     test_acc = clip_loop.evaluate(cfg, model, params, data["test"])
     print(f"\n TEST: test acc: {test_acc}")
     writer.log({"test/acc": test_acc})
@@ -434,10 +548,16 @@ def _run_clip(cfg: Config, dev: torch.device, writer: MetricWriter,
 
 def cli(argv=None) -> dict:
     cfg = config_from_args(argv)
-    dev = resolve_device("cpu" if cfg.disable_cuda else None)
+    # a --tpu_dist_* (or torchrun) world comes up before any device use
+    if distributed.initialize_from_config(cfg):
+        dev = distributed.rank_device()
+    else:
+        dev = resolve_device("cpu" if cfg.disable_cuda else None)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
-    print(f"running on {dev} ({name})")
-    return main(cfg, dev)
+    print(f"running on {dev} ({name}){distributed.describe()}", flush=True)
+    out = main(cfg, dev)
+    distributed.shutdown(wait=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -6,6 +6,10 @@ carry on quietly on the CPU. The port's fp32 is IEEE fp32, as the JAX
 package's reference numbers are: resolving a CUDA device turns TF32 off
 for cuBLAS's matrix products and cuDNN's convolutions (process-wide
 flags; cuDNN's is on by default).
+
+A rank of a multi-device world (``core/distributed.py``) makes its card
+the current CUDA device before it resolves one, so ``resolve_device()``
+on that rank is the rank's card.
 """
 
 from __future__ import annotations

@@ -46,8 +46,16 @@ from fumi_tpu_torch.metalearn.inner_loop import (Params, adapt, per_task,
                                                  task_cross_entropy)
 
 
+# set while a step of the 2-D engine runs (parallel/pjit_engine.py:
+# mp_context): sums per-leaf inner products, those of the leaves that hold
+# only their input columns over the mp row; None otherwise
+VDOT_SUM = None
+
+
 def _vdot(a: Params, b: Params) -> torch.Tensor:
     """Per-task inner product over every leaf: (B,)."""
+    if VDOT_SUM is not None:
+        return VDOT_SUM({k: (a[k] * b[k]).flatten(1).sum(1) for k in a})
     return sum((a[k] * b[k]).flatten(1).sum(1) for k in a)
 
 

@@ -48,10 +48,18 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int
     return u(out_dim, in_dim), u(out_dim)
 
 
+# set while a step of the 2-D engine runs (parallel/pjit_engine.py:
+# mp_context): its row-parallel product, for a weight that holds only its
+# input columns; None otherwise
+ROW_PARALLEL = None
+
+
 def linear(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
            compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """y = x @ Wᵀ + b with W shaped (out, in), or (R, out, in) per episode.
     ``compute_dtype`` rounds the product's operands (the policy above)."""
+    if ROW_PARALLEL is not None and w.shape[-1] != x.shape[-1]:
+        return ROW_PARALLEL(w, b, x, compute_dtype)
     return matmul_f32acc(x, w.transpose(-1, -2), compute_dtype) \
         + b.unsqueeze(-2)
 

@@ -13,11 +13,23 @@ A reference ``.pth.tar`` file (the original FuMI code's checkpoint, or
 one ``cli/export_torch.py`` wrote) is taken wherever a run dir is:
 :func:`load_checkpoint` routes a file to ``interop.load_torch_checkpoint``.
 
+Several processes (the JAX package's per-host policy): every process of
+a ``--tpu_dist_*`` world saves its own complete checkpoint, this same
+payload, into its own run dir (suffixed ``-p<rank>``,
+``core/distributed.py``), with no coordination between them; the ranks a
+single process spawned save once, from rank 0. The 2-D engine's
+mp-sharded leaves are gathered at the end of each chunk
+(``core/mesh.py:host_fetch``, ``parallel/pjit_engine.py``), so every
+copy is whole and loads into a single-device server; after a killed rank,
+``--tpu_auto_resume`` resumes every process from the newest of these
+copies.
+
 Not ported: wandb run paths for ``--checkpoint`` and uploads to a live
 wandb run (they need the network; ROADMAP.md Queue 1, item 4b), and the
-JAX package's orbax / ``np_tree.npz`` checkpoints (orbax needs JAX; the
-tests carry such weights through ``bridge.py``, and a JAX run dir reaches
-the port as an exported ``.pth.tar``).
+JAX package's orbax dirs and its multi-host ``np_tree.npz`` checkpoints
+(both are JAX pytree formats; the tests carry such weights through
+``bridge.py``, and a JAX run reaches the port as an exported
+``.pth.tar``).
 """
 
 from __future__ import annotations

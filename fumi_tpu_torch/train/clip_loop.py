@@ -17,7 +17,19 @@ The counterpart of ``fumi_tpu/train/clip_loop.py``:
 The batches come from numpy with the JAX package's seeds, so the windows
 and dedupes are the JAX package's bit for bit. The optimizer is
 ``train/optim.py:init_optim`` with no schedule masking, as the JAX driver
-builds it. Multi-device CLIP (``mesh``) is ROADMAP.md Queue 1, item 9.
+builds it.
+
+Several devices (``mesh``, a dp mesh of ranks, ``core/mesh.py``): every
+rank draws the same batches; rank r embeds its ``B/dp`` rows
+(:func:`dp_train_step`). The symmetric loss needs the global (B, B)
+similarity, so the embeddings are all-gathered with autograd
+(:class:`_GatherRows`: its backward all-reduces the rows' gradient and
+keeps the rank's rows). Each rank takes the loss of its own rows and
+columns only, or the gather's backward would count the loss dp times; the
+ranks' gradients and losses are then all-reduced (summed), so every rank
+applies the whole batch's update and the params stay equal across ranks.
+Validation runs whole on every rank; only a rank that writes the run
+(``core/distributed.py:writes_run``) saves checkpoints.
 """
 
 from __future__ import annotations
@@ -30,8 +42,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fumi_tpu_torch.core import distributed
 from fumi_tpu_torch.core.config import Config
+from fumi_tpu_torch.core.mesh import Mesh, all_gather_cat, all_reduce_
 from fumi_tpu_torch.data.supervised import SupervisedSet, epoch_batches
+from fumi_tpu_torch.models import layers
 from fumi_tpu_torch.models.clip import CLIP
 from fumi_tpu_torch.train import checkpoint as ckpt_lib
 from fumi_tpu_torch.train import optim
@@ -101,21 +116,89 @@ def train_step(model: CLIP, opt: optim.Optimizer, params, opt_state,
         return optim.apply_updates(params, updates), opt_state, loss.detach()
 
 
+class _GatherRows(torch.autograd.Function):
+    """The ranks' row blocks concatenated in rank order; backward sums the
+    ranks' gradients of the whole and keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.rows = mesh, x.shape[0]
+        return all_gather_cat(x, mesh.dp_group, gloo=mesh.gloo)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce_(g.contiguous().clone(), ctx.mesh.dp_group)
+        lo = ctx.mesh.dp_index * ctx.rows
+        return g[lo:lo + ctx.rows], None
+
+
+def dp_loss(model: CLIP, params, text: torch.Tensor, image: torch.Tensor,
+            valid_n: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's share of :func:`masked_symmetric_ce` of the whole
+    batch: the terms of its ``B/dp`` rows of the similarity and of its
+    transpose. The shares sum to the batch's loss."""
+    B = text.shape[0]
+    n = B // mesh.dp
+    lo = mesh.dp_index * n
+    t = _GatherRows.apply(model.encode_text(params, text[lo:lo + n]), mesh)
+    i = _GatherRows.apply(model.encode_image(params, image[lo:lo + n]),
+                          mesh)
+    sim = layers.matmul_f32acc(t, i.transpose(-1, -2), model.compute_dtype)
+    valid = torch.arange(B, device=sim.device) < valid_n
+
+    def masked_ce(logits):
+        logits = torch.where(valid.unsqueeze(0), logits, NEG_INF)
+        nll = -torch.diagonal(F.log_softmax(logits, dim=-1))
+        return torch.where(valid, nll, 0.0)[lo:lo + n].sum() / max(valid_n, 1)
+
+    return (masked_ce(sim) + masked_ce(sim.T)) / 2.0
+
+
+def dp_train_step(model: CLIP, opt: optim.Optimizer, params, opt_state,
+                  text: torch.Tensor, image: torch.Tensor, valid_n: int,
+                  mesh: Mesh):
+    """:func:`train_step` over the rows of a dp mesh: each rank's loss
+    share and its gradient, summed over the ranks in one all-reduce, then
+    the same update on every rank. ``(params, opt_state, loss)``."""
+    if text.shape[0] % mesh.dp:
+        raise ValueError(f"batch_size {text.shape[0]} not divisible by "
+                         f"dp={mesh.dp}")
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        loss = dp_loss(model, leaves, text, image, valid_n, mesh)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+    all_reduce_(flat.detach(), mesh.dp_group)
+    out, at = {}, 0
+    for k, g in zip(leaves, grads):
+        out[k] = flat[at:at + g.numel()].reshape(g.shape)
+        at += g.numel()
+    with torch.no_grad():
+        updates, opt_state = opt.update(out, opt_state, params)
+        return (optim.apply_updates(params, updates), opt_state,
+                flat[-1].detach())
+
+
 def train_epoch(cfg: Config, model: CLIP, opt: optim.Optimizer, params,
                 opt_state, train_data: Tuple[SupervisedSet, np.ndarray],
-                rng: np.random.RandomState):
+                rng: np.random.RandomState, mesh: Optional[Mesh] = None):
     """One shuffled pass over the train split: each batch deduped on the
-    host, copied to the params' device and stepped. Returns ``(params,
-    opt_state, steps)``."""
+    host, copied to the params' device and stepped (over ``mesh``'s rows
+    where given). Returns ``(params, opt_state, steps)``."""
     train_ds, image_table = train_data
     dev = _device_of(params)
     n = 0
     for image, text, ids, valid_n in epoch_batches(
             train_ds, image_table, cfg.batch_size, rng):
         image, text, u = dedupe_batch(image, text, ids, valid_n)
-        params, opt_state, _ = train_step(
-            model, opt, params, opt_state, _put(text, dev), _put(image, dev),
-            u)
+        if mesh is None:
+            params, opt_state, _ = train_step(
+                model, opt, params, opt_state, _put(text, dev),
+                _put(image, dev), u)
+        else:
+            params, opt_state, _ = dp_train_step(
+                model, opt, params, opt_state, _put(text, dev),
+                _put(image, dev), u, mesh)
         n += 1
     return params, opt_state, n
 
@@ -125,20 +208,19 @@ def training_run(cfg: Config, model: CLIP, params, opt: optim.Optimizer,
                  val_data: Tuple[SupervisedSet, np.ndarray],
                  writer: MetricWriter, run_dir: str,
                  rng: np.random.RandomState, mesh=None):
-    """The CLIP epoch loop on the params' device. Returns the params of
-    ``best/`` where one was written, else the last ones."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported to the PyTorch package yet — multi-device CLIP "
-            "(a mesh): Queue 1, item 9 (scale-out) in ROADMAP.md")
+    """The CLIP epoch loop on the params' device (its rows over ``mesh``,
+    a dp mesh of ranks, where given). Returns the params of ``best/``
+    where one was written, else the last ones."""
     opt_state = opt.init(params)
+    if mesh is not None and mesh.dp == 1:
+        mesh = None
     best_acc = evaluate(cfg, model, params, val_data)
     best_epoch = 0
     print("init val_acc", best_acc)
 
     for epoch in range(cfg.epochs):
         params, opt_state, _ = train_epoch(cfg, model, opt, params,
-                                           opt_state, train_data, rng)
+                                           opt_state, train_data, rng, mesh)
         # a fresh validation window draw each epoch, as the reference's
         # shuffling val DataLoader draws one per pass
         val_acc = evaluate(cfg, model, params, val_data,
@@ -149,13 +231,14 @@ def training_run(cfg: Config, model: CLIP, params, opt: optim.Optimizer,
         if is_best:
             best_acc = val_acc
             best_epoch = epoch
-        ckpt_lib.save_checkpoint(run_dir, params, opt_state, epoch,
-                                 best_acc, is_best,
-                                 extra_meta={"model": "clip",
-                                             "args": dataclasses.asdict(cfg)})
+        if distributed.writes_run():
+            ckpt_lib.save_checkpoint(
+                run_dir, params, opt_state, epoch, best_acc, is_best,
+                extra_meta={"model": "clip", "args": dataclasses.asdict(cfg)})
         if cfg.patience > 0 and epoch - best_epoch > cfg.patience:
             break
 
+    distributed.run_barrier()  # a spawned world reads rank 0's best/
     if os.path.exists(os.path.join(run_dir, "best")):
         params, _, _ = ckpt_lib.load_checkpoint(run_dir, params, opt_state,
                                                 best=True)

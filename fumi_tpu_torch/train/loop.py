@@ -1,7 +1,7 @@
 """Episodic training and eval harness for the episodic families.
 
-The counterpart of ``fumi_tpu/train/loop.py`` (its single-device paths;
-the mesh engines are ROADMAP.md Queue 1, item 9). It keeps the reference harness's quirks as the JAX package does:
+The counterpart of ``fumi_tpu/train/loop.py``. It keeps the reference
+harness's quirks as the JAX package does:
 
 - an initial validation pass seeds ``best_loss``;
 - validation and a checkpoint every ``--eval_freq`` batches; AM3 evaluates
@@ -28,6 +28,16 @@ step's meta-gradient; ``--tpu_watch`` writes the params' and the sampled
 meta-gradients' histograms at every eval boundary (:class:`_Watch`,
 ``train/watch.py``).
 
+Steps built on a mesh (``FamilySteps.mesh``) run the engines' chunked
+drivers: the episode-parallel one (``parallel/engine.py``) or, with mp >
+1, the 2-D one (``parallel/pjit_engine.py``), whose drivers hand back
+whole params (``core/mesh.py:host_fetch`` at the chunk's end), so the
+fetches, evals and checkpoints here see whole, replicated trees. Under mp
+> 1 ``--tpu_watch`` takes one point sample a boundary, as the JAX loop
+does. Only a rank that writes the run (``core/distributed.py:
+writes_run``) saves checkpoints; the ranks of a spawned world meet before
+reading ``best/`` back from rank 0's run dir.
+
 Random streams. Each is a ``torch.Generator`` on the params' device,
 seeded with :func:`stream_seed` ``= (seed mod 2**32) * 2**32 + stream *
 2**28 + index``: stream ``TRAIN`` (index 0) draws the training episodes
@@ -48,6 +58,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from fumi_tpu_torch.core import distributed
 from fumi_tpu_torch.core.config import Config
 from fumi_tpu_torch.data.sampler import DeviceEpisodeSampler
 from fumi_tpu_torch.train import checkpoint as ckpt_lib
@@ -92,6 +103,43 @@ def _host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in tensors.items()}
 
 
+def _mesh_mp(steps: FamilySteps) -> int:
+    return steps.mesh.mp if steps.mesh is not None else 1
+
+
+def _chunked_eval_fn(cfg: Config, steps: FamilySteps, sampler,
+                     collect: bool):
+    """The chunked eval of the steps' engine: serial, dp or 2-D."""
+    if steps.mesh is None:
+        return make_chunked_eval(steps.family, sampler, collect=collect)
+    if _mesh_mp(steps) > 1:
+        from fumi_tpu_torch.parallel.pjit_engine import \
+            make_pjit_chunked_eval
+        return make_pjit_chunked_eval(cfg, steps.family, sampler,
+                                      steps.mesh, collect=collect)
+    from fumi_tpu_torch.parallel.engine import make_parallel_chunked_eval
+    return make_parallel_chunked_eval(cfg, steps.family, sampler,
+                                      steps.mesh, collect=collect)
+
+
+def _chunked_train_fn(cfg: Config, steps: FamilySteps, sampler, chunk: int,
+                      watch: bool):
+    """The chunked train driver of the steps' engine."""
+    if steps.mesh is None:
+        return make_chunked_train(steps.family, steps.opt, sampler, chunk,
+                                  accum=cfg.grad_accum, watch=watch,
+                                  debug_nans=cfg.debug_nans)
+    if _mesh_mp(steps) > 1:
+        from fumi_tpu_torch.parallel.pjit_engine import \
+            make_pjit_chunked_train
+        return make_pjit_chunked_train(cfg, steps.family, steps.opt,
+                                       sampler, steps.mesh, chunk)
+    from fumi_tpu_torch.parallel.engine import make_parallel_chunked_train
+    return make_parallel_chunked_train(cfg, steps.family, steps.opt,
+                                       sampler, steps.mesh, chunk,
+                                       watch=watch)
+
+
 def test_loop(cfg: Config, steps: FamilySteps, params, sampler,
               max_num_batches: int, gen: torch.Generator,
               collect_artifacts: bool = False) -> Dict:
@@ -101,8 +149,7 @@ def test_loop(cfg: Config, steps: FamilySteps, params, sampler,
     total = max_num_batches + 1
     if isinstance(sampler, DeviceEpisodeSampler) and \
             steps.family is not None:
-        run = make_chunked_eval(steps.family, sampler,
-                                collect=collect_artifacts)
+        run = _chunked_eval_fn(cfg, steps, sampler, collect_artifacts)
         _, ms = run(params, gen, total)
         ms = _host(ms)
         out = {k: float(v.mean()) for k, v in ms.items()
@@ -211,13 +258,16 @@ def training_run(cfg: Config, steps: FamilySteps, train_sampler, val_sampler,
     device_path = (isinstance(train_sampler, DeviceEpisodeSampler)
                    and steps.family is not None)
     chunk = cfg.chunk or CHUNK
+    # --tpu_watch: the chunked drivers histogram the sampled meta-gradients
+    # (serial and dp); the 2-D engine and the host path take one point
+    # sample a boundary
+    accumulate = device_path and _mesh_mp(steps) == 1
     if device_path:
-        chunked = make_chunked_train(steps.family, steps.opt, train_sampler,
-                                     chunk, accum=cfg.grad_accum,
-                                     watch=cfg.watch,
-                                     debug_nans=cfg.debug_nans)
+        chunked = _chunked_train_fn(cfg, steps, train_sampler, chunk,
+                                    watch=cfg.watch and accumulate)
     watch = _Watch(steps, train_sampler, writer, seed, dev,
-                   device_path) if cfg.watch else None
+                   accumulate) if cfg.watch else None
+    saves = distributed.writes_run()
 
     def next_stop(batch_idx: int) -> int:
         """The next step index after which the loop must pause: an eval
@@ -284,11 +334,12 @@ def training_run(cfg: Config, steps: FamilySteps, train_sampler, val_sampler,
                 writer.log(rec, step=batch_idx)
                 if watch is not None:
                     watch.log_boundary(params, batch_idx)
-                ckpt_lib.save_checkpoint(
-                    run_dir, params, opt_state, batch_idx, best_loss,
-                    is_best,
-                    extra_meta={"model": cfg.model,
-                                "args": dataclasses.asdict(cfg)})
+                if saves:
+                    ckpt_lib.save_checkpoint(
+                        run_dir, params, opt_state, batch_idx, best_loss,
+                        is_best,
+                        extra_meta={"model": cfg.model,
+                                    "args": dataclasses.asdict(cfg)})
                 print(f"\nBatch {batch_idx + 1}/{cfg.epochs}: "
                       f"val/loss: {val_m['loss']}, val/acc: {val_m['acc']}")
 
@@ -301,6 +352,8 @@ def training_run(cfg: Config, steps: FamilySteps, train_sampler, val_sampler,
     except KeyboardInterrupt:
         pass
 
+    if reload_best:
+        distributed.run_barrier()  # a spawned world reads rank 0's best/
     if reload_best and os.path.exists(os.path.join(run_dir, "best")):
         params, opt_state, _ = ckpt_lib.load_checkpoint(
             run_dir, params, opt_state, best=True)
@@ -316,7 +369,8 @@ class _Watch:
     point sample instead: the meta-gradient of one episode of
     ``watch_clone()``, a sampler with a seed of its own, so a watched run
     draws the same training episodes as an unwatched one; its forward noise
-    comes from stream ``WATCH`` at the boundary's index."""
+    comes from stream ``WATCH`` at the boundary's index. A device sampler
+    under the 2-D engine draws that episode from the same stream."""
 
     def __init__(self, steps, train_sampler, writer, seed, dev,
                  device_path):
@@ -346,13 +400,17 @@ class _Watch:
         else:
             grads = None
             if self.steps.family is not None:
-                if self._clone is None:
-                    base = getattr(self.train_sampler, "sampler",
-                                   self.train_sampler)
-                    self._clone = base.watch_clone()
-                _, grads = value_and_grad(
-                    self.steps.family, params, self._clone.sample(),
-                    stream_generator(self.seed, WATCH, batch_idx, self.dev))
+                gen = stream_generator(self.seed, WATCH, batch_idx, self.dev)
+                if isinstance(self.train_sampler, DeviceEpisodeSampler):
+                    episode = self.train_sampler.sample(gen)
+                else:
+                    if self._clone is None:
+                        base = getattr(self.train_sampler, "sampler",
+                                       self.train_sampler)
+                        self._clone = base.watch_clone()
+                    episode = self._clone.sample()
+                _, grads = value_and_grad(self.steps.family, params, episode,
+                                          gen)
             rec = watch_record(params, name, grads)
         log_watch(self.writer, rec, step=batch_idx)
 

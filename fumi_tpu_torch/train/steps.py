@@ -97,6 +97,9 @@ class FamilySteps(NamedTuple):
     train_step: Callable  # (params, opt_state, episode, gen) -> (p, s, m)
     eval_step: Callable  # (params, episode, gen) -> metrics
     family: Family = None
+    # the engines' mesh (parallel/engine.py, parallel/pjit_engine.py);
+    # None for the serial steps
+    mesh: Any = None
 
     @property
     def model(self):
@@ -550,12 +553,17 @@ def make_opt(cfg: Config) -> optim.Optimizer:
     return opt
 
 
-def value_and_grad(family: Family, params, episode, gen):
+def value_and_grad(family: Family, params, episode, gen,
+                   prepare: Optional[Callable] = None):
     """``((loss, aux), grads)`` of ``family.train_loss`` w.r.t. every
-    param; a param the loss does not read gets a zero gradient."""
+    param; a param the loss does not read gets a zero gradient.
+    ``prepare`` maps the leaves to what the loss reads (the 2-D engine
+    gathers its sharded non-linear leaves there,
+    ``parallel/pjit_engine.py``)."""
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
     with torch.enable_grad():
-        loss, aux = family.train_loss(leaves, episode, gen)
+        loss, aux = family.train_loss(
+            leaves if prepare is None else prepare(leaves), episode, gen)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
     grads = {k: torch.zeros_like(v) if g is None else g
@@ -749,13 +757,16 @@ def per_layer_grad_norms(grads, family: str) -> Dict[str, torch.Tensor]:
             for k, g in component_partition(grads, family).items()}
 
 
-def _train_metrics(family: Family, loss, aux, episode, grads=None) -> Dict:
+def _train_metrics(family: Family, loss, aux, episode, grads=None,
+                   per_layer=None) -> Dict:
     """Per-train-step metrics: loss, acc (AM3: acc, prec, rec, f1 and
     avg_lamda from the confusion matrix), and the global and per-component
-    gradient norms when grads are supplied."""
+    gradient norms when grads are supplied (``per_layer``: those norms
+    computed already, as the 2-D engine computes them over its shards)."""
     extra = {}
     if grads is not None:
-        per_layer = per_layer_grad_norms(grads, family.name)
+        if per_layer is None:
+            per_layer = per_layer_grad_norms(grads, family.name)
         # the components partition the grads: the global norm follows
         extra["grad_norm"] = torch.sqrt(sum(v * v for v in per_layer.values()))
         extra.update(per_layer)

@@ -33,10 +33,18 @@ package at the boundaries: the sweep checkpoint, the returned state, the
 per-seed export and ``serve.SeedEnsemble``. A Python int leaf (Adam's
 update count) stacks to a list of ints.
 
-Sharding the seeds over several devices (``--tpu_mesh_dp > 1``) is
-ROADMAP.md Queue 1, item 9's multi-device part, which the driver rejects
-(``cli/main.py:_check_driver``); ``--tpu_mesh_dp`` 0 or 1 is the
-single-device layout.
+Several devices (``--tpu_mesh_dp N``, which the driver runs as N spawned
+ranks, ``cli/main.py``): rank r trains seeds ``r·S/N .. (r+1)·S/N − 1``,
+one after another as above, each on its own device
+(:func:`sweep_mesh`, :func:`seed_shard`). The per-seed bookkeeping
+(validation losses, patience, the live mask) is the whole sweep's on every
+rank: each validation gathers the seeds' losses, so every rank stops
+where the others do. The states are gathered for the sweep checkpoint,
+the per-seed exports and the test report, which rank 0 writes. A seed's
+numbers do not depend on the rank that runs it: its params are bitwise
+those of the single-rank sweep on the same kind of device. The JAX
+package's refusals stay (``core/config.py``): ``--tpu_seed_accum`` with
+``--tpu_mesh_dp > 1``, and multi-host sweeps.
 """
 
 from __future__ import annotations
@@ -51,6 +59,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from fumi_tpu_torch.core import distributed
+from fumi_tpu_torch.core import mesh as mesh_lib
 from fumi_tpu_torch.core.config import Config
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.train import checkpoint as ckpt_lib
@@ -101,17 +111,76 @@ def _where_seed(flag: torch.Tensor, live: bool, new, old):
     return new if live else old
 
 
+def sweep_mesh(cfg: Config):
+    """The seed-sharding mesh over the world's ranks: None on one rank;
+    else dp = ``--tpu_mesh_dp`` (0: the largest rank count dividing S),
+    which must be the world's size."""
+    world = mesh_lib.world_size()
+    if world == 1:
+        return None
+    dp = cfg.mesh_dp or mesh_lib.largest_divisor_leq(cfg.seed_sweep, world)
+    if dp != world or cfg.seed_sweep % dp:
+        raise ValueError(f"--tpu_seed_sweep {cfg.seed_sweep} over {world} "
+                         f"ranks: dp {dp} must be the world's size and "
+                         "divide the seeds")
+    if cfg.seed_accum > 1:
+        raise NotImplementedError(
+            "--tpu_seed_accum is the single-device sweep's working-set "
+            "lever; drop --tpu_mesh_dp")
+    return mesh_lib.make_mesh(dp, 1)
+
+
+def seed_shard(S: int, mesh) -> slice:
+    """The sweep indices this rank trains: all on one rank, else block
+    ``dp_index`` of ``dp``."""
+    if mesh is None:
+        return slice(0, S)
+    n = S // mesh.dp
+    return slice(mesh.dp_index * n, (mesh.dp_index + 1) * n)
+
+
+def _gather(obj, mesh) -> list:
+    """Every rank's ``obj`` (tensors as CPU copies), in rank order."""
+    from fumi_tpu_torch.parallel.launch import to_cpu
+    if mesh is None:
+        return [obj]
+    out = [None] * mesh.dp
+    torch.distributed.all_gather_object(out, to_cpu(obj), group=mesh.group)
+    return out
+
+
+def _cat_trees(parts):
+    """Stacked trees of consecutive seed blocks joined along the seed
+    axis (a list leaf of ints concatenated)."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _cat_trees([p[k] for p in parts]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_cat_trees([p[i] for p in parts])
+                     for i in range(len(first)))
+    if torch.is_tensor(first):
+        return torch.cat(parts)
+    return [x for p in parts for x in p]
+
+
+def gather_seeds(tree, mesh):
+    """A stacked tree of this rank's seeds -> the whole sweep's (on the
+    CPU under a mesh)."""
+    return tree if mesh is None else _cat_trees(_gather(tree, mesh))
+
+
 def build_sweep_family(cfg: Config, dictionary=None,
-                       device: DeviceLike = None) -> Family:
+                       device: DeviceLike = None,
+                       shard: slice = slice(None)) -> Family:
     """The family with params stacked ``(S, ...)`` on ``device``: replica
     ``i``'s from ``build_family`` on ``torch.Generator().manual_seed(
     seed+i)`` and ``cfg.replace(seed=seed+i)``, as the standalone driver
-    builds them. The functions are the first replica's (they close over no
-    params)."""
+    builds them; ``shard`` keeps a block of the seeds. The functions are
+    the first replica's (they close over no params)."""
     dev = resolve_device(device)
     families = [build_family(cfg.replace(seed=s, seed_sweep=0),
                              torch.Generator().manual_seed(s), dictionary)
-                for s in sweep_seeds(cfg)]
+                for s in sweep_seeds(cfg)[shard]]
     params = stack_trees([{k: v.to(dev) for k, v in f.params.items()}
                           for f in families])
     return families[0]._replace(params=params)
@@ -213,7 +282,7 @@ def _gen_states(gens) -> torch.Tensor:
 
 def sweep_training_run(cfg: Config, family: Family, opt, train_sampler,
                        val_sampler, writer: MetricWriter, run_dir: str,
-                       resume_dir: Optional[str] = None):
+                       resume_dir: Optional[str] = None, mesh=None):
     """Lockstep training of the S replicas of ``family.params`` (stacked).
 
     Returns ``(params, opt_state, info)``: the stacked per-seed selected
@@ -228,15 +297,22 @@ def sweep_training_run(cfg: Config, family: Family, opt, train_sampler,
     sweep checkpoint: the live and the best stacked states, the train
     generators' states and the per-seed bookkeeping, with ``sweep_seeds``
     in the meta, so ``--tpu_auto_resume`` (``resume_dir``) continues the
-    same streams."""
-    seeds = sweep_seeds(cfg)
-    S = len(seeds)
+    same streams.
+
+    Under ``mesh`` (:func:`sweep_mesh`) ``family.params`` holds this rank's
+    seeds (:func:`seed_shard`) and so does the returned state; ``info`` and
+    the checkpoint are the whole sweep's."""
+    all_seeds = sweep_seeds(cfg)
+    S = len(all_seeds)
+    shard = seed_shard(S, mesh)
+    seeds = all_seeds[shard]
     is_am3 = cfg.model == "am3"
     eval_at_zero = is_am3
     reload_best = cfg.model in ("am3", "fumi")
     dev = next(iter(family.params.values())).device
+    saves = distributed.writes_run()
 
-    params = _per_seed(family.params, S)
+    params = _per_seed(family.params, len(seeds))
     opt_states = [opt.init(p) for p in params]
     train_gens = [stream_generator(s, TRAIN, 0, dev) for s in seeds]
     max_test_batches = cfg.max_test_batches // 2
@@ -251,25 +327,29 @@ def sweep_training_run(cfg: Config, family: Family, opt, train_sampler,
     start_batch = 0
 
     if resume_dir is not None:
+        # the checkpoint holds every seed: a template of S copies of the
+        # first, then this rank's block
+        def whole(per_seed):
+            return stack_trees([per_seed[0]] * S)
         try:
             payload_p, payload_s, meta = ckpt_lib.load_checkpoint(
                 resume_dir,
-                {"state": stack_trees(params),
-                 "best": stack_trees(best_params),
-                 "train_gens": _gen_states(train_gens)},
-                {"state": stack_trees(opt_states),
-                 "best": stack_trees(best_opt)}, best=False)
+                {"state": whole(params), "best": whole(best_params),
+                 "train_gens": _gen_states([train_gens[0]] * S)},
+                {"state": whole(opt_states), "best": whole(best_opt)},
+                best=False)
         except ValueError as e:
             # an incompatible checkpoint starts fresh, as the standalone
             # driver's auto-resume does
             print(f"sweep auto-resume: cannot restore {resume_dir} ({e}); "
                   "starting fresh")
         else:
-            params = _per_seed(payload_p["state"], S)
-            best_params = _per_seed(payload_p["best"], S)
-            opt_states = _per_seed(payload_s["state"], S)
-            best_opt = _per_seed(payload_s["best"], S)
-            for g, state in zip(train_gens, payload_p["train_gens"]):
+            params = _per_seed(payload_p["state"], S)[shard]
+            best_params = _per_seed(payload_p["best"], S)[shard]
+            opt_states = _per_seed(payload_s["state"], S)[shard]
+            best_opt = _per_seed(payload_s["best"], S)[shard]
+            for g, state in zip(train_gens,
+                                payload_p["train_gens"][shard]):
                 g.set_state(state.clone())
             best_loss = np.asarray(meta["best_loss_per_seed"], np.float64)
             best_batch_idx = np.asarray(meta["best_batch_idx_per_seed"],
@@ -287,10 +367,13 @@ def sweep_training_run(cfg: Config, family: Family, opt, train_sampler,
     eval_fn = make_sweep_chunked_eval(family, val_sampler)
 
     def run_eval(index: int):
+        """Every seed's validation metrics, (S, n) each."""
         views = [eval_view(cfg, p, s) for p, s in zip(params, opt_states)]
         gens = [stream_generator(s, VAL, index, dev) for s in seeds]
-        return {k: v.cpu().numpy() for k, v in eval_fn(
+        ms = {k: v.cpu().numpy() for k, v in eval_fn(
             views, gens, max_test_batches + 1).items()}
+        return {k: np.concatenate([m[k] for m in _gather(ms, mesh)])
+                for k in ms}
 
     throughput = Throughput()
     if best_loss is None:
@@ -332,8 +415,11 @@ def sweep_training_run(cfg: Config, family: Family, opt, train_sampler,
             while done < n:
                 c = min(chunk, n - done)
                 params, opt_states, train_gens, ms = chunked(
-                    params, opt_states, train_gens, live, c,
+                    params, opt_states, train_gens, live[shard], c,
                     first_step=batch_idx + done)
+                if mesh is not None:
+                    ms = {k: torch.cat(parts, dim=1) for k, parts in (
+                        (k, [m[k] for m in _gather(ms, mesh)]) for k in ms)}
                 episodes_done = _log_sweep_train(
                     writer, cfg, batch_idx + done, ms, is_am3, live,
                     episodes_done)
@@ -351,31 +437,35 @@ def sweep_training_run(cfg: Config, family: Family, opt, train_sampler,
                 best_batch_idx = np.where(improved, batch_idx,
                                           best_batch_idx)
                 ever_improved = ever_improved | improved
-                for i in np.flatnonzero(improved):
+                for i in np.flatnonzero(improved[shard]):
                     best_params[i], best_opt[i] = params[i], opt_states[i]
                 rec = {}
                 for k, v in ms.items():
                     per_seed = v.mean(axis=1)
                     rec[f"val/{k}"] = float(per_seed.mean())
-                    for i, s in enumerate(seeds):
+                    for i, s in enumerate(all_seeds):
                         rec[f"val/seed{s}/{k}"] = float(per_seed[i])
                 rec["episodes_per_sec"] = eps_rate
                 writer.log(rec, step=batch_idx)
-                ckpt_lib.save_checkpoint(
-                    run_dir,
-                    {"state": stack_trees(params),
-                     "best": stack_trees(best_params),
-                     "train_gens": _gen_states(train_gens)},
-                    {"state": stack_trees(opt_states),
-                     "best": stack_trees(best_opt)},
-                    batch_idx, float(best_loss.min()), bool(improved.any()),
-                    extra_meta={
-                        "model": cfg.model, "sweep_seeds": seeds,
-                        "best_loss_per_seed": best_loss.tolist(),
-                        "best_batch_idx_per_seed": best_batch_idx.tolist(),
-                        "live_per_seed": live.tolist(),
-                        "ever_improved_per_seed": ever_improved.tolist(),
-                        "args": dataclasses.asdict(cfg)})
+                state_p, state_s = gather_seeds(
+                    ({"state": stack_trees(params),
+                      "best": stack_trees(best_params),
+                      "train_gens": _gen_states(train_gens)},
+                     {"state": stack_trees(opt_states),
+                      "best": stack_trees(best_opt)}), mesh)
+                if saves:
+                    ckpt_lib.save_checkpoint(
+                        run_dir, state_p, state_s, batch_idx,
+                        float(best_loss.min()), bool(improved.any()),
+                        extra_meta={
+                            "model": cfg.model, "sweep_seeds": all_seeds,
+                            "best_loss_per_seed": best_loss.tolist(),
+                            "best_batch_idx_per_seed":
+                                best_batch_idx.tolist(),
+                            "live_per_seed": live.tolist(),
+                            "ever_improved_per_seed":
+                                ever_improved.tolist(),
+                            "args": dataclasses.asdict(cfg)})
                 print(f"\nBatch {batch_idx + 1}/{cfg.epochs}: "
                       f"val/loss per seed: {val_loss.tolist()}")
 
@@ -394,9 +484,9 @@ def sweep_training_run(cfg: Config, family: Family, opt, train_sampler,
         # a seed that never improved keeps its last trained state, as the
         # standalone loop reloads best/ only where it exists
         params = [b if e else p for b, p, e in
-                  zip(best_params, params, ever_improved)]
+                  zip(best_params, params, ever_improved[shard])]
         opt_states = [b if e else s for b, s, e in
-                      zip(best_opt, opt_states, ever_improved)]
+                      zip(best_opt, opt_states, ever_improved[shard])]
     return stack_trees(params), stack_trees(opt_states), info
 
 
@@ -451,7 +541,12 @@ def sweep_main(cfg: Config, dictionary, samplers, writer: MetricWriter,
               "logged)")
     seeds = sweep_seeds(cfg)
     dev = resolve_device(device)
-    family = build_sweep_family(cfg, dictionary, dev)
+    mesh = sweep_mesh(cfg)
+    shard = seed_shard(len(seeds), mesh)
+    if mesh is not None:
+        print(f"seed sweep sharded over dp={mesh.dp} ranks "
+              f"({len(seeds)} seeds, {len(seeds) // mesh.dp} a rank)")
+    family = build_sweep_family(cfg, dictionary, dev, shard)
     opt = make_opt(cfg)
 
     resume_dir = None
@@ -462,19 +557,22 @@ def sweep_main(cfg: Config, dictionary, samplers, writer: MetricWriter,
     with profile_trace(cfg.profile_dir):
         params, opt_state, info = sweep_training_run(
             cfg, family, opt, train_s, val_s, writer, run_dir,
-            resume_dir=resume_dir)
+            resume_dir=resume_dir, mesh=mesh)
 
-    export_seed_runs(cfg, run_dir, seeds, params, opt_state, info)
+    whole = gather_seeds((params, opt_state), mesh)
+    if distributed.writes_run():
+        export_seed_runs(cfg, run_dir, seeds, *whole, info)
 
     per_seed = sweep_test(
         cfg, family, _eval_view_stacked(cfg, params, opt_state), test_s,
-        [stream_generator(s, TEST, 0, dev) for s in seeds],
+        [stream_generator(s, TEST, 0, dev) for s in seeds[shard]],
         cfg.max_test_batches, collect_artifacts=True)
+    per_seed = [d for part in _gather(per_seed, mesh) for d in part]
     out = sweep_report(seeds, per_seed)
     print(f"\n SWEEP TEST (mean over {len(seeds)} seeds): "
           f"{ {k: v for k, v in out.items() if '/' not in k[5:]} }")
     writer.log(out)
-    for s, d in zip(seeds, per_seed):
+    for s, d in zip(seeds, per_seed) if distributed.writes_run() else ():
         _save_predictions_csv(
             cfg, types.SimpleNamespace(run_name=f"{writer.run_name}_seed{s}"),
             results_path, d)

@@ -22,6 +22,11 @@ its row names:
   rows ``watch/params/<component>``, ``watch/grads/<component>`` and
   ``watch/grad_steps``; the bucket labels (``watch/buckets``) once a run.
 
+The episode-parallel engine (``parallel/engine.py``) histograms the
+meta-gradient after its all-reduce, the same on every rank, so a dp run's
+counts are of the gradient the run applies; the 2-D engine takes one
+point sample a boundary (``train/loop.py``).
+
 Components are ``train/steps.py:component_partition``'s, the names of the
 ``grad_norm/<component>`` metrics, so the two join on the same keys. The
 port's state dicts are flat, so every function here takes the family's

@@ -16,6 +16,21 @@ from fumi_tpu_torch.metalearn import inner_loop
 from fumi_tpu_torch.train import steps
 
 
+@pytest.fixture(scope="module", autouse=True)
+def threefry():
+    """JAX's default key implementation pinned to threefry2x32 for the
+    module (as ``tests/test_torch_sweep.py`` pins it), the old value
+    restored after: the JAX driver sets the process-wide default to its
+    ``--tpu_prng_impl`` (``rbg`` unless told), so without the pin the
+    inputs drawn from ``jax.random`` here would depend on which test files
+    an xdist worker ran before this one. Module-scoped and autouse, so it
+    is in place before :func:`raw_episodes` draws."""
+    old = jax.config.jax_default_prng_impl
+    jax.config.update("jax_default_prng_impl", "threefry2x32")
+    yield
+    jax.config.update("jax_default_prng_impl", old)
+
+
 @pytest.fixture(scope="module")
 def raw_episodes():
     return make_raw_episodes()

@@ -237,14 +237,9 @@ def test_auto_resume_continues_the_counter_of_its_own_family(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # the seed sweep, --tpu_profile_dir and --tpu_watch run since they were
-    # ported (tests/test_torch_sweep.py, tests/test_torch_watch.py); their
-    # cases now hold the multi-device part of item 9, still rejected
-    (["--tpu_seed_sweep", "2", "--tpu_mesh_dp", "2"], "item 9"),
-    (["--tpu_mesh_mp", "2"], "item 9"),
-    (["--tpu_dist_num_processes", "2"], "item 9"),
-    (["--tpu_import", "os", "--tpu_mesh_dp", "2"], "item 9"),
-    # resolving a wandb run path needs the network
+    # resolving a wandb run path needs the network (the multi-device
+    # cases this test held run since item 9 was ported:
+    # tests/test_torch_distributed.py::test_the_multi_device_modes_run)
     (["--checkpoint", "someone/proj/run1"], "item 4"),
 ])
 def test_what_is_not_ported_raises_naming_its_item(tmp_path, extra, item):

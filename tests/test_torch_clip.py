@@ -230,13 +230,19 @@ def test_training_run_matches_the_jax_loop(data, tmp_path):
 
 
 def test_training_run_refuses_a_mesh(data, tmp_path):
+    """Multi-device CLIP runs since item 9 was ported
+    (tests/test_torch_distributed.py); a dp mesh that does not divide the
+    batch is refused before any collective."""
+    import types
     jds, tds, table = data
     cfg = Config(**cfg_kw())
     model, params = clip_loop.make_clip(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        clip_loop.training_run(cfg, model, params, None, (tds, table),
+    opt = optim.init_optim("adam", 1e-2)
+    mesh = types.SimpleNamespace(dp=cfg.batch_size + 1, dp_index=0)
+    with pytest.raises(ValueError, match="not divisible by dp"):
+        clip_loop.training_run(cfg, model, params, opt, (tds, table),
                                (tds, table), None, str(tmp_path),
-                               np.random.RandomState(0), mesh=object())
+                               np.random.RandomState(0), mesh=mesh)
     # bf16 builds since the policy was ported (tests/test_torch_bf16.py)
     bf16, _ = clip_loop.make_clip(cfg.replace(compute_dtype="bfloat16"),
                                   torch.Generator())

@@ -313,3 +313,24 @@ def test_the_clip_server_and_token_steps_default_to_cuda(monkeypatch):
     st = steps.make_steps(cfg, torch.Generator().manual_seed(0), "cpu",
                           dictionary=synthetic_dictionary(8))
     assert all(t.device.type == "cpu" for t in st.params.values())
+
+
+def test_the_multi_device_modules_are_among_those_checked():
+    """The process groups, the mesh, the launcher and both engines are
+    walked by the import checks above: no JAX and nothing of fumi_tpu at
+    run time."""
+    assert {"fumi_tpu_torch.core.distributed", "fumi_tpu_torch.core.mesh",
+            "fumi_tpu_torch.parallel", "fumi_tpu_torch.parallel.launch",
+            "fumi_tpu_torch.parallel.engine",
+            "fumi_tpu_torch.parallel.pjit_engine"} <= set(port_modules())
+
+
+def test_a_rank_without_a_card_raises(monkeypatch):
+    """A rank asked for a card where CUDA is missing raises before it
+    joins any world; it never carries on quietly on the CPU."""
+    from fumi_tpu_torch.core import distributed
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distributed.initialize(num_processes=1, process_id=0,
+                               init_method="file:///nonexistent/store")
+    assert not distributed.is_initialized()
