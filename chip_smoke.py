@@ -191,6 +191,15 @@ fails:
    bitwise the serial chunk; (d) the driver as two ``--tpu_dist_*``
    processes on the card: identical ``TEST`` lines, run dirs ``-p0`` and
    ``-p1`` with ``ckpt/``. The ranks' launches are summed by path;
+7zs. the batched request sharded over the ranks of phase 7z
+   (``FewShotClassifier(..., mesh=make_mesh(2, 1))``): FuMI and MAML at
+   the flagship serving config on the seed-0 weights, a request of 8
+   episodes (M=100), 4 a rank, on the two gloo ranks and on the one-rank
+   NCCL world; every rank's whole answer against the single-rank request
+   in this process (bitwise expected, else within 2e-4 of the logit
+   scale), the gloo ranks' answers bitwise alike, one ``fused_adapt`` a
+   rank a request; host ms beside the single-rank request's and the
+   answer's gather alone;
 8. time each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, and each path; time a
    FuMI R=1 request through ``fused_adapt`` and through the autograd
@@ -208,10 +217,11 @@ fails:
 9. print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
-Every path of phases 4-7z sets the kernels' launch counts to 0 just before
-it runs and reads them just after (phase 7z in each rank, the ranks'
-counts summed; the two driver processes of 7z (d) report none); it fails if it did not launch each
-kernel it runs, as many times as the path runs it.
+Every path of phases 4-7zs sets the kernels' launch counts to 0 just
+before it runs and reads them just after (phases 7z and 7zs in each rank,
+the ranks' counts summed; the two driver processes of 7z (d) report
+none); it fails if it did not launch each kernel it runs, as many times as
+the path runs it.
 
 It imports no JAX. Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -752,6 +762,15 @@ def check_gather(table, dev) -> float:
         print(f"kernel gather_rows [{label}, {t.shape[0]} rows] vs plain: "
               f"bitwise equal at M = {', '.join(map(str, counts.values()))}")
     return max_err
+
+
+def flagship_cfg(Config, model: str = "fumi"):
+    """The flagship serving config (5-way 5-shot, BERT text, 100 steps) at
+    the JAX package's default widths."""
+    return Config(model=model, text_encoder="BERT", im_emb_dim=D,
+                  text_emb_dim=E, text_hid_dim=TH, im_hid_dim=(H1, H2),
+                  num_ways=WAYS, num_shots=SHOTS,
+                  num_test_adapt_steps=STEPS, step_size=STEP_SIZE, seed=0)
 
 
 def train_cfg(Config, model: str, **kw):
@@ -4609,9 +4628,10 @@ MD_TOL = dict(rtol=2e-4, atol=1e-5)  # tests/test_parallel.py:84-86
 MD_USE_CUDA = True
 # the sizes the parent runs at, handed to the ranks with their work
 MD_SIZES = ("B", "WAYS", "SHOTS", "TRAIN_Q", "EVAL_Q", "D", "E", "TH", "H1",
-            "H2", "STEPS", "INNER_STEPS", "EVAL_BATCHES", "SWEEP_S",
-            "CLIP_BATCH", "MD_CHUNK", "MD_SWEEP_EPOCHS",
-            "MD_SWEEP_EVAL_FREQ", "MD_SWEEP_EP_TEST", "MD_USE_CUDA")
+            "H2", "STEPS", "STEP_SIZE", "QN", "INNER_STEPS", "EVAL_BATCHES",
+            "SWEEP_S", "CLIP_BATCH", "MD_CHUNK", "MD_SWEEP_EPOCHS",
+            "MD_SWEEP_EVAL_FREQ", "MD_SWEEP_EP_TEST", "MD_USE_CUDA", "MS_R",
+            "MS_REPS")
 MD_PATHS = ("dp2 train fumi", "dp2 eval fumi (steps)", "dp2 eval fumi",
             "dp2 eval maml (steps)", "dp2 eval maml", "mp2 step fumi",
             "mp2 step maml", "dp2 clip epoch", "dp2 sweep fumi S=4",
@@ -4677,8 +4697,9 @@ def md_gloo_rank(rank: int, ctx: dict) -> dict:
     """One of the two ranks that share the card: (a) the dp engine's step
     on the held episode, a timed chunk and its busy share, the collective's
     time, eval through the fused kernels; (b) the 2-D engine's step; (e)
-    a dp CLIP epoch and a dp sweep. Each path's launches come back beside
-    its results."""
+    a dp CLIP epoch and a dp sweep; (f) the batched request sharded over
+    the two ranks (phase 7zs). Each path's launches come back beside its
+    results."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4820,13 +4841,17 @@ def md_gloo_rank(rank: int, ctx: dict) -> dict:
         _NullWriter("sweep"), ctx["sweep dir"], mesh=smesh)), dev)
     out["launches"]["dp2 sweep fumi S=4"] = md_counts()
     out["sweep"] = (sweep.gather_seeds(box["out"][0], smesh), sec)
+
+    # (f) phase 7zs: the batched request sharded over the two ranks
+    ms_rank(ctx["serve"], dev, dp, "dp2", out)
     return out
 
 
 def md_nccl_rank(rank: int, ctx: dict) -> dict:
     """(c) A world of one rank on the card, so NCCL: the dp engine's chunk
     with its gradient all-reduced over that world (a group of one rank,
-    so the numbers are the serial chunk's)."""
+    so the numbers are the serial chunk's); (f) the sharded request's
+    path on that world."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -4847,8 +4872,11 @@ def md_nccl_rank(rank: int, ctx: dict) -> dict:
     box = {}
     sec = md_s(lambda: box.update(out=run(
         st.params, st.opt.init(st.params), train_smp.generator(1))), dev)
-    return {"backend": dist.get_backend(), "params": box["out"][0],
-            "s": sec, "launches": {"nccl dp1 train fumi": md_counts()}}
+    out = {"backend": dist.get_backend(), "params": box["out"][0],
+           "s": sec, "launches": {"nccl dp1 train fumi": md_counts()}}
+    # (f) phase 7zs: the request on this world, its logits gathered by NCCL
+    ms_rank(ctx["serve"], dev, mesh, "nccl", out)
+    return out
 
 
 def md_driver(root: str, card: str) -> dict:
@@ -4931,11 +4959,13 @@ def md_close(label: str, got, want) -> float:
 
 def multi_device_phase(Config, dev, root, card, table_np, ids_np, cset,
                        by_path) -> dict:
-    """Phase 7z. The serial references on this process's card, then a world
-    of two gloo ranks sharing it (``md_gloo_rank``), the serial chunk timed
-    again (turns), a one-rank NCCL world (``md_nccl_rank``) and the driver
-    as two ``--tpu_dist_*`` processes (``md_driver``). Each rank's
-    launches are summed into ``by_path``. Returns the times."""
+    """Phases 7z and 7zs. The serial references on this process's card (and
+    the single-rank request, ``ms_reference``), then a world of two gloo
+    ranks sharing it (``md_gloo_rank``), the serial chunk timed again
+    (turns), a one-rank NCCL world (``md_nccl_rank``), the sharded
+    requests' checks (``ms_check``) and the driver as two ``--tpu_dist_*``
+    processes (``md_driver``). Each rank's launches are summed into
+    ``by_path``. Returns the times."""
     import numpy as np
     import torch
     from fumi_tpu_torch import bridge
@@ -5002,12 +5032,16 @@ def multi_device_phase(Config, dev, root, card, table_np, ids_np, cset,
         train_smp, eval_smp, _NullWriter("sweep"),
         os.path.join(root, "sweep-1"))[0]), dev)
 
-    # (a), (b), (e): two ranks share the card over gloo
+    # (f) phase 7zs: the single-rank request the sharded ones are held to
+    serve_ctx, serve_ref = ms_reference(Config, dev)
+
+    # (a), (b), (e), (f): two ranks share the card over gloo
     sizes = {k: globals()[k] for k in MD_SIZES}
     ctx = {"sizes": sizes, "table": table_np, "ids": ids_np, "cset": cset,
            "episode": bridge.episode_to_numpy(held),
            "eval episodes": [bridge.episode_to_numpy(e) for e in evals],
-           "clip batch": clip_batch, "sweep dir": sweep_dir}
+           "clip batch": clip_batch, "sweep dir": sweep_dir,
+           "serve": serve_ctx}
     t0 = time.perf_counter()
     ranks = [r.value for r in spawn_world(md_gloo_rank, 2, ctx,
                                           store_dir=root,
@@ -5113,7 +5147,8 @@ def multi_device_phase(Config, dev, root, card, table_np, ids_np, cset,
 
     # (c) one rank, NCCL
     nccl = spawn_world(md_nccl_rank, 1, {"sizes": sizes, "table": table_np,
-                                          "ids": ids_np, "cset": cset},
+                                          "ids": ids_np, "cset": cset,
+                                          "serve": serve_ctx},
                        store_dir=root, use_cuda=MD_USE_CUDA)[0]
     nsame = trees_equal({k: v for k, v in nccl.value["params"].items()},
                         {k: v.cpu() for k, v in nccl_ref.items()})
@@ -5150,9 +5185,152 @@ def multi_device_phase(Config, dev, root, card, table_np, ids_np, cset,
         fail(f"dp2 sweep: launches {sw}")
     print(f"phase 7z launches, the ranks' counts summed: "
           f"{ {k: by_path[k] for k in MD_PATHS} }")
+    times.update(ms_check(ranks, nccl.value, serve_ref, card, by_path))
 
     # (d) the driver as two processes
     times.update(md_driver(root, card))
+    return times
+
+
+# ---------------------------------------------------------------------------
+# Phase 7zs: the batched request sharded over the ranks of phase 7z
+# ---------------------------------------------------------------------------
+
+# a request of 8 flagship episodes (M=QN queries each, bucketed to 128),
+# 4 a rank at dp=2; each answer timed over 5 calls
+MS_R, MS_REPS = 8, 5
+MS_MODELS = ("fumi", "maml")
+
+
+def ms_request():
+    """MS_R flagship episodes: 5-way 5-shot supports with their labels
+    shuffled, QN queries and BERT-width text each."""
+    import numpy as np
+    rng = np.random.RandomState(23)
+    y = np.repeat(np.arange(WAYS), SHOTS).astype(np.int32)
+    return (rng.randn(MS_R, S, D).astype(np.float32),
+            np.stack([rng.permutation(y) for _ in range(MS_R)]),
+            rng.randn(MS_R, QN, D).astype(np.float32),
+            rng.randn(MS_R, S, E).astype(np.float32))
+
+
+def ms_serve(clf, model: str, req):
+    s_im, s_y, q_im, s_tx = req
+    return clf.episode_logits_batch(
+        s_im, s_y, q_im, support_text=s_tx if model == "fumi" else None)
+
+
+def ms_times(fn, dev, barrier=None) -> list:
+    """Host ms of MS_REPS calls of ``fn`` (each answer is fetched to the
+    host), the ranks lined up by ``barrier`` before each."""
+    out = []
+    for _ in range(MS_REPS):
+        if barrier is not None:
+            barrier()
+        out.append(1e3 * md_s(fn, dev))
+    return out
+
+
+def ms_reference(Config, dev):
+    """Each model's flagship classifier on its seed-0 weights in this
+    process: its answer to the request and its host ms. Returns the ranks'
+    context (the request and the weights) and the references."""
+    from fumi_tpu_torch.serve import FewShotClassifier
+    req = ms_request()
+    params, ref = {}, {}
+    for model in MS_MODELS:
+        clf = FewShotClassifier(flagship_cfg(Config, model), device=dev)
+        params[model] = {k: v.cpu() for k, v in clf.params.items()}
+        ms_serve(clf, model, req)  # warm
+        ref[model] = (ms_serve(clf, model, req),
+                      ms_times(lambda: ms_serve(clf, model, req), dev))
+    return {"request": req, "params": params}, ref
+
+
+def ms_rank(ctx, dev, mesh, label: str, out: dict) -> None:
+    """A rank's side of phase 7zs: each model's classifier on the parent's
+    weights under ``mesh``, its whole answer to the request (the launches
+    of that one call under ``"{label} serve {model}"``) and its host ms,
+    and the ms of the answer's gather alone (a shard of the padded
+    logits, MD_COLLECTIVES times)."""
+    import torch
+    import torch.distributed as dist
+    from fumi_tpu_torch.core.config import Config
+    from fumi_tpu_torch.core.mesh import all_gather_cat
+    from fumi_tpu_torch.serve import FewShotClassifier
+    req = ctx["request"]
+    for model in MS_MODELS:
+        clf = FewShotClassifier(flagship_cfg(Config, model),
+                                ctx["params"][model], device=dev, mesh=mesh)
+        ms_serve(clf, model, req)  # warm
+        dist.barrier()
+        md_reset()
+        logits = ms_serve(clf, model, req)
+        out["launches"][f"{label} serve {model}"] = md_counts()
+        out[f"serve {model}"] = (logits, ms_times(
+            lambda: ms_serve(clf, model, req), dev, dist.barrier))
+    shard = torch.zeros((MS_R // mesh.dp, 1 << (QN - 1).bit_length(), WAYS),
+                        device=dev)
+    dist.barrier()
+    out["serve gather ms"] = 1e3 * md_s(lambda: [
+        all_gather_cat(shard, mesh.dp_group, gloo=mesh.gloo)
+        for _ in range(MD_COLLECTIVES)], dev) / MD_COLLECTIVES
+
+
+def ms_check(ranks, nccl, ref, card, by_path) -> dict:
+    """Phase 7zs's checks: every rank's whole answer (two gloo ranks at
+    dp=2, and the one-rank NCCL world) against the single-rank request,
+    bitwise expected (a task's cluster does the same arithmetic at any R),
+    else within 2e-4 of the logit scale; the gloo ranks' answers bitwise
+    alike; one ``fused_adapt`` a rank a request. Returns the times."""
+    import numpy as np
+    times = {}
+    for model in MS_MODELS:
+        want, single_ms = ref[model]
+        scale = float(np.abs(want).max())
+        diffs = []
+        for i, r in enumerate(ranks + [nccl]):
+            got = r[f"serve {model}"][0]
+            if got.shape != (MS_R, QN, WAYS) or not np.isfinite(got).all():
+                fail(f"phase 7zs {model}: rank answer {i} of shape "
+                     f"{got.shape} or not finite")
+            diffs.append(float(np.abs(got - want).max()))
+        alike = np.array_equal(ranks[0][f"serve {model}"][0],
+                               ranks[1][f"serve {model}"][0])
+        med = [statistics.median(r[f"serve {model}"][1])
+               for r in ranks + [nccl]]
+        single = statistics.median(single_ms)
+        times[f"serve {model} ms"] = {
+            "single rank": single, "dp2 rank 0": med[0],
+            "dp2 rank 1": med[1], "nccl one rank": med[2]}
+        print(f"phase 7zs, serve {model}, {MS_R} episodes sharded over dp=2 "
+              f"(two gloo ranks on one card, {MS_R // 2} a rank, M={QN}, "
+              f"{STEPS} steps): max|diff| against the single-rank request "
+              f"{max(diffs[:2]):.3e} (ranks 0, 1; bitwise: "
+              f"{max(diffs[:2]) == 0.0}), the one-rank NCCL world "
+              f"{diffs[2]:.3e}, logit scale {scale:.3f} (rtol 2e-4 of it); "
+              f"the two ranks' answers bitwise alike: {alike}; host ms, "
+              f"median of {MS_REPS}: sharded {med[0]:.3f} / {med[1]:.3f} "
+              f"(ranks 0, 1), single rank {single:.3f}, the NCCL world "
+              f"{med[2]:.3f} [{card}]")
+        if max(diffs) > 2e-4 * scale or not alike:
+            fail(f"phase 7zs {model}: a rank's answer is off by "
+                 f"{max(diffs):.3e} or the ranks differ")
+    times["serve gather ms"] = {"gloo dp2 rank 0": ranks[0]["serve gather ms"],
+                                "nccl one rank": nccl["serve gather ms"]}
+    print(f"phase 7zs: the answer's gather alone ({MS_R // 2} x "
+          f"{1 << (QN - 1).bit_length()} x {WAYS} fp32 a rank, "
+          f"{MD_COLLECTIVES} times): {ranks[0]['serve gather ms']:.3f} ms "
+          f"(gloo, staged through the host, rank 0), "
+          f"{nccl['serve gather ms']:.3f} ms (NCCL, one rank) [{card}]")
+    expect = {f"{w} serve {m}": new_counts(fused_adapt=n)
+              for w, n in (("dp2", 2), ("nccl", 1)) for m in MS_MODELS}
+    for label, want in expect.items():
+        if by_path[label] != want:
+            fail(f"phase 7zs {label}: launches {by_path[label]}, expected "
+                 f"{want} (one fused_adapt a rank a request)")
+    print(f"phase 7zs launches, the ranks' counts summed: "
+          f"{ {k: by_path[k] for k in expect} }")
     return times
 
 
@@ -5199,11 +5377,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
-    flagship = Config(model="fumi", text_encoder="BERT", im_emb_dim=D,
-                      text_emb_dim=E, text_hid_dim=TH, im_hid_dim=(H1, H2),
-                      num_ways=WAYS, num_shots=SHOTS,
-                      num_test_adapt_steps=STEPS, step_size=STEP_SIZE,
-                      seed=0)
+    flagship = flagship_cfg(Config)
     fumi_clf = FewShotClassifier(flagship)
     p = fumi_clf.params
     rng = np.random.RandomState(0)

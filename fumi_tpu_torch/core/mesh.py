@@ -4,7 +4,8 @@ The counterpart of ``fumi_tpu/core/mesh.py``. One rank is one device
 (``core/distributed.py``), so a mesh is the world's first ``dp · mp`` ranks
 laid out row-major as a (dp, mp) grid: rank ``d · mp + m`` sits at
 ``(d, m)``. Axis ``dp`` shards the meta-batch's tasks (episode data
-parallelism), axis ``mp`` the input columns of wide weights
+parallelism) and a batched request's episodes (``serve.py``,
+:func:`episode_shard`), axis ``mp`` the input columns of wide weights
 (``parallel/pjit_engine.py``). :func:`make_mesh` builds the process groups
 of every mp row (the ranks that hold one dp shard) and every dp column
 (the ranks that hold one mp slice); all ranks of the world must call it
@@ -170,16 +171,27 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
+def _shard(mesh: Mesh, n: int, what: str) -> slice:
+    if n % mesh.dp:
+        raise ValueError(f"{what} {n} not divisible by dp={mesh.dp}")
+    k = n // mesh.dp
+    return slice(mesh.dp_index * k, (mesh.dp_index + 1) * k)
+
+
+def episode_shard(mesh: Mesh, r_pad: int) -> slice:
+    """This rank's rows of a batched request padded to ``r_pad`` episodes:
+    shard ``dp_index`` of ``dp`` (the JAX package's ``episode_sharding``).
+    The ranks of an mp row share a dp index, so they hold the same rows.
+    Raises ``ValueError`` when dp does not divide ``r_pad``."""
+    return _shard(mesh, r_pad, "padded episode count")
+
+
 def put_episode(episode, mesh: Mesh):
     """This rank's slice of the episode's task axis: shard ``dp_index`` of
     ``dp`` (views, no copy)."""
     if mesh.dp == 1:
         return episode
-    B = episode.support_im.shape[0]
-    if B % mesh.dp:
-        raise ValueError(f"batch_size {B} not divisible by dp={mesh.dp}")
-    n = B // mesh.dp
-    part = slice(mesh.dp_index * n, (mesh.dp_index + 1) * n)
+    part = _shard(mesh, episode.support_im.shape[0], "batch_size")
     return type(episode)(*(None if x is None else x[part] for x in episode))
 
 

@@ -18,6 +18,12 @@ for a conv4 or resnet12 model (``support_im`` (NK, H, W, C), batched
   MatchingNet to the embedded support set and its labels. A family a
   ``--tpu_import`` module registers serves through its ``Family.serve``
   hook.
+- ``FewShotClassifier(..., mesh=make_mesh(dp, 1))`` (``core/mesh.py``):
+  ``episode_logits_batch`` shards a request's episodes over the dp ranks
+  of a ``torch.distributed`` world, each rank running its R/dp episodes
+  (one fused launch on a card) and the logits gathered in rank order, so
+  every rank returns the whole answer. Every rank of the mesh calls with
+  the same request (SPMD, as a multi-process JAX program does).
 - ``adapt`` then ``logits`` / ``classify``: the stateful pair, adapted by
   the engine (the kernel returns logits, not adapted weights).
   MatchingNet's logits are ``log(probs + 1e-8)``, so every return mode
@@ -76,6 +82,7 @@ import numpy as np
 import torch
 
 from fumi_tpu_torch.core.config import Config, TOKEN_TEXT_ENCODERS
+from fumi_tpu_torch.core.mesh import Mesh, all_gather_cat, episode_shard
 from fumi_tpu_torch.core.runtime import DeviceLike, resolve_device
 from fumi_tpu_torch.metalearn.implicit import (fumi_proximal_adapt,
                                                proximal_adapt)
@@ -145,9 +152,11 @@ def episode_seed(seed: int, r: int) -> int:
 
 
 def _prep_batched_request(cfg, prep_text, support_im, support_y, query_im,
-                          support_text, seed: int, bucket_m: bool = True):
+                          support_text, seed: int, dp: int = 1,
+                          bucket_m: bool = True):
     """The batched-request policy: array coercion, per-episode seeds,
-    power-of-two R bucketing and power-of-two M bucketing. Returns
+    power-of-two R bucketing (rounded up to a multiple of ``dp`` when the
+    request shards over a mesh) and power-of-two M bucketing. Returns
     ``(R, M, support_im, support_y, support_text, query_im, seeds)`` with
     the arrays padded to the bucket sizes and ``R``/``M`` the true counts
     (callers slice outputs back with ``[:R, :M]``)."""
@@ -161,6 +170,8 @@ def _prep_batched_request(cfg, prep_text, support_im, support_y, query_im,
     support_text = prep_text(support_text, R, support_im.shape[1])
     M, query_im = _bucket_queries(query_im, axis=1, enabled=bucket_m)
     r_pad = max(1, 1 << (R - 1).bit_length())
+    if dp > 1:
+        r_pad = ((r_pad + dp - 1) // dp) * dp
     seeds = [episode_seed(seed, r) for r in range(r_pad)]
     return (R, M) + _pad_episodes(r_pad, support_im, support_y,
                                   support_text, query_im) + (seeds,)
@@ -239,12 +250,26 @@ class FewShotClassifier:
     ``dictionary`` is the token dictionary of a glove/w2v/RNN/RNNhid
     model. ``device`` defaults to the current CUDA device; pass ``"cpu"``
     to run on the CPU.
+
+    ``mesh`` (optional, ``core/mesh.py:make_mesh``) shards the batched
+    request path's episodes over the mesh's dp ranks, one rank a device;
+    the params stay replicated (each rank holds the same weights). The
+    contract is SPMD: every rank of the mesh calls
+    ``episode_logits_batch`` with the same request, each computes its
+    R/dp episodes, and every rank returns the whole (R, M, N) answer. An
+    mp > 1 mesh repeats a shard on the ranks of its mp row. The
+    single-episode and stateful paths ignore the mesh and stay on the
+    rank's device. Unlike the JAX package, which serves through its vmap
+    engine under a mesh (a ``pallas_call`` does not partition), a rank
+    launches the fused kernel on its own shard: the function is the same.
     """
 
     def __init__(self, cfg: Config, params: Optional[Dict] = None,
-                 dictionary=None, device: DeviceLike = None):
+                 dictionary=None, device: DeviceLike = None,
+                 mesh: Optional[Mesh] = None):
         cfg = cfg.validate()
         self.cfg = cfg
+        self.mesh = mesh
         self.family = build_family(
             cfg, torch.Generator().manual_seed(cfg.seed), dictionary)
         self.device = resolve_device(device)
@@ -456,7 +481,8 @@ class FewShotClassifier:
     def _build_episode_fn(self, force_engine: bool = False):
         """fn(p, s_im (R,NK,D), s_y (R,NK), q_im (R,M,D), s_text (R,NK,E),
         seeds) -> (R, M, N) logits. ``force_engine`` bypasses the fused
-        kernel even where it applies."""
+        kernel even where it applies. The mesh plays no part: a rank
+        launches the kernel on its shard of a request."""
         cfg = self.cfg
         fused_ok = (not force_engine
                     and cfg.compute_dtype == "float32"
@@ -483,20 +509,26 @@ class FewShotClassifier:
                 return classify_fn(p, state, q_im)
         return fn
 
-    def _run_episodes(self, fn, s_im, s_y, q_im, s_text, seeds) -> np.ndarray:
+    def _run_episodes(self, fn, s_im, s_y, q_im, s_text, seeds,
+                      mesh: Optional[Mesh] = None) -> np.ndarray:
+        """The logits of these episodes on the host; under ``mesh``, the
+        dp ranks' logits concatenated in rank order."""
         dev = self.device
         with torch.no_grad():
             out = fn(self.params, _tensor(s_im, np.float32, dev),
                      _tensor(s_y, np.int32, dev),
                      _tensor(q_im, np.float32, dev),
                      _tensor(s_text, self.text_dtype, dev), seeds)
+        if mesh is not None:
+            out = all_gather_cat(out, mesh.dp_group, dim=0, gloo=mesh.gloo)
         return out.cpu().numpy()
 
-    def _episode_request(self, s_im, s_y, q_im, s_text, seeds):
+    def _episode_request(self, s_im, s_y, q_im, s_text, seeds,
+                         mesh: Optional[Mesh] = None):
         if self._episode_fn is None:
             self._episode_fn = self._build_episode_fn()
         return self._run_episodes(self._episode_fn, s_im, s_y, q_im, s_text,
-                                  seeds)
+                                  seeds, mesh)
 
     @property
     def text_is_tokens(self) -> bool:
@@ -547,13 +579,32 @@ class FewShotClassifier:
         """R independent episodes adapted AND classified in one call —
         support_im (R, NK, D), support_y (R, NK), query_im (R, M, D) ->
         (R, M, N) logits. R and M are padded to powers of two internally
-        (repeating the last episode / query) and sliced back."""
+        (repeating the last episode / query) and sliced back.
+
+        Under a mesh every rank of it calls with the same request: R is
+        padded up to a multiple of dp as well, each rank runs its
+        :func:`~fumi_tpu_torch.core.mesh.episode_shard` of the padded
+        episodes and their seeds (episode ``r`` keeps ``episode_seed(seed,
+        r)`` on whichever rank runs it), and every rank returns the whole
+        answer. A rank off the mesh raises ``ValueError``."""
+        mesh = self.mesh
+        if mesh is not None and not mesh.member:
+            raise ValueError(
+                f"rank {mesh.rank} is not on the ({mesh.dp}x{mesh.mp}) mesh "
+                f"(its first {mesh.size} ranks serve a sharded request)")
         R, M, support_im, support_y, support_text, query_im, seeds = \
             _prep_batched_request(self.cfg, self._prep_text, support_im,
                                   support_y, query_im, support_text, seed,
+                                  dp=1 if mesh is None else mesh.dp,
                                   bucket_m=self._bucket_m)
+        if mesh is not None:
+            part = episode_shard(mesh, len(seeds))
+            support_im, support_y, support_text, query_im = (
+                x[part] for x in (support_im, support_y, support_text,
+                                  query_im))
+            seeds = seeds[part]
         out = self._episode_request(support_im, support_y, query_im,
-                                    support_text, seeds)
+                                    support_text, seeds, mesh)
         return out[:R, :M]
 
     # ------------------------------------------------------------------

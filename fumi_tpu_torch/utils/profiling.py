@@ -6,6 +6,8 @@ The counterpart of ``fumi_tpu/utils/profiling.py``:
   ``torch.cuda.memory_stats`` under the JAX package's names;
 - :class:`Throughput`: episodes/s with exponential smoothing, fed by the
   training loop;
+- :func:`device_sync`: a value's first element on the host, which waits
+  for the work that produced it;
 - :func:`profile_trace`: ``--tpu_profile_dir``, a ``torch.profiler``
   trace of the run's CPU and (on a card) CUDA activity, written as a
   Chrome trace JSON into the directory (open it in Perfetto or
@@ -22,6 +24,7 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -48,6 +51,15 @@ def profile_trace(log_dir: Optional[str]):
                             f"{int(time.time() * 1e3)}.pt.trace.json")
         prof.export_chrome_trace(path)
         print(f"profile trace: {path}")
+
+
+def device_sync(value) -> float:
+    """The first element of ``value`` as a Python float: a tensor on any
+    device (fetching it waits for its card), or anything ``np.asarray``
+    takes."""
+    if torch.is_tensor(value):
+        return float(value.detach().reshape(-1)[0].item())
+    return float(np.asarray(value).reshape(-1)[0])
 
 
 def hbm_stats(device: Optional[torch.device] = None) -> dict:
