@@ -147,6 +147,14 @@ fails:
    with a corrupt file (400), the import's load time;
 7s. ``resnet12.STAGE_REMAT_OVERRIDE`` against ``--tpu_remat auto`` at 2
    tasks of 5+5 a class: loss and meta-gradient bitwise, peak memory;
+7s-b. ``conv4.BLOCK_REMAT`` on against off at 2 tasks of 5+5 a class
+   on deterministic cuDNN, once the step repeats bitwise: the loss
+   bitwise, the meta-gradient bitwise for FuMI and for MAML under
+   ``--tpu_remat on``, within 1e-5 of its scale for MAML under ``auto``
+   (the autograd engine's order moves with the recompute), peak memory;
+   then phase 7k's conv4 MAML training (B=4, fp32) off, on, off, on:
+   episodes/s, peak memory, busy share and device ms a step, one
+   ``gather_episode_rows`` a step;
 7t. the seed sweep at S=4 for FuMI and MAML at the flagship width on
    phase 5's sampler: a chunk of 10 lockstep steps (4
    ``gather_episode_rows`` a step), each seed bitwise its standalone
@@ -3434,8 +3442,8 @@ def pr10_phases(names, Config, dev, root, card, table, ids_np, cset,
 
 
 # ---------------------------------------------------------------------------
-# Phases 7o-7s: the training extensions, the host samplers, reference
-# checkpoints and resnet12's stage remat
+# Phases 7o-7s-b: the training extensions, the host samplers, reference
+# checkpoints, resnet12's stage remat and conv4's block remat
 # ---------------------------------------------------------------------------
 
 # --tpu_ema 0.999 --tpu_skip_nonfinite 3; the host samplers timed over
@@ -4017,13 +4025,194 @@ def stage_remat_phase(Config, dev, card) -> dict:
     return times
 
 
-PR11_PHASES = ("ema", "debug-nans", "host-sampler", "pth", "stage-remat")
+# runs of one step without the switch before phase 7s-b gives up waiting
+# for two in a row to agree bitwise
+SETTLE_RUNS = 8
+
+
+def block_remat_phase(Config, dev, card, reset_counts, read_counts,
+                      by_path) -> dict:
+    """Phase 7s-b: ``conv4.BLOCK_REMAT`` (each conv block checkpointed, an
+    experiment switch) at 84×84×3 in fp32. (a) conv4 MAML and FuMI on one
+    episode of 2 tasks with 5 queries a class, cut as phase 7s cuts it,
+    cuDNN deterministic, once the step repeats bitwise: the loss with the
+    switch on bitwise the loss with it off, the meta-gradient bitwise for
+    FuMI and for MAML under ``--tpu_remat on``, within 1e-5 of its scale
+    for MAML under ``auto`` (the comment below says why), and the peak
+    memory of each.
+    (b) phase 7k's conv4 MAML training (B=4, 5-way 5-shot, 32 queries a
+    class, 5 second-order steps, chunks of ``RAW_CHUNK``) off, on, off,
+    on: the episodes/s, the peak memory, the busy share and device ms a
+    step, and one ``gather_episode_rows`` a step. Returns the numbers."""
+    import torch
+    from fumi_tpu_torch.models import conv4
+    from fumi_tpu_torch.train import steps
+    times = {}
+    small, train_s = raw_samplers(dev, queries=(5, TRAIN_Q))
+    episode = small.sample(small.generator(9))
+    episode = type(episode)(*(None if t is None else t[:2] for t in episode))
+
+    def peak_gb(base):
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+    def reset_peak():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return torch.cuda.memory_allocated(dev)
+
+    def run(model, on, remat):
+        """(loss, meta-gradient, the step's peak GB) with the switch
+        ``on`` under ``--tpu_remat remat``."""
+        conv4.BLOCK_REMAT = on
+        cfg = raw_cfg(Config, model, "conv4", batch_size=2, num_shots_test=5,
+                      remat=remat)
+        fam = steps.build_family(cfg, torch.Generator().manual_seed(0))
+        params = {k: v.to(dev) for k, v in fam.params.items()}
+        base = reset_peak()
+        (loss, _), grads = steps.value_and_grad(fam, params, episode, None)
+        return loss, grads, peak_gb(base)
+
+    def rel_diff(a, b):
+        """The largest gap between two meta-gradients, over the second's
+        largest entry; 0.0 where every leaf is equal."""
+        if all(torch.equal(a[1][k], b[1][k]) for k in a[1]):
+            return 0.0
+        scale = max(float(v.abs().max()) for v in b[1].values())
+        return max(float((a[1][k] - b[1][k]).abs().max())
+                   for k in a[1]) / scale
+
+    try:
+        # (a) the switch changes no number, on cuDNN's deterministic
+        # algorithms. A second-order step's own bits depend on the
+        # autograd engine's order: it runs the outer backward by the
+        # nodes' sequence numbers, which the main thread (the forward) and
+        # the CUDA worker thread (the inner steps' create_graph nodes, and
+        # with the switch the blocks' recompute) count apart. So runs
+        # without the switch repeat until two in a row are bitwise equal
+        # (at most SETTLE_RUNS), and the run with it is held to the last:
+        # the loss bitwise always; the meta-gradient bitwise where the
+        # order stays (FuMI, and MAML nested under --tpu_remat on, whose
+        # step checkpoint recomputes every inner step on the worker
+        # thread in both runs), and for MAML under auto within 1e-5 of its
+        # scale, as the CPU tests hold meta-gradients summed in other
+        # orders.
+        torch.backends.cudnn.deterministic = True
+        for model, remat, tol in (("maml", "auto", 1e-5), ("maml", "on", 0.0),
+                                  ("fumi", "auto", 0.0)):
+            offs = [run(model, False, remat)]
+            while len(offs) < SETTLE_RUNS and (
+                    len(offs) < 2 or rel_diff(offs[-1], offs[-2]) != 0.0
+                    or not torch.equal(offs[-1][0], offs[-2][0])):
+                offs.append(run(model, False, remat))
+            noise = max(rel_diff(o, offs[-1]) for o in offs)
+            off, on = offs[-1], run(model, True, remat)
+            gap = rel_diff(on, off)
+            tag = f"{model} --tpu_remat {remat}"
+            times[f"{tag} peak GB off"], times[f"{tag} peak GB on"] = (
+                off[2], on[2])
+            times[f"{tag} gap on/off"] = gap
+            times[f"{tag} gap of the runs off"] = noise
+            print(f"{tag} conv4 BLOCK_REMAT on vs off (2 tasks, 5+5 a "
+                  f"class, fp32, cuDNN deterministic): loss "
+                  f"{float(on[0]):.6f} vs {float(off[0]):.6f}, loss bitwise "
+                  f"equal {torch.equal(on[0], off[0])}, meta-gradient "
+                  f"{gap:.3e} of its scale apart (bound {tol:.0e}); off "
+                  f"repeated after {len(offs)} runs, the runs up to "
+                  f"{noise:.3e} apart; the step's peak memory {on[2]:.3f} "
+                  f"GB vs {off[2]:.3f} GB [{card}]")
+            if len(offs) > 1 and rel_diff(offs[-1], offs[-2]) != 0.0:
+                fail(f"{tag} conv4: {SETTLE_RUNS} runs of the same step "
+                     "never repeated bitwise")
+            if not bool(torch.isfinite(on[0])):
+                fail(f"{tag} conv4 BLOCK_REMAT: non-finite loss")
+            if not torch.equal(on[0], off[0]) or gap > tol:
+                fail(f"{tag} conv4 BLOCK_REMAT changed the loss or the "
+                     f"meta-gradient ({gap:.3e} of its scale)")
+            del offs, off, on
+        torch.backends.cudnn.deterministic = False
+        # (b) the A/B at phase 7k's configuration, in turns
+        turns = {"off": [], "on": []}
+        for i, name in enumerate(("off", "on", "off", "on")):
+            conv4.BLOCK_REMAT = name == "on"
+            cfg = raw_cfg(Config, "maml", "conv4")
+            st = steps.make_steps(cfg, torch.Generator().manual_seed(0),
+                                  device=dev)
+            label = f"train maml conv4 BLOCK_REMAT {name} (turn {i + 1})"
+            base = reset_peak()
+            eps, state = timed_train(st, train_s, label, reset_counts,
+                                     read_counts, by_path, chunk=RAW_CHUNK)
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            busy = busy_line(label, state, card, steps_n=2)
+            print(f"{label}: {eps:.2f} episodes/s, peak memory {peak:.3f} "
+                  f"GB ({peak - base / 1e9:.3f} GB above the table and "
+                  f"params) [{card}]")
+            turns[name].append((eps, peak, busy))
+            del st, state
+        for name, rows in turns.items():
+            times[f"A/B {name} eps"] = [r[0] for r in rows]
+            times[f"A/B {name} peak GB"] = [r[1] for r in rows]
+            times[f"A/B {name} device ms"] = [
+                None if r[2] is None else r[2][0] for r in rows]
+            times[f"A/B {name} busy"] = [
+                None if r[2] is None else r[2][0] / r[2][2] for r in rows]
+        eps_ratio = (statistics.median(times["A/B on eps"])
+                     / statistics.median(times["A/B off eps"]))
+        peak_ratio = (max(times["A/B on peak GB"])
+                      / max(times["A/B off peak GB"]))
+        times["A/B on/off eps"], times["A/B on/off peak"] = (eps_ratio,
+                                                             peak_ratio)
+        print(f"conv4 MAML B=4 BLOCK_REMAT on/off: episodes/s "
+              f"{times['A/B on eps']} vs {times['A/B off eps']} "
+              f"({eps_ratio:.3f}x), peak {times['A/B on peak GB']} vs "
+              f"{times['A/B off peak GB']} GB ({peak_ratio:.3f}x) [{card}]")
+    finally:
+        conv4.BLOCK_REMAT = False
+        torch.backends.cudnn.deterministic = False
+    del small, train_s, episode
+    torch.cuda.empty_cache()
+    return times
+
+
+def block_remat_alone() -> None:
+    """Phase 7s-b by itself on the card, as ``python3 -c 'import
+    chip_smoke; chip_smoke.block_remat_alone()'`` from a checkout: builds
+    the kernels, runs the phase and prints its numbers and launches."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this phase needs a GPU")
+    sys.path.insert(0, HERE)
+    from fumi_tpu_torch.core.config import Config
+    from fumi_tpu_torch.ops import _build, kernels
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _build.build_all(SOURCES)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def reset_counts():
+        for name in KERNEL_NAMES:
+            getattr(kernels, name).launches = 0
+
+    def read_counts():
+        return {name: getattr(kernels, name).launches
+                for name in KERNEL_NAMES}
+    by_path = {}
+    times = block_remat_phase(Config, torch.device("cuda", 0), card,
+                              reset_counts, read_counts, by_path)
+    print(json.dumps({"block-remat": times, "launches_by_path": by_path},
+                     default=str))
+
+
+PR11_PHASES = ("ema", "debug-nans", "host-sampler", "pth", "stage-remat",
+               "block-remat")
 
 
 def pr11_phases(names, Config, dev, root, card, ctx, reset_counts,
                 read_counts, by_path) -> dict:
-    """Phases 7o-7s, the ``names`` of :data:`PR11_PHASES` in order, each in
-    its own directory under ``root``. ``ctx`` holds what they take from
+    """Phases 7o-7s-b, the ``names`` of :data:`PR11_PHASES` in order, each
+    in its own directory under ``root``. ``ctx`` holds what they take from
     the earlier phases: ``samplers`` (phase 5's train and phase 6's eval
     sampler), ``request`` (phase 4's), ``table`` (the flagship table as
     numpy, its ``ids`` and ``cset``) and ``driver_dirs`` (phase 7's run
@@ -4052,6 +4241,9 @@ def pr11_phases(names, Config, dev, root, card, ctx, reset_counts,
                                     reset_counts, read_counts, by_path)
         elif name == "stage-remat":
             times[name] = stage_remat_phase(Config, dev, card)
+        elif name == "block-remat":
+            times[name] = block_remat_phase(Config, dev, card, reset_counts,
+                                            read_counts, by_path)
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     return times
 
@@ -5692,8 +5884,8 @@ def main() -> int:
         pr10_times = pr10_phases(PR10_PHASES, Config, dev, driver_root, card,
                                  table, ids_np, cset, reset_counts,
                                  read_counts, by_path)
-        # ---- 7o-7s. training extensions, host samplers, .pth.tar, stage
-        # remat
+        # ---- 7o-7s-b. training extensions, host samplers, .pth.tar, stage
+        # and block remat
         pr11_times = pr11_phases(
             PR11_PHASES, Config, dev, driver_root, card,
             {"samplers": (train_smp, eval_smp), "request": request,
@@ -6165,8 +6357,8 @@ def main() -> int:
                 for k, v in t.items()} for name, t in pr10_times.items()},
         default=str))
 
-    print("training extensions, host samplers, .pth.tar and stage remat "
-          "(7o-7s): " + json.dumps(pr11_times, default=str))
+    print("training extensions, host samplers, .pth.tar, stage and block "
+          "remat (7o-7s-b): " + json.dumps(pr11_times, default=str))
     print("seed sweep, sweep driver, seed ensemble, grad-accum, watch and "
           "trace (7t-7y): " + json.dumps(pr12_times, default=str))
     print("multi-device engines (7z): " + json.dumps(md_times, default=str))

@@ -33,6 +33,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from fumi_tpu_torch.models import layers
 
@@ -43,6 +44,17 @@ EPS = 1e-5
 # second-order MAML differentiates through (``F.max_pool2d`` would send
 # it all to one element)
 POOL_IMPL = "reshape"
+# Block rematerialization, an experiment switch (the JAX package's): when
+# True, backbone() checkpoints each conv block
+# (``torch.utils.checkpoint(use_reentrant=False)``), so the backward pass
+# keeps only the block's input and recomputes its conv, norm, ReLU and
+# pool, also inside a second-order inner step and nested in --tpu_remat
+# on's step checkpoint. It trades compute for activation memory and
+# computes the same values: the blocks draw no randomness, so there is no
+# generator to replay (on CUDA the recompute can still change the order
+# in which autograd sums a second-order gradient). Read at every call;
+# skipped where grad mode is off.
+BLOCK_REMAT = False
 UNIT = ("weight", "bias", "gamma", "beta")
 
 
@@ -182,9 +194,14 @@ def backbone(params: Params, x: torch.Tensor,
     """NHWC images (M, H, W, C) or (B, M, H, W, C) -> flat fp32 features
     (M, F) or (B, M, F)."""
     y, B = to_groups(x)
+    remat = BLOCK_REMAT and torch.is_grad_enabled()
     for i in range(num_blocks(params, prefix)):
-        y = conv_block(unit(params, f"{prefix}convs.{i}", B), y,
-                       compute_dtype, groups=B)
+        p = unit(params, f"{prefix}convs.{i}", B)
+        if remat:
+            y = checkpoint(conv_block, p, y, compute_dtype, B,
+                           use_reentrant=False)
+        else:
+            y = conv_block(p, y, compute_dtype, groups=B)
     return from_groups(y, B, x.dim() == 5)
 
 

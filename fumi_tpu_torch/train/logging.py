@@ -41,6 +41,13 @@ class MetricWriter:
         self.summary: Dict[str, float] = {}
         self._since_flush = 0
 
+    @property
+    def run_dir(self) -> str:
+        """The live wandb run's directory, else ``log_dir``."""
+        if self._wandb is not None and self._wandb.run is not None:
+            return self._wandb.run.dir
+        return self.log_dir
+
     def log(self, metrics: Dict, step: Optional[int] = None) -> None:
         scalars = {k: float(v) for k, v in metrics.items()
                    if _is_scalar(v)}

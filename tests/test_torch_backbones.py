@@ -211,6 +211,50 @@ def test_remat_equals_no_remat(raw_episodes, kind, remat):
     assert_grads_close(g1, g0, 1e-6)
 
 
+@pytest.mark.parametrize("tasks", ["shared", "per-task"])
+def test_block_remat_matches_the_jax_package(tasks, monkeypatch):
+    """``conv4.BLOCK_REMAT`` on in both packages (``jax.checkpoint`` of
+    each block there, ``torch.utils.checkpoint`` here): the backbone's
+    features and the first-order gradient of their sum w.r.t. every conv
+    param on bridged weights, shared by 6 images or per task (B tasks of
+    4); the features to ``TOL``, the gradient to 1e-5 of its largest
+    entry (the module docstring's tolerances)."""
+    monkeypatch.setattr(jax_conv4, "BLOCK_REMAT", True)
+    monkeypatch.setattr(conv4, "BLOCK_REMAT", True)
+    trees = [jax_init("conv4", key=k) for k in range(B)]
+    if tasks == "shared":
+        trees, x, feats = trees[:1], images(6, 9), jax_conv4.backbone
+    else:
+        x = images(B * 4, 9).reshape(B, 4, S, S, 3)
+        feats = jax.vmap(jax_conv4.backbone)
+    jp = jax.tree_util.tree_map(lambda *a: jnp.stack(a), *trees) \
+        if tasks == "per-task" else trees[0]
+    # traced here, so under the flag (the JAX package reads it at trace
+    # time)
+    want_f = jax.jit(lambda p, im: feats(p, im))(jp, jnp.asarray(x))
+    want_g = jax.jit(jax.grad(lambda p, im: jnp.sum(feats(p, im))))(
+        jp, jnp.asarray(x))
+    ports = [port_params(t) for t in trees]
+    leaves = {k: (torch.stack([p[k] for p in ports]) if tasks == "per-task"
+                  else ports[0][k]).requires_grad_() for k in ports[0]}
+    got_f = conv4.backbone(leaves, torch.from_numpy(x))
+    np.testing.assert_allclose(got_f.detach().numpy(), np.asarray(want_f),
+                               **TOL)
+    body = [k for k in leaves if not k.startswith("head.")]
+    got_g = dict(zip(body, torch.autograd.grad(
+        got_f.sum(), [leaves[k] for k in body])))
+    for b in range(len(trees)):
+        want_b = np_tree(want_g) if tasks == "shared" else \
+            jax.tree_util.tree_map(lambda a: np.asarray(a)[b], want_g)
+        got_b = {k: v if tasks == "shared" else v[b]
+                 for k, v in got_g.items()}
+        got_b.update({k: torch.zeros_like(ports[0][k]) for k in leaves
+                      if k not in got_g})
+        assert not np.any(want_b["head"]["w"])
+        assert_grads_close(bridge.params_to_numpy(got_b, "maml")["convs"],
+                           want_b["convs"], 1e-5)
+
+
 def test_remat_replays_the_dropout_generator():
     """A checkpointed FuMI step draws its dropout masks from the step's
     generator: the recompute replays them, and the generator ends where

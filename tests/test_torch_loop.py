@@ -12,10 +12,16 @@ sides through second-order steps summed in other orders, as
 
 One case stops on ``--patience`` between evals: the step indices and the
 final params then come from the patience trigger.
+
+Both ``MetricWriter``s' ``run_dir`` is ``log_dir`` without a wandb run, and
+the run's ``dir`` with one: a stub ``wandb`` module, so nothing reaches the
+network.
 """
 
 import json
 import os
+import sys
+import types
 
 import jax
 import numpy as np
@@ -177,3 +183,43 @@ def test_stream_seeds_are_distinct_and_deterministic():
     a = loop.stream_generator(5, loop.VAL, 3, "cpu")
     b = loop.stream_generator(5, loop.VAL, 3, "cpu")
     assert torch.equal(torch.rand(4, generator=a), torch.rand(4, generator=b))
+
+
+@pytest.mark.parametrize("kw", [dict(use_wandb=False),
+                                dict(use_wandb=True, offline=True)],
+                         ids=["no-wandb", "offline"])
+def test_run_dir_without_wandb_is_the_log_dir(tmp_path, kw):
+    """With no wandb run, both writers' ``run_dir`` is ``log_dir``."""
+    for name, cls in (("jax", JaxWriter), ("port", MetricWriter)):
+        log_dir = str(tmp_path / name)
+        w = cls(log_dir, run_name="r", run_suffix="-s", **kw)
+        assert w.run_dir == log_dir
+        assert w.run_name == "r-s"
+        w.finish()
+
+
+def test_run_dir_of_a_wandb_run(tmp_path, monkeypatch):
+    """A stub ``wandb`` module (no network): both writers start its run,
+    take its name plus the suffix, return its ``run.dir`` as ``run_dir``
+    and log to it."""
+    logged = []
+    stub = types.ModuleType("wandb")
+    stub.run = None
+
+    def init(**kw):
+        stub.run = types.SimpleNamespace(name="stub-run",
+                                         dir=str(tmp_path / "wandb-run"))
+    stub.init = init
+    stub.log = lambda scalars, step=None: logged.append((step, scalars))
+    stub.finish = lambda: None
+    monkeypatch.setitem(sys.modules, "wandb", stub)
+    for name, cls in (("jax", JaxWriter), ("port", MetricWriter)):
+        stub.run = None
+        w = cls(str(tmp_path / name), run_name="r", run_suffix="-s",
+                offline=False)
+        assert w.run_dir == str(tmp_path / "wandb-run")
+        assert w.run_name == "stub-run-s"
+        w.log({"loss": 0.5}, step=3)
+        w.finish()
+        assert (tmp_path / name / "stub-run-s.metrics.jsonl").exists()
+    assert logged == [(3, {"loss": 0.5})] * 2
