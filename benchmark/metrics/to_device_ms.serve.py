@@ -1,0 +1,9 @@
+"""The request's host-to-device copies: the median over the profiled
+requests of the time a ``serve.to_device`` range was open inside the
+request's ``serve.request`` (host clock, under the profiler)."""
+
+from benchmark.spans import median_per_request_ms
+
+
+def read(ctx, rec):
+    return median_per_request_ms(rec.get("trace"), "serve.to_device")

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from fumi_tpu_torch.core.episode import Episode
+from fumi_tpu_torch.utils.profiling import span
 
 Params = Dict[str, torch.Tensor]
 Mask = Optional[Dict[str, bool]]
@@ -139,30 +140,31 @@ def adapt(theta: Params, support_loss: Callable[[Params, int], torch.Tensor],
     keys = list(theta)
     remat = differentiable and remat_active(remat, n_steps)
     for step in range(n_steps):
-        if differentiable:
-            def one(*vals, step=step):
-                th = dict(zip(keys, vals))
-                grads = torch.autograd.grad(support_loss(th, step),
-                                            [th[k] for k in adapted],
-                                            create_graph=not first_order)
-                th = sgd_inner_update(th, dict(zip(adapted, grads)),
-                                      step_size, mask)
-                return tuple(th[k] for k in keys)
-            vals = tuple(theta[k] for k in keys)
-            vals = (checkpoint(_replaying(one, gen), *vals,
-                               use_reentrant=False) if remat
-                    else one(*vals))
-            theta = dict(zip(keys, vals))
-            continue
-        with torch.enable_grad():
-            leaves = {k: v.detach().requires_grad_(k in adapted)
-                      for k, v in theta.items()}
-            grads = torch.autograd.grad(support_loss(leaves, step),
-                                        [leaves[k] for k in adapted])
-        with torch.no_grad():
-            theta = sgd_inner_update(
-                {k: v.detach() for k, v in leaves.items()},
-                dict(zip(adapted, grads)), step_size, mask)
+        with span("inner.step"):
+            if differentiable:
+                def one(*vals, step=step):
+                    th = dict(zip(keys, vals))
+                    grads = torch.autograd.grad(support_loss(th, step),
+                                                [th[k] for k in adapted],
+                                                create_graph=not first_order)
+                    th = sgd_inner_update(th, dict(zip(adapted, grads)),
+                                          step_size, mask)
+                    return tuple(th[k] for k in keys)
+                vals = tuple(theta[k] for k in keys)
+                vals = (checkpoint(_replaying(one, gen), *vals,
+                                   use_reentrant=False) if remat
+                        else one(*vals))
+                theta = dict(zip(keys, vals))
+                continue
+            with torch.enable_grad():
+                leaves = {k: v.detach().requires_grad_(k in adapted)
+                          for k, v in theta.items()}
+                grads = torch.autograd.grad(support_loss(leaves, step),
+                                            [leaves[k] for k in adapted])
+            with torch.no_grad():
+                theta = sgd_inner_update(
+                    {k: v.detach() for k, v in leaves.items()},
+                    dict(zip(adapted, grads)), step_size, mask)
     return theta
 
 
@@ -200,7 +202,8 @@ def maml_episode_loss(apply_fn: Callable, params: Params, episode: Episode,
     theta = adapt(per_task(params, params.keys(), B), support_loss, n_steps,
                   step_size, differentiable=differentiable,
                   first_order=first_order, mask=adapt_mask, remat=remat)
-    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+    outer = differentiable and torch.is_grad_enabled()
+    with torch.set_grad_enabled(outer), span("inner.query"):
         return _outer(apply_fn(theta, episode.query_im), episode.query_y)
 
 
@@ -237,7 +240,8 @@ def fumi_episode_loss(model, params: Params, episode: Episode, *,
 
     theta = adapt(theta, support_loss, n_steps, step_size,
                   differentiable=differentiable, remat=remat, gen=gen)
-    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+    outer = differentiable and torch.is_grad_enabled()
+    with torch.set_grad_enabled(outer), span("inner.query"):
         q_logits = model.im_forward(theta, theta["hyper"], episode.query_im,
                                     train=train, gen=gen)
         return _outer(q_logits, episode.query_y)

@@ -29,6 +29,7 @@ import torch
 from fumi_tpu_torch.models import (RAW_IMAGE_ENCODERS,
                                    headless_backbone_init, layers,
                                    raw_image_net, text_encoders)
+from fumi_tpu_torch.utils.profiling import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -157,8 +158,9 @@ class FUMI:
                          gen: Optional[torch.Generator] = None
                          ) -> torch.Tensor:
         """(..., n_way, im_hid[-1]+1) generated head."""
-        class_enc = self.class_text_encoding(params, text, targets, gen)
-        return self.hyper_forward(params, class_enc)
+        with span("hypernet"):
+            class_enc = self.class_text_encoding(params, text, targets, gen)
+            return self.hyper_forward(params, class_enc)
 
     def im_base(self, im_params: Params, x: torch.Tensor, *, train: bool,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:

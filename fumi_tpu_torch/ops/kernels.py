@@ -37,9 +37,9 @@ The counterparts of ``fumi_tpu/ops/pallas_kernels.py``:
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version. The design and bound of each kernel are in its
 source's note. ``<wrapper>.launches`` counts kernel launches, so a run can
-show that its main path went through the kernel. While a ``torch.profiler``
-runs (``--tpu_profile_dir``), each wrapper's call is a range named after
-the wrapper on the trace.
+show that its main path went through the kernel. Each wrapper's call is
+a :func:`~fumi_tpu_torch.utils.profiling.span` named after the wrapper, a
+range on the trace while a ``torch.profiler`` runs (``--tpu_profile_dir``).
 """
 
 from __future__ import annotations
@@ -52,20 +52,7 @@ import torch
 
 from fumi_tpu_torch.models import mlp
 from fumi_tpu_torch.models.fumi import im_net_depth
-
-def _named(fn):
-    """``fn`` inside a profiler range of its own name while a profiler
-    runs; otherwise ``fn`` with one flag read more."""
-    name = fn.__name__
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        if torch.autograd._profiler_enabled():
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return fn(*args, **kwargs)
-    return wrapper
-
+from fumi_tpu_torch.utils.profiling import spanned
 
 # The fused kernel wins from this horizon on: on an NVIDIA H100 80GB HBM3
 # (700 W) a FuMI request (R=1, 100 queries) took 1.17 ms through the kernel
@@ -321,7 +308,7 @@ def _launch(who, w1, b1, w2, b2, head_w, head_b, head_strides, support_x,
     return out
 
 
-@_named
+@spanned
 def fused_adapt(w1, b1, w2, b2, head_w, head_b,
                 support_x: torch.Tensor, support_y: torch.Tensor,
                 query_x: torch.Tensor, n_steps: int,
@@ -410,7 +397,7 @@ def fused_maml_adapt_batched_reference(params: Dict[str, torch.Tensor],
                                  step_size)
 
 
-@_named
+@spanned
 def fused_maml_adapt_batched(params: Dict[str, torch.Tensor],
                              support_x: torch.Tensor, support_y: torch.Tensor,
                              query_x: torch.Tensor, n_steps: int,
@@ -512,7 +499,7 @@ def _check_gather(who: str, table: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError(f"{who} runs on cuda or cpu, not {table.device}")
 
 
-@_named
+@spanned
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row gather ``(R, D)[(M,)] -> (M, D)``, bitwise ``table[idx]``.
 
@@ -640,7 +627,7 @@ def _augment_library():
     return lib
 
 
-@_named
+@spanned
 def augment_embeddings(x: torch.Tensor, seed: torch.Tensor,
                        scale: float = 0.1, row_offset: int = 0
                        ) -> torch.Tensor:
@@ -713,7 +700,7 @@ def gather_augment_rows_reference(table: torch.Tensor, idx: torch.Tensor,
         row_offset)
 
 
-@_named
+@spanned
 def gather_augment_rows(table: torch.Tensor, idx: torch.Tensor,
                         seed: torch.Tensor, scale: float = 0.1,
                         row_offset: int = 0) -> torch.Tensor:
@@ -790,7 +777,7 @@ def gather_episode_rows_reference(table: torch.Tensor, rows: torch.Tensor,
             query.reshape(B, N * (P - K), D))
 
 
-@_named
+@spanned
 def gather_episode_rows(table: torch.Tensor, rows: torch.Tensor,
                         num_shots: int, seed: Optional[torch.Tensor] = None,
                         scale: float = 0.0

@@ -97,6 +97,7 @@ from fumi_tpu_torch.train.optim import init_optim
 from fumi_tpu_torch.train.steps import (build_family, image_embedder,
                                         image_prototypes, make_opt,
                                         plain_full_gd_adaptation)
+from fumi_tpu_torch.utils.profiling import span
 
 
 class RequestError(ValueError):
@@ -160,21 +161,22 @@ def _prep_batched_request(cfg, prep_text, support_im, support_y, query_im,
     ``(R, M, support_im, support_y, support_text, query_im, seeds)`` with
     the arrays padded to the bucket sizes and ``R``/``M`` the true counts
     (callers slice outputs back with ``[:R, :M]``)."""
-    _check_support_y(cfg, support_y)
-    support_im = np.asarray(support_im, dtype=np.float32)
-    support_y = np.asarray(support_y, dtype=np.int32)
-    R = support_im.shape[0]
-    if R == 0:
-        raise RequestError("request has no episodes (support_im is "
-                           "empty along the episode axis)")
-    support_text = prep_text(support_text, R, support_im.shape[1])
-    M, query_im = _bucket_queries(query_im, axis=1, enabled=bucket_m)
-    r_pad = max(1, 1 << (R - 1).bit_length())
-    if dp > 1:
-        r_pad = ((r_pad + dp - 1) // dp) * dp
-    seeds = [episode_seed(seed, r) for r in range(r_pad)]
-    return (R, M) + _pad_episodes(r_pad, support_im, support_y,
-                                  support_text, query_im) + (seeds,)
+    with span("serve.checks"):
+        _check_support_y(cfg, support_y)
+        support_im = np.asarray(support_im, dtype=np.float32)
+        support_y = np.asarray(support_y, dtype=np.int32)
+        R = support_im.shape[0]
+        if R == 0:
+            raise RequestError("request has no episodes (support_im is "
+                               "empty along the episode axis)")
+        support_text = prep_text(support_text, R, support_im.shape[1])
+        M, query_im = _bucket_queries(query_im, axis=1, enabled=bucket_m)
+        r_pad = max(1, 1 << (R - 1).bit_length())
+        if dp > 1:
+            r_pad = ((r_pad + dp - 1) // dp) * dp
+        seeds = [episode_seed(seed, r) for r in range(r_pad)]
+        return (R, M) + _pad_episodes(r_pad, support_im, support_y,
+                                      support_text, query_im) + (seeds,)
 
 
 def _check_support_y(cfg: Config, support_y) -> None:
@@ -505,8 +507,10 @@ class FewShotClassifier:
             adapt_fn, classify_fn = self._engine_fns()
 
             def fn(p, s_im, s_y, q_im, s_text, seeds):
-                state = adapt_fn(p, s_im, s_text, s_y, seeds)
-                return classify_fn(p, state, q_im)
+                with span("serve.adapt"):
+                    state = adapt_fn(p, s_im, s_text, s_y, seeds)
+                with span("serve.classify"):
+                    return classify_fn(p, state, q_im)
         return fn
 
     def _run_episodes(self, fn, s_im, s_y, q_im, s_text, seeds,
@@ -515,13 +519,16 @@ class FewShotClassifier:
         dp ranks' logits concatenated in rank order."""
         dev = self.device
         with torch.no_grad():
-            out = fn(self.params, _tensor(s_im, np.float32, dev),
-                     _tensor(s_y, np.int32, dev),
-                     _tensor(q_im, np.float32, dev),
-                     _tensor(s_text, self.text_dtype, dev), seeds)
+            with span("serve.to_device"):
+                args = (_tensor(s_im, np.float32, dev),
+                        _tensor(s_y, np.int32, dev),
+                        _tensor(q_im, np.float32, dev),
+                        _tensor(s_text, self.text_dtype, dev))
+            out = fn(self.params, *args, seeds)
         if mesh is not None:
             out = all_gather_cat(out, mesh.dp_group, dim=0, gloo=mesh.gloo)
-        return out.cpu().numpy()
+        with span("serve.to_host"):
+            return out.cpu().numpy()
 
     def _episode_request(self, s_im, s_y, q_im, s_text, seeds,
                          mesh: Optional[Mesh] = None):
@@ -563,16 +570,19 @@ class FewShotClassifier:
         call: support_im (NK, D), support_y (NK,), query_im (M, D) ->
         (M, N) logits (host numpy). This episode's generator seed is
         ``seed`` itself."""
-        _check_support_y(self.cfg, support_y)
-        support_im = np.asarray(support_im, dtype=np.float32)
-        support_y = np.asarray(support_y, dtype=np.int32)
-        support_text = self._prep_text(support_text, support_im.shape[0])
-        M, query_im = _bucket_queries(query_im, axis=0,
-                                      enabled=self._bucket_m)
-        out = self._episode_request(support_im[None], support_y[None],
-                                    query_im[None], support_text[None],
-                                    [int(seed)])
-        return out[0, :M]
+        with span("serve.request"):
+            with span("serve.checks"):
+                _check_support_y(self.cfg, support_y)
+                support_im = np.asarray(support_im, dtype=np.float32)
+                support_y = np.asarray(support_y, dtype=np.int32)
+                support_text = self._prep_text(support_text,
+                                               support_im.shape[0])
+                M, query_im = _bucket_queries(query_im, axis=0,
+                                              enabled=self._bucket_m)
+            out = self._episode_request(support_im[None], support_y[None],
+                                        query_im[None], support_text[None],
+                                        [int(seed)])
+            return out[0, :M]
 
     def episode_logits_batch(self, support_im, support_y, query_im,
                              support_text=None, seed: int = 0) -> np.ndarray:
@@ -587,25 +597,27 @@ class FewShotClassifier:
         episodes and their seeds (episode ``r`` keeps ``episode_seed(seed,
         r)`` on whichever rank runs it), and every rank returns the whole
         answer. A rank off the mesh raises ``ValueError``."""
-        mesh = self.mesh
-        if mesh is not None and not mesh.member:
-            raise ValueError(
-                f"rank {mesh.rank} is not on the ({mesh.dp}x{mesh.mp}) mesh "
-                f"(its first {mesh.size} ranks serve a sharded request)")
-        R, M, support_im, support_y, support_text, query_im, seeds = \
-            _prep_batched_request(self.cfg, self._prep_text, support_im,
-                                  support_y, query_im, support_text, seed,
-                                  dp=1 if mesh is None else mesh.dp,
-                                  bucket_m=self._bucket_m)
-        if mesh is not None:
-            part = episode_shard(mesh, len(seeds))
-            support_im, support_y, support_text, query_im = (
-                x[part] for x in (support_im, support_y, support_text,
-                                  query_im))
-            seeds = seeds[part]
-        out = self._episode_request(support_im, support_y, query_im,
-                                    support_text, seeds, mesh)
-        return out[:R, :M]
+        with span("serve.request"):
+            mesh = self.mesh
+            if mesh is not None and not mesh.member:
+                raise ValueError(
+                    f"rank {mesh.rank} is not on the ({mesh.dp}x{mesh.mp}) "
+                    f"mesh (its first {mesh.size} ranks serve a sharded "
+                    "request)")
+            R, M, support_im, support_y, support_text, query_im, seeds = \
+                _prep_batched_request(self.cfg, self._prep_text, support_im,
+                                      support_y, query_im, support_text, seed,
+                                      dp=1 if mesh is None else mesh.dp,
+                                      bucket_m=self._bucket_m)
+            if mesh is not None:
+                part = episode_shard(mesh, len(seeds))
+                support_im, support_y, support_text, query_im = (
+                    x[part] for x in (support_im, support_y, support_text,
+                                      query_im))
+                seeds = seeds[part]
+            out = self._episode_request(support_im, support_y, query_im,
+                                        support_text, seeds, mesh)
+            return out[:R, :M]
 
     # ------------------------------------------------------------------
     # Stateful pair

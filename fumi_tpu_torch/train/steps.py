@@ -68,6 +68,7 @@ from fumi_tpu_torch.ops import fewshot, kernels
 from fumi_tpu_torch.ops import metrics as metrics_ops
 from fumi_tpu_torch.train import optim
 from fumi_tpu_torch.train import watch as watch_lib
+from fumi_tpu_torch.utils.profiling import span
 
 
 class Family(NamedTuple):
@@ -562,10 +563,12 @@ def value_and_grad(family: Family, params, episode, gen,
     ``parallel/pjit_engine.py``)."""
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
     with torch.enable_grad():
-        loss, aux = family.train_loss(
-            leaves if prepare is None else prepare(leaves), episode, gen)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
+        with span("train.loss"):
+            loss, aux = family.train_loss(
+                leaves if prepare is None else prepare(leaves), episode, gen)
+        with span("train.meta_grad"):
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
     grads = {k: torch.zeros_like(v) if g is None else g
              for (k, v), g in zip(leaves.items(), grads)}
     # aux leaves (AM3's avg_lamda) must not keep the step's graph alive
@@ -686,11 +689,13 @@ def _step_and_grads(family: Family, opt: optim.Optimizer, params, opt_state,
     grad_fn = grad_fn or accum_value_and_grad(family, 1)
     (loss, aux), grads = grad_fn(params, episode, gen)
     with torch.no_grad():
-        updates, opt_state = opt.update(grads, opt_state, params)
-        new_params = optim.apply_updates(params, updates)
+        with span("train.update"):
+            updates, opt_state = opt.update(grads, opt_state, params)
+            new_params = optim.apply_updates(params, updates)
         if debug_step is not None:
             check_finite(debug_step, loss, grads, new_params)
-        metrics = _train_metrics(family, loss, aux, episode, grads)
+        with span("train.step_metrics"):
+            metrics = _train_metrics(family, loss, aux, episode, grads)
     return new_params, opt_state, metrics, grads
 
 
@@ -821,14 +826,16 @@ def make_chunked_train(family: Family, opt: optim.Optimizer, sampler,
         stride = max(1, min(watch_lib.WATCH_STRIDE, n)) if watch else 0
         per_step, counts = [], []
         for j in range(n):
-            episode = sampler.sample(gen)
-            params, opt_state, m, grads = _step_and_grads(
-                family, opt, params, opt_state, episode, gen,
-                first_step + j if debug_nans else None, grad_fn)
-            per_step.append(m)
-            if stride and (j + 1) % stride == 0:
-                counts.append(watch_lib.grad_histogram_metrics(
-                    grads, family.name))
+            with span("train.step"):
+                with span("train.sample"):
+                    episode = sampler.sample(gen)
+                params, opt_state, m, grads = _step_and_grads(
+                    family, opt, params, opt_state, episode, gen,
+                    first_step + j if debug_nans else None, grad_fn)
+                per_step.append(m)
+                if stride and (j + 1) % stride == 0:
+                    counts.append(watch_lib.grad_histogram_metrics(
+                        grads, family.name))
         ms = _stack(per_step)
         ms.update(_stack(counts))
         return params, opt_state, gen, ms

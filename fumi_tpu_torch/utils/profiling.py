@@ -1,4 +1,5 @@
-"""Device-memory metrics, the episodes/s counter and the trace switch.
+"""Device-memory metrics, the episodes/s counter, the trace switch and the
+spans that name the port's phases on a trace.
 
 The counterpart of ``fumi_tpu/utils/profiling.py``:
 
@@ -11,21 +12,82 @@ The counterpart of ``fumi_tpu/utils/profiling.py``:
 - :func:`profile_trace`: ``--tpu_profile_dir``, a ``torch.profiler``
   trace of the run's CPU and (on a card) CUDA activity, written as a
   Chrome trace JSON into the directory (open it in Perfetto or
-  ``chrome://tracing``). The kernel wrappers of ``ops/kernels.py`` open a
-  range named after themselves while a profiler runs, so the timeline
-  names ``gather_episode_rows``, ``fused_adapt`` and the others above the
-  CUDA kernels they launch.
+  ``chrome://tracing``);
+- :func:`span` and :func:`spanned`: a ``torch.profiler.record_function``
+  range while a profiler runs, and nothing but one flag read otherwise.
+  A range lands on the profiler's host timeline, which the profiler
+  aligns with the device's activity, so a trace puts each kernel and each
+  idle stretch of the card under the phase that was running on the host.
+  Spans read no flag, variable or option of their own: they are on
+  exactly while a profiler runs, and they change no computation.
+
+The spans, by name (nesting gives the parent):
+
+- ``serve.request``: one ``FewShotClassifier.episode_logits`` or
+  ``episode_logits_batch`` call, the root of a request;
+- ``serve.checks``: the request's validation and shaping, the label
+  check, the array coercions, the text, the power-of-two query (and
+  episode) padding;
+- ``serve.to_device``: the request's host-to-device copies, made before
+  the episode function runs;
+- ``hypernet``: ``FUMI.get_hyper_params``, the text hypernetwork (served
+  and trained);
+- ``serve.adapt``, ``serve.classify``: the autograd engine's adaptation
+  and classification, where the fused kernel does not serve;
+- ``serve.to_host``: the logits' wait and copy back to the host;
+- ``train.step``: one step of ``train/steps.py:make_chunked_train``, the
+  root of a step;
+- ``train.sample``: the step's episode from the sampler;
+- ``train.loss``: the family's training loss, the forward of the step;
+- ``inner.step``: one inner SGD step of ``metalearn/inner_loop.py:adapt``
+  (forward, inner gradient, update), with or without an outer graph;
+- ``inner.query``: the query forward and the outer loss after the inner
+  loop;
+- ``train.meta_grad``: the outer backward, ``torch.autograd.grad`` of the
+  loss;
+- ``train.update``: the optimizer's update and its application;
+- ``train.step_metrics``: the step's metrics (loss, accuracy, the
+  gradient norms);
+- each kernel wrapper of ``ops/kernels.py`` (``fused_adapt``,
+  ``fused_maml_adapt_batched``, ``gather_rows``, ``augment_embeddings``,
+  ``gather_augment_rows``, ``gather_episode_rows``), by :func:`spanned`,
+  above the CUDA kernel it launches.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+
+# what span returns while no profiler runs: one object, built once
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``name`` while a profiler runs (a
+    ``torch.profiler.record_function``); otherwise one shared null
+    context, so a span costs one flag read and builds nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def spanned(fn: Callable) -> Callable:
+    """``fn`` inside a :func:`span` of its own name."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with span(name):
+            return fn(*args, **kwargs)
+    return wrapper
 
 
 @contextlib.contextmanager
