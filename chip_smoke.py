@@ -10,7 +10,8 @@ fails:
 2. build every CUDA kernel of the port from ``fumi_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, all at once), print ``ptxas``'s
    registers and spills, and the cluster plan of the fused adaptation
-   kernel (blocks per task, shared memory, where W1 lives, how many such
+   kernel (blocks per task, shared memory, the depth of its W1 tiles and
+   its query chunks, where a block's private buffers live, how many such
    clusters the card holds at once);
 3. hold each kernel wrapper against its plain PyTorch version on the card,
    at the shapes the flagship paths give it, with TF32 off:
@@ -733,8 +734,10 @@ def print_plans(dev) -> None:
         plan = kernels.device_plan(dev.index, (b, S, qn, D, H1, H2, WAYS))
         print(f"fused_adapt plan [{label}]: C={plan.C} blocks per task "
               f"({b * plan.C} blocks), {plan.cols} columns of D a block, "
-              f"W1 slice in {plan.w1} memory, {plan.smem_bytes} B of shared "
-              f"memory a block; cudaOccupancyMaxActiveClusters "
+              f"W1 tiles of {plan.tile_k} rows, queries {plan.query_rows} "
+              f"rows a chunk, private buffers in {plan.private} memory, "
+              f"{plan.smem_bytes} B of shared memory a block; "
+              f"cudaOccupancyMaxActiveClusters "
               f"{kernels.active_clusters(dev.index, plan.C, plan.smem_bytes)}")
 
 

@@ -7,7 +7,9 @@ The counterparts of ``fumi_tpu/ops/pallas_kernels.py``:
   small dependent products. One launch of ``csrc/fused_adapt.cu`` runs the
   whole adaptation of the 2-hidden-layer MLP plus its per-task head, and
   the query forward, each task on one thread-block cluster
-  (:func:`fused_adapt_plan`). Plain version: :func:`fused_adapt_reference`,
+  (:func:`fused_adapt_plan`), in the support set's Gram form: W1 is never
+  formed, its change is carried as ``P``, the sum of the steps' dr1.
+  Plain version: :func:`fused_adapt_reference`,
   the same hand-derived loop written with ``torch.matmul``.
 - :func:`fused_maml_adapt_batched`: the same function for MAML's B tasks
   that share one head, through the same kernel with the head at a task
@@ -158,12 +160,14 @@ def fused_adapt_reference(w1, b1, w2, b2, head_w, head_b,
     return forward(query_x)[-1]
 
 
-# The launch plan of csrc/fused_adapt.cu. The tile constants and
-# _smem_bytes follow the source's kRows, kCols, kUpdK, kMaxCluster and
-# layout(); its launch function recomputes the layout and refuses a plan
+# The launch plan of csrc/fused_adapt.cu. The tile constants and _layout
+# follow the source's kRows, kCols, kQueryRows, kGroupCols, kMaxCluster and
+# make_dims(); its launch function recomputes the layout and refuses a plan
 # that does not match it.
-_ROWS, _COLS, _UPD_K = 4, 8, 8
+_ROWS, _COLS, QUERY_ROWS, _GROUP_COLS = 4, 8, 32, 256
 MAX_CLUSTER = 16
+# rows of the W1 tiles the D-deep passes stage, the deepest that fits first
+TILE_K = (32, 16, 8)
 # below this many D columns a block, its SM would mostly wait at the
 # cluster barriers: the plan takes a smaller cluster instead
 MIN_BLOCK_COLS = 32
@@ -171,11 +175,15 @@ MIN_BLOCK_COLS = 32
 
 class FusedAdaptPlan(NamedTuple):
     """How the kernel spreads a task: ``C`` blocks (one cluster) of
-    ``cols`` columns of D each, the W1 slice in ``"shared"`` or
-    ``"device"`` memory, ``smem_bytes`` of shared memory a block."""
+    ``cols`` columns of D each, W1 staged ``tile_k`` rows of the slice at a
+    time, the queries ``query_rows`` at a time, a block's private buffers
+    in ``"shared"`` or ``"device"`` memory, ``smem_bytes`` of shared
+    memory a block."""
     C: int
     cols: int
-    w1: str
+    tile_k: int
+    query_rows: int
+    private: str
     smem_bytes: int
 
 
@@ -183,20 +191,21 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _w1_slice_floats(D: int, H1: int, C: int) -> int:
-    """One block's k-major W1 slice: its rows padded to whole update
-    tiles, its row stride to whole column tiles plus 4."""
-    return _round_up(-(-D // C), _UPD_K) * (_round_up(H1, _COLS) + 4)
-
-
-def _smem_bytes(S, D, H1, H2, N, C, w1_smem: bool) -> int:
-    SP, DP = _round_up(S, _ROWS), _round_up(-(-D // C), _UPD_K)
-    LH, H2P = _round_up(H1, _COLS) + 4, _round_up(H2, 4)
+def _layout(S, D, H1, H2, N, C, tile_k, query_rows) -> Tuple[int, int]:
+    """A block's bytes of the source's shared segments (what the cluster's
+    blocks exchange, and the W1 tiles) and of its private ones, each
+    segment padded to 16 bytes."""
+    SP, DP = _round_up(S, _ROWS), _round_up(-(-D // C), tile_k)
+    AP, LG = max(SP, query_rows), min(_round_up(H1, _COLS), _GROUP_COLS) + 4
+    H2P, RG = _round_up(H2, 4), -(-AP // C)
     HC, JC = _round_up(-(-H1 // C), 4), _round_up(-(-H2 // C), 4)
-    sizes = (DP * SP, C * SP * HC, SP * LH, SP * HC, SP * HC, C * SP * JC,
-             SP * H2P, SP * N, HC * (H2P + 4), HC, H2P, N * H2P, N, SP,
-             _w1_slice_floats(D, H1, C) if w1_smem else 0)
-    return 4 * sum(_round_up(n, 4) for n in sizes)
+    shared = (2 * tile_k * LG, max(C * AP * max(HC, JC), 2 * RG * SP),
+              AP * (H2P + 4), 4)
+    private = (DP * SP, DP * query_rows, AP * HC, AP * HC, SP * HC, SP * H2P,
+               SP * N, SP * N, HC * (H2P + 4), HC, H2P, N * (H2P + 4), N, SP,
+               2 * AP * SP, 2 * SP * HC)
+    return tuple(4 * sum(_round_up(n, 4) for n in sizes)
+                 for sizes in (shared, private))
 
 
 def fused_adapt_plan(dims: Tuple[int, ...], smem_optin: int,
@@ -208,18 +217,26 @@ def fused_adapt_plan(dims: Tuple[int, ...], smem_optin: int,
     C is the largest cluster the card schedules (16 at most) that leaves
     each block ``MIN_BLOCK_COLS`` columns of D; a block owns ``cols =
     ceil(D / C)`` of them (the last one fewer where C does not divide D).
-    The W1 slice lives in shared memory where it fits beside the
-    activations, else in device memory. Raises where not even the
-    activations fit."""
+    The queries go ``QUERY_ROWS`` at a time, or as many as the support
+    rows where fewer fit, and the W1 tiles are the deepest of ``TILE_K``
+    that fits. A block's private buffers stay in shared memory where some
+    such choice lets them, else they go to device memory. Raises where not
+    even the exchanged buffers and the tiles fit."""
     B, S, Qn, D, H1, H2, N = dims
     C = max(1, min(MAX_CLUSTER, max_cluster, D // MIN_BLOCK_COLS))
-    for w1 in ("shared", "device"):
-        nbytes = _smem_bytes(S, D, H1, H2, N, C, w1 == "shared")
-        if nbytes <= smem_optin:
-            return FusedAdaptPlan(C, -(-D // C), w1, nbytes)
+    SP = _round_up(S, _ROWS)
+    options = [(q, t) for q in dict.fromkeys((QUERY_ROWS, min(SP, QUERY_ROWS)))
+               for t in TILE_K]
+    for private in ("shared", "device"):
+        for query_rows, tile_k in options:
+            shared, own = _layout(S, D, H1, H2, N, C, tile_k, query_rows)
+            nbytes = shared + (own if private == "shared" else 0)
+            if nbytes <= smem_optin:
+                return FusedAdaptPlan(C, -(-D // C), tile_k, query_rows,
+                                      private, nbytes)
     raise RuntimeError(
         f"fused_adapt: no launch fits the card (B={B} S={S} Qn={Qn} D={D} "
-        f"H1={H1} H2={H2} N={N}): the activations alone need {nbytes} "
+        f"H1={H1} H2={H2} N={N}): what the blocks exchange needs {nbytes} "
         f"bytes of shared memory a block at {C} blocks per task, the card "
         f"gives a block {smem_optin}")
 
@@ -231,9 +248,10 @@ def _library():
     lib = _build.load("fused_adapt")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fused_adapt_launch.argtypes = (
-        [ptr] * 11 + [i64] * 2 + [i32] * 10 + [i64, i32, ctypes.c_float, ptr])
+        [ptr] * 11 + [i64] * 2 + [i32] * 12
+        + [i64, i64, i32, ctypes.c_float, ptr])
     lib.fused_adapt_launch.restype = i32
-    lib.fused_adapt_smem_bytes.argtypes = [i32] * 7
+    lib.fused_adapt_smem_bytes.argtypes = [i32] * 9
     lib.fused_adapt_smem_bytes.restype = i64
     lib.fused_adapt_card_limits.argtypes = [ptr, ptr]
     lib.fused_adapt_card_limits.restype = i32
@@ -292,15 +310,19 @@ def _launch(who, w1, b1, w2, b2, head_w, head_b, head_strides, support_x,
     dev = support_x.device
     plan = device_plan(dev.index, dims)
     out = torch.empty((B, Qn, N), dtype=torch.float32, device=dev)
-    scratch = torch.empty(
-        (B * plan.C * _w1_slice_floats(D, H1, plan.C)
-         if plan.w1 == "device" else 1,), dtype=torch.float32, device=dev)
+    # the blocks' private buffers, where they are not in shared memory
+    floats, scratch = 0, None
+    if plan.private == "device":
+        floats = B * plan.C * _layout(S, D, H1, H2, N, plan.C, plan.tile_k,
+                                      plan.query_rows)[1] // 4
+        scratch = torch.empty((floats,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [t.data_ptr() for t in tensors + (out, scratch)]
+    ptrs = [t.data_ptr() for t in tensors + (out,)]
+    ptrs.append(None if scratch is None else scratch.data_ptr())
     err = _library().fused_adapt_launch(
         *ptrs, *head_strides, B, S, Qn, D, H1, H2, N, plan.C, plan.cols,
-        int(plan.w1 == "shared"), plan.smem_bytes, int(n_steps),
-        float(step_size), stream)
+        plan.tile_k, plan.query_rows, int(plan.private == "device"),
+        plan.smem_bytes, floats, int(n_steps), float(step_size), stream)
     if err != 0:
         raise RuntimeError(
             f"{who} kernel launch failed with CUDA error {err} (B={B} S={S} "

@@ -26,14 +26,12 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(HERE, "fumi_tpu_torch", "csrc", "fused_adapt.cu")
 
-# the boundaries the stamps go after, in the order a step meets them
-LABELS = ("logits of a row", "softmax max and sum", "g", "dr2",
-          "dr1 of the own columns", "dr1 pushed",
-          "layer-1 partial, pushed", "(block sync)", "cluster barrier 1",
-          "a1 sum", "partial a2, pushed", "cluster barrier 2",
-          "a2 own columns, pushed", "cluster barrier 3", "(rows: rest)",
-          "W3, W2, b1, b2, b3 updates", "cluster barrier 4 (wait)",
-          "(block sync)", "W1 update", "(block sync)")
+# the boundaries the stamps go after, in the order of the stamps: the
+# stages of adapt_step, then the two exchanges of forward_a2
+LABELS = ("a1 from G P, r1", "logits", "g", "dr2",
+          "dr1 of the own columns, P", "W3, W2, b1, b2, b3 updates",
+          "partial a2, pushed", "exchange 1: the partials' arrival",
+          "a2 own columns, pushed", "exchange 2: r2's arrival")
 
 HEADER = """
 __device__ long long g_phase[64];
@@ -53,18 +51,6 @@ def instrument(src: str) -> tuple:
         count[0] += 1
         return f"STAMP({count[0] - 1});"
 
-    # inside the per-row loop of a step: after each warp sync, and at the
-    # loop's end
-    row = src.index("  for (int s = tid / kRowLanes; s < S;")
-    end = src.index("  __syncthreads();", row)
-    parts = src[row:end].split("    __syncwarp(gmask);\n")
-    body = parts[0]
-    for part in parts[1:]:
-        body += f"    __syncwarp(gmask);\n    {stamp()}\n" + part
-    body = body.rstrip()
-    body = body[:-1] + f"  {stamp()}\n  }}\n"
-    src = src[:row] + body + src[end:]
-
     def function(name: str, text: str) -> str:
         i = text.index("{", text.index(name + "("))
         depth, j = 0, i
@@ -77,36 +63,36 @@ def instrument(src: str) -> tuple:
         for line in text[i:j].split("\n"):
             s = line.strip()
             top = line.startswith("  ") and not line.startswith("   ")
-            if top and s == "cluster.sync();":
+            if top and (s == "cluster.sync();" or s.startswith("mbar_wait(")):
                 out += [f"  __syncthreads(); {stamp()}", line, f"  {stamp()}"]
-            elif top and s.startswith("asm volatile(\"barrier.cluster.wait"):
-                out += [f"  {stamp()}", line, f"  {stamp()}"]
-            elif top and s.startswith(("layer1_partial(", "w1_update(")):
-                out += [line, f"  __syncthreads(); {stamp()}"]
             elif top and s == "__syncthreads();":
                 out += [line, f"  {stamp()}"]
             else:
                 out.append(line)
         return text[:i] + "\n".join(out) + text[j:]
 
-    src = function("forward_to_r2", src)
     src = function("adapt_step", src)
+    # the exchanges of a step are forward_a2's (it also runs for the
+    # queries, after the stamps are read)
+    i = src.index("__device__ void forward_a2(")
+    j = src.index("// sum_s a[s * sa]", i)
+    src = src[:i] + function("forward_a2", src[i:j]) + src[j:]
     src = src.replace("namespace {\n", "namespace {\n" + HEADER, 1)
-    loop = "  for (int it = 0; it < d.n_steps; ++it)"
-    src = src.replace(loop, "  if (threadIdx.x == 0) {\n"
-                      "    for (int i = 0; i < 64; ++i) s_phase[i] = 0;\n"
-                      "    s_last = clock64();\n  }\n  __syncthreads();\n"
-                      + loop, 1)
+    loop = "    for (int it = 0; it < d.n_steps; ++it)"
+    src = src.replace(loop, "    if (threadIdx.x == 0) {\n"
+                      "      for (int i = 0; i < 64; ++i) s_phase[i] = 0;\n"
+                      "      s_last = clock64();\n    }\n"
+                      "    __syncthreads();\n" + loop, 1)
     src = src.replace("  // the queries through the adapted weights",
                       "  if (threadIdx.x == 0 && blockIdx.x == 0)\n"
                       "    for (int i = 0; i < 64; ++i) g_phase[i] = "
                       "s_phase[i];\n"
                       "  // the queries through the adapted weights", 1)
     # the stamps' static shared memory comes off the card's opt-in limit
-    src = src.replace("err = set_attributes<true>(*smem_optin);",
+    src = src.replace("err = set_attributes(*smem_optin);",
                       "*smem_optin -= 1024;\n"
                       "  if (err == cudaSuccess) "
-                      "err = set_attributes<true>(*smem_optin);", 1)
+                      "err = set_attributes(*smem_optin);", 1)
     src += ('\nextern "C" int fused_adapt_phases(long long* out) {\n'
             "  return (int)cudaMemcpyFromSymbol(out, g_phase, "
             "sizeof(long long) * 64);\n}\n")

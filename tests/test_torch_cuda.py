@@ -47,8 +47,11 @@ def cuda_device():
 # (S, H1, H2 not multiples of the tiles), D=300 a cluster of 9 blocks whose
 # last owns fewer columns, S > 32 more rows than one query chunk; B = 1, 4,
 # 8 and 16 at the flagship widths run in one and in several waves of
-# 16-block clusters; D=4096 puts the W1 slices in device memory; 0 steps
-# is the forward alone
+# 16-block clusters; D=4096 gives a block 256 columns; 264 and 1024 and
+# 2048 hidden units take W1 two, four and eight column groups at a time,
+# 2048 over 5 support rows with query chunks of 8 rows; 64 support rows at
+# D=4096, 4096 hidden units and 125 support rows keep the blocks' private
+# buffers in device memory; 0 steps is the forward alone
 SHAPES = [(3, 37, 50, 64, 32, 16, 5, 20),
           (2, 25, 100, 300, 264, 20, 7, 10),
           (1, 6, 3, 16, 8, 8, 3, 0),
@@ -57,6 +60,11 @@ SHAPES = [(3, 37, 50, 64, 32, 16, 5, 20),
           (8, 25, 100, 2048, 256, 64, 5, 5),
           (16, 25, 100, 2048, 256, 64, 5, 3),
           (2, 25, 50, 4096, 256, 64, 5, 5),
+          (2, 5, 20, 2048, 1024, 64, 5, 10),
+          (1, 5, 100, 2048, 2048, 64, 5, 10),
+          (2, 64, 40, 4096, 256, 64, 5, 5),
+          (1, 5, 30, 2048, 4096, 64, 5, 5),
+          (1, 125, 40, 2048, 64, 32, 5, 5),
           (4, 25, 100, 2048, 256, 64, 5, 0)]
 
 
@@ -80,8 +88,9 @@ def _inputs(cuda_device, shape, seed):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_kernel_matches_reference(cuda_device, shape):
     """Per-task heads. fp32 on both sides; the kernel sums the D-deep
-    products in C partial sums and the plain version in cuBLAS's order,
-    and the steps carry the difference forward, hence 1e-4."""
+    products in C partial sums and carries W1's change in the Gram form,
+    the plain version sums in cuBLAS's order and updates W1, and the steps
+    carry the difference forward, hence 1e-4."""
     steps = shape[-1]
     p, sx, sy, qx, head_w, head_b = _inputs(cuda_device, shape, 0)
     args = (p["net.lin_0.weight"], p["net.lin_0.bias"],
@@ -98,47 +107,124 @@ def test_kernel_matches_reference(cuda_device, shape):
 
 
 def test_plan_on_the_card(cuda_device):
-    """The card schedules the flagship's 16-block cluster with the W1
-    slice in shared memory; the source's layout gives the plan's bytes;
-    D=4096 moves the W1 slices to device memory."""
+    """The card schedules the flagship's 16-block cluster with W1 tiles of
+    32 rows; the source's layout gives the plan's bytes; D=4096 takes the
+    same cluster with 256 columns a block."""
     optin, max_cluster = kernels.card_limits(torch.cuda.current_device())
     flagship = (4, 25, 100, 2048, 256, 64, 5)
     plan = kernels.fused_adapt_plan(flagship, optin, max_cluster)
-    assert (plan.C, plan.cols, plan.w1) == (16, 128, "shared")
+    assert (plan.C, plan.cols, plan.tile_k) == (16, 128, 32)
     assert kernels.active_clusters(torch.cuda.current_device(), plan.C,
                                    plan.smem_bytes) >= 4
     lib = kernels._library()
     for dims in (flagship, (3, 37, 50, 64, 32, 16, 5),
-                 (2, 25, 100, 300, 264, 20, 7), (2, 25, 50, 4096, 256, 64, 5)):
+                 (2, 25, 100, 300, 264, 20, 7), (2, 25, 50, 4096, 256, 64, 5),
+                 (1, 64, 100, 2048, 256, 64, 10),
+                 (1, 5, 100, 2048, 2048, 64, 5),
+                 (1, 64, 100, 4096, 256, 64, 5)):
         plan = kernels.fused_adapt_plan(dims, optin, max_cluster)
         B, S, Qn, D, H1, H2, N = dims
-        assert lib.fused_adapt_smem_bytes(S, D, H1, H2, N, plan.C,
-                                          int(plan.w1 == "shared")) \
-            == plan.smem_bytes
+        assert lib.fused_adapt_smem_bytes(
+            S, D, H1, H2, N, plan.C, plan.tile_k, plan.query_rows,
+            int(plan.private == "device")) == plan.smem_bytes
     assert kernels.fused_adapt_plan((2, 25, 50, 4096, 256, 64, 5), optin,
-                                    max_cluster).w1 == "device"
+                                    max_cluster)[:2] == (16, 256)
 
 
 def test_kernel_refuses_a_plan_that_does_not_match(cuda_device):
     """The C side recomputes the layout and returns cudaErrorInvalidValue
-    (1) for a plan whose bytes or columns are not its own."""
+    (1) for a plan whose bytes, columns, tile depth or query chunk are not
+    its own, or whose private buffers go to a device-memory scratch buffer
+    too small for them."""
     p, sx, sy, qx, head_w, head_b = _inputs(cuda_device,
                                             (1, 6, 3, 16, 8, 8, 3, 1), 0)
     out = torch.empty(1, 3, 3, device=cuda_device)
     stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [t.data_ptr() for t in (sx, sy, qx, p["net.lin_0.weight"],
-                                   p["net.lin_0.bias"], p["net.lin_1.weight"],
-                                   p["net.lin_1.bias"], head_w, head_b, out,
-                                   out)]
     plan = kernels.fused_adapt_plan((1, 6, 3, 16, 8, 8, 3),
                                     *kernels.card_limits(
                                         torch.cuda.current_device()))
+    shared, own = kernels._layout(6, 16, 8, 8, 3, plan.C, plan.tile_k,
+                                  plan.query_rows)
+    scratch = torch.empty(own // 4 - 1, device=cuda_device)
+    ptrs = [t.data_ptr() for t in (sx, sy, qx, p["net.lin_0.weight"],
+                                   p["net.lin_0.bias"], p["net.lin_1.weight"],
+                                   p["net.lin_1.bias"], head_w, head_b, out,
+                                   scratch)]
     lib = kernels._library()
-    for C, cols, nbytes in ((plan.C, plan.cols, plan.smem_bytes + 16),
-                            (plan.C, plan.cols + 1, plan.smem_bytes),
-                            (17, 1, plan.smem_bytes)):
+    q = plan.query_rows
+    for C, cols, tile_k, rows, private, nbytes in (
+            (plan.C, plan.cols, plan.tile_k, q, 0, plan.smem_bytes + 16),
+            (plan.C, plan.cols + 1, plan.tile_k, q, 0, plan.smem_bytes),
+            (plan.C, plan.cols, 12, q, 0, plan.smem_bytes),
+            (plan.C, plan.cols, plan.tile_k, 6, 0, plan.smem_bytes),
+            (17, 1, plan.tile_k, q, 0, plan.smem_bytes),
+            (plan.C, plan.cols, plan.tile_k, q, 1, shared)):
         assert lib.fused_adapt_launch(*ptrs, 24, 3, 1, 6, 3, 16, 8, 8, 3, C,
-                                      cols, 1, nbytes, 1, 0.05, stream) == 1
+                                      cols, tile_k, rows, private, nbytes,
+                                      scratch.numel(), 1, 0.05, stream) == 1
+
+
+KERNEL_NAME = "(anonymous namespace)::fused_adapt_kernel<"
+
+
+def test_served_request_is_one_kernel(cuda_device):
+    """A profiled ``episode_logits`` call launches exactly one kernel of
+    ``csrc/fused_adapt.cu``, under the name the benchmark's readers look
+    for (``benchmark/metrics/fused_adapt_roofline.serve.py``)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = Config(model="fumi", dataset="synthetic", im_emb_dim=128,
+                 text_emb_dim=32, im_hid_dim=(64, 16), text_hid_dim=32,
+                 num_ways=5, num_shots=3, num_test_adapt_steps=30,
+                 step_size=0.05, dropout=0.0, text_encoder="precomputed",
+                 seed=1)
+    clf = FewShotClassifier(cfg)
+    rng = np.random.RandomState(3)
+    s_im = rng.randn(15, 128).astype(np.float32)
+    s_tx = rng.randn(15, 32).astype(np.float32)
+    s_y = np.repeat(np.arange(5), 3).astype(np.int32)
+    q_im = rng.randn(20, 128).astype(np.float32)
+    clf.episode_logits(s_im, s_y, q_im, support_text=s_tx)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        clf.episode_logits(s_im, s_y, q_im, support_text=s_tx)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "fused_adapt_kernel" in e.name]
+    assert len(names) == 1, names
+    assert names[0].removeprefix("void ").startswith(KERNEL_NAME), names
+
+
+def test_served_shape_within_the_benchmarks_limits(cuda_device):
+    """The served request's shape (R=1, M=128, 100 steps at 0.01, the
+    flagship widths, rows in [0, 1) as the benchmark draws them) over 16
+    seeds against the plain loop in fp64: the benchmark's served limits,
+    a median largest gap of 5e-4 of the largest logit and at most 0.35 of
+    the answers over 0.05 (``benchmark/workloads/fumi.serve.json``)."""
+    S, M, D, H1, H2, N = 25, 128, 2048, 256, 64, 5
+    gaps = []
+    for seed in range(16):
+        gen = torch.Generator().manual_seed(seed)
+        p = mlp.init(gen, D, N, (H1, H2))
+        sx = torch.rand(1, S, D, generator=gen)
+        qx = torch.rand(1, M, D, generator=gen)
+        sy = torch.repeat_interleave(torch.arange(N, dtype=torch.int32),
+                                     S // N).reshape(1, S)
+        head_w = 0.3 * torch.randn(1, N, H2, generator=gen)
+        head_b = 0.3 * torch.randn(1, 1, N, generator=gen)
+        args = (p["net.lin_0.weight"], p["net.lin_0.bias"],
+                p["net.lin_1.weight"], p["net.lin_1.bias"], head_w, head_b,
+                sx, sy, qx)
+        args = tuple(a.to(cuda_device) for a in args)
+        got = kernels.fused_adapt(*args, 100, 0.01).double()
+        exact = kernels.fused_adapt_reference(
+            *(a if a.dtype == torch.int32 else a.double() for a in args),
+            100, 0.01)
+        gaps.append(float((got - exact).abs().max() / exact.abs().max()))
+    assert np.isfinite(gaps).all(), gaps
+    assert float(np.median(gaps)) <= 5e-4, gaps
+    assert np.mean(np.array(gaps) > 0.05) <= 0.35, gaps
 
 
 def test_kernel_result_per_task_independent_of_batch(cuda_device):
@@ -264,8 +350,9 @@ def test_batched_kernel_matches_reference(cuda_device, shape):
 
 
 def test_batched_kernel_raises_where_shared_memory_does_not_fit(cuda_device):
-    """S x H1 activations of 32 x 2048 fp32 (256 KB) exceed a block's
-    227 KB of shared memory at any cluster size."""
+    """32 support rows of 2048 hidden units at D=64 (a cluster of 2):
+    each block's partial sums of 1024 columns exceed its 227 KB of shared
+    memory."""
     gen = torch.Generator().manual_seed(0)
     p = {k: v.to(cuda_device)
          for k, v in mlp.init(gen, 64, 3, (2048, 16)).items()}

@@ -201,6 +201,106 @@ def test_gate():
 
 
 # ---------------------------------------------------------------------------
+# The Gram form the CUDA kernel adapts in (csrc/fused_adapt.cu): W1 never
+# formed, its change carried as P, the sum of the steps' dr1
+# ---------------------------------------------------------------------------
+
+def gram_form(w1, b1, w2, b2, head_w, head_b, sx, sy, qx, n_steps, step,
+              wide=None):
+    """``fused_adapt_reference``'s function in the kernel's algebra:
+    W1_t = W1_0 - step * P^T X, so the support rows' layer 1 is
+    X W1_0^T - step * G P (G = X X^T) and the queries' Q W1_0^T -
+    step * (Q X^T) P. ``wide`` is the dtype of G, Q X^T, P and the two
+    corrections (the inputs' by default); the rest is the inputs' dtype."""
+    dt = sx.dtype
+    wide = wide or dt
+    B, S, _ = sx.shape
+    N = head_w.shape[1]
+    y1h = (sy.unsqueeze(-1) == torch.arange(N)).to(dt)
+    xw = sx.to(wide)
+    A0 = torch.matmul(sx, w1.mT)
+    G = torch.matmul(xw, xw.mT)
+    P = torch.zeros(A0.shape, dtype=wide)
+    c1 = b1.expand(B, -1).clone()
+    W2 = w2.expand(B, -1, -1).clone()
+    c2 = b2.expand(B, -1).clone()
+    W3 = head_w.clone()
+    c3 = head_b.reshape(B, N).clone()
+
+    def rest(a1):
+        r1 = torch.relu(a1)
+        a2 = torch.matmul(r1, W2.mT) + c2.unsqueeze(1)
+        r2 = torch.relu(a2)
+        return r1, a2, r2, torch.matmul(r2, W3.mT) + c3.unsqueeze(1)
+
+    for _ in range(n_steps):
+        a1 = (A0.to(wide) - step * torch.matmul(G, P)).to(dt) \
+            + c1.unsqueeze(1)
+        r1, a2, r2, logits = rest(a1)
+        g = (torch.softmax(logits, dim=-1) - y1h) / float(S)
+        dr2 = torch.where(a2 > 0, torch.matmul(g, W3), 0.0)
+        dr1 = torch.where(a1 > 0, torch.matmul(dr2, W2), 0.0)
+        P = P + dr1.to(wide)
+        W3 = W3 - step * torch.matmul(g.mT, r2)
+        W2 = W2 - step * torch.matmul(dr2.mT, r1)
+        c1 = c1 - step * dr1.sum(dim=1)
+        c2 = c2 - step * dr2.sum(dim=1)
+        c3 = c3 - step * g.sum(dim=1)
+    qxw = torch.matmul(qx.to(wide), xw.mT)
+    a1q = (torch.matmul(qx, w1.mT).to(wide)
+           - step * torch.matmul(qxw, P)).to(dt) + c1.unsqueeze(1)
+    return rest(a1q)[-1]
+
+
+def gram_args(shape, head, seed):
+    """fp64 inputs: ``shape`` "base" is this file's episodes, "ragged" 10
+    support rows over D=16 (S > D/2) and 7 queries; ``head`` "per_task" or
+    "shared" (one head at a task stride of 0)."""
+    gen = torch.Generator().manual_seed(seed)
+    n, k, qn = (N, K, QN) if shape == "base" else (5, 2, 7)
+    p = mlp.init(gen, D, n, H)
+    sx = torch.randn(B, n * k, D, generator=gen)
+    qx = torch.randn(B, qn, D, generator=gen)
+    sy = torch.arange(n, dtype=torch.int32).repeat_interleave(k).repeat(B, 1)
+    if head == "shared":
+        head_w = p["net.lin_final.weight"].expand(B, n, H[1])
+        head_b = p["net.lin_final.bias"].expand(B, 1, n)
+    else:
+        head_w = 0.3 * torch.randn(B, n, H[1], generator=gen)
+        head_b = 0.3 * torch.randn(B, 1, n, generator=gen)
+    args = (p["net.lin_0.weight"], p["net.lin_0.bias"], p["net.lin_1.weight"],
+            p["net.lin_1.bias"], head_w, head_b, sx, sy, qx)
+    return tuple(a if a.dtype == torch.int32 else a.double() for a in args)
+
+
+@pytest.mark.parametrize("shape", ["base", "ragged"])
+@pytest.mark.parametrize("head", ["per_task", "shared"])
+@pytest.mark.parametrize("n_steps", [0, 1, 10, 100])
+def test_gram_form_is_the_reference_loop(shape, head, n_steps):
+    """The identity the kernel rests on: in fp64 the Gram form is
+    ``fused_adapt_reference``'s loop to 1e-9."""
+    args = gram_args(shape, head, 20 + n_steps)
+    want = kernels.fused_adapt_reference(*args, n_steps, STEP)
+    got = gram_form(*args, n_steps, STEP)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-9,
+                               atol=1e-9)
+
+
+@pytest.mark.parametrize("head", ["per_task", "shared"])
+def test_gram_form_in_fp32_with_fp64_corrections(head):
+    """The kernel's precision: fp32 inputs and layers, G, Q X^T, P and the
+    corrections in fp64; within the module's tolerance of the fp32 loop
+    at 10 steps."""
+    args = tuple(a if a.dtype == torch.int32 else a.float()
+                 for a in gram_args("base", head, 7))
+    want = kernels.fused_adapt_reference(*args, STEPS, STEP)
+    got = gram_form(*args, STEPS, STEP, wide=torch.float64)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------------
 # The kernel's launch plan (pure Python; the card checks it against the
 # source's layout in tests/test_torch_cuda.py)
 # ---------------------------------------------------------------------------
@@ -209,12 +309,13 @@ H100_SMEM, H100_CLUSTER = 232_448, 16  # what an H100 reports
 
 
 def test_plan_flagship():
-    """A 16-block cluster a task, 128 columns of D a block, the W1 slice in
-    shared memory: B does not change the plan."""
+    """A 16-block cluster a task, 128 columns of D a block, W1 tiles of 32
+    rows, everything in shared memory: B does not change the plan."""
     for b in (1, 4, 16):
         plan = kernels.fused_adapt_plan((b, 25, 100, 2048, 256, 64, 5),
                                         H100_SMEM, H100_CLUSTER)
-        assert (plan.C, plan.cols, plan.w1) == (16, 128, "shared")
+        assert (plan.C, plan.cols, plan.tile_k) == (16, 128, 32)
+        assert plan.private == "shared"
         assert plan.smem_bytes <= H100_SMEM
     # the served bucket of 128 queries takes the same plan
     assert kernels.fused_adapt_plan((1, 25, 128, 2048, 256, 64, 5),
@@ -228,33 +329,82 @@ def test_plan_small_and_ragged_D(D, C, cols):
     where C does not divide D the last block owns fewer columns."""
     plan = kernels.fused_adapt_plan((2, 25, 50, D, 64, 16, 5), H100_SMEM,
                                     H100_CLUSTER)
-    assert (plan.C, plan.cols, plan.w1) == (C, cols, "shared")
+    assert (plan.C, plan.cols, plan.tile_k) == (C, cols, 32)
     assert 0 < D - (C - 1) * cols <= cols
 
 
 def test_plan_follows_the_card():
     """A card that schedules clusters of 8 at most gets C=8; one with less
-    shared memory keeps the W1 slices in device memory, whose shared bytes
-    are those of the plan in shared memory less the slice."""
+    shared memory gets shallower W1 tiles, each row of depth less taking
+    a row of each of the two tile buffers off the plan's bytes; D=4096
+    fits an H100 with the flagship's cluster, and so do 64 support rows
+    with tiles of 8 rows, and 2048 hidden units over 5 rows with query
+    chunks of 8."""
     dims = (4, 25, 100, 2048, 256, 64, 5)
     assert kernels.fused_adapt_plan(dims, H100_SMEM, 8).C == 8
-    shared = kernels.fused_adapt_plan(dims, H100_SMEM, H100_CLUSTER)
-    small = kernels.fused_adapt_plan(dims, 100_000, H100_CLUSTER)
-    assert (small.C, small.cols, small.w1) == (16, 128, "device")
-    assert small.smem_bytes <= 100_000
-    assert shared.smem_bytes - small.smem_bytes == \
-        4 * kernels._w1_slice_floats(2048, 256, 16)
-    # D=4096 on an H100: a 256-column slice does not fit beside the rest
+    deep = kernels.fused_adapt_plan(dims, H100_SMEM, H100_CLUSTER)
+    small = kernels.fused_adapt_plan(dims, 140_000, H100_CLUSTER)
+    assert (small.C, small.cols, small.tile_k) == (16, 128, 16)
+    assert small.smem_bytes <= 140_000
+    row = 4 * (256 + 4)  # a tile row of the flagship's 256 hidden columns
+    assert deep.smem_bytes - small.smem_bytes == 2 * 16 * row
     assert kernels.fused_adapt_plan((2, 25, 50, 4096, 256, 64, 5), H100_SMEM,
-                                    H100_CLUSTER).w1 == "device"
+                                    H100_CLUSTER)[:3] == (16, 256, 32)
+    assert kernels.fused_adapt_plan((1, 64, 100, 2048, 256, 64, 10),
+                                    H100_SMEM, H100_CLUSTER).tile_k == 8
+    # 2048 hidden units over 5 support rows: query chunks of the 8 support
+    # rows' size fit where chunks of 32 do not
+    wide = kernels.fused_adapt_plan((1, 5, 100, 2048, 2048, 64, 5),
+                                    H100_SMEM, H100_CLUSTER)
+    assert (wide.tile_k, wide.query_rows, wide.private) == (32, 8, "shared")
+    assert deep.query_rows == kernels.QUERY_ROWS
 
 
-def test_plan_raises_where_nothing_fits():
-    """32 support rows of 2048 hidden units need 256 KB of activations."""
-    with pytest.raises(RuntimeError,
-                       match=r"S=32 Qn=32 D=64 H1=2048 H2=16 N=3.*shared memory"):
-        kernels.fused_adapt_plan((1, 32, 32, 64, 2048, 16, 3), H100_SMEM,
-                                 H100_CLUSTER)
+@pytest.mark.parametrize("dims, match", [
+    ((1, 32, 32, 64, 2048, 16, 3),
+     r"S=32 Qn=32 D=64 H1=2048 H2=16 N=3.*shared memory"),
+    ((1, 64, 32, 4096, 256, 4096, 5),
+     r"S=64 Qn=32 D=4096 H1=256 H2=4096 N=5.*shared memory")])
+def test_plan_raises_where_nothing_fits(dims, match):
+    """32 support rows of 2048 hidden units at D=64 (a cluster of 2): the
+    partial sums of 1024 columns a block exceed its shared memory; so do
+    64 rows of a 4096-wide relu(a2), which every block receives; neither
+    goes to device memory, since the cluster's blocks write them."""
+    with pytest.raises(RuntimeError, match=match):
+        kernels.fused_adapt_plan(dims, H100_SMEM, H100_CLUSTER)
+
+
+# (B, S, Qn, D, H1, H2, N), where: wide first layers over few support
+# rows, many support rows of narrow layers, and many rows at D=4096
+WIDE_AND_DEEP = [((1, 5, 100, 2048, 2048, 64, 5), "shared"),
+                 ((1, 10, 100, 2048, 2048, 64, 5), "shared"),
+                 ((1, 5, 100, 2048, 4096, 64, 5), "device"),
+                 ((1, 75, 100, 300, 64, 32, 5), "shared"),
+                 ((1, 100, 100, 768, 64, 64, 5), "shared"),
+                 ((1, 100, 100, 2048, 64, 32, 5), "shared"),
+                 ((1, 125, 100, 2048, 64, 32, 5), "device"),
+                 ((1, 64, 100, 4096, 256, 64, 5), "device")]
+
+
+@pytest.mark.parametrize("dims, private", WIDE_AND_DEEP)
+def test_plan_wide_layers_and_many_rows(dims, private):
+    """The W1 tiles hold 256 hidden columns at most, so wide first layers
+    plan; where a block's private buffers do not fit beside what the
+    blocks exchange under any tile depth or query chunk, they go to device
+    memory, and only the exchanged buffers and the tiles stay in shared
+    memory."""
+    B, S, Qn, D, H1, H2, N = dims
+    plan = kernels.fused_adapt_plan(dims, H100_SMEM, H100_CLUSTER)
+    assert plan.private == private
+    assert plan.smem_bytes <= H100_SMEM
+    shared, own = kernels._layout(S, D, H1, H2, N, plan.C, plan.tile_k,
+                                  plan.query_rows)
+    assert plan.smem_bytes == shared + (own if private == "shared" else 0)
+    if private == "device":
+        for q in {kernels.QUERY_ROWS, min(-(-S // 4) * 4, kernels.QUERY_ROWS)}:
+            for t in kernels.TILE_K:
+                assert sum(kernels._layout(S, D, H1, H2, N, plan.C, t,
+                                           q)) > H100_SMEM
 
 
 # ---------------------------------------------------------------------------
