@@ -31,13 +31,22 @@ The counterpart of ``fumi_tpu/metalearn/inner_loop.py``'s
   (the inner ``autograd.grad`` and the outer backward), which is what a
   second-order step is.
 
+- :func:`recording` keeps, while it is open, each :func:`adapt` call's
+  per-task states θ_0 … θ_n and the support loss at θ_0 … θ_{n−1}, all
+  detached (an :class:`InnerRecord` each), so that a caller can check an
+  inner step on its own from the program's state. It records in the
+  forward pass only (a step that ``checkpoint`` recomputes adds nothing),
+  launches nothing on the device and changes no number; closed, it costs
+  :func:`adapt` one test of a module global.
+
 The meta-gradient variants that do not differentiate through the loop are
 ``metalearn/reptile.py`` and ``metalearn/implicit.py``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+import contextlib
+from typing import Callable, Dict, List, NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +61,39 @@ Remat = Union[None, bool, str]
 
 # adaptation horizons at or above this checkpoint their inner steps
 REMAT_THRESHOLD = 16
+
+
+class InnerRecord(NamedTuple):
+    """One :func:`adapt` call as :func:`recording` keeps it: ``theta`` the
+    per-task states θ_0 … θ_n (leaves with the leading task axis, as
+    :func:`adapt` holds them), ``loss`` the support loss at θ_0 …
+    θ_{n−1} as ``support_loss`` returned it (summed over the tasks); every
+    tensor detached, none copied."""
+    theta: List[Params]
+    loss: List[torch.Tensor]
+
+
+# the open recorder's list of InnerRecords; None while none is open
+_RECORDS: Optional[List[InnerRecord]] = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep every :func:`adapt` call made inside the block as an
+    :class:`InnerRecord`; yields the list they are appended to, in call
+    order. The records hold the states, so they live as long as the
+    list. An enclosing recorder is set aside inside the block and put
+    back after it."""
+    global _RECORDS
+    outer, _RECORDS = _RECORDS, []
+    try:
+        yield _RECORDS
+    finally:
+        _RECORDS = outer
+
+
+def _detached(theta: Params) -> Params:
+    return {k: v.detach() for k, v in theta.items()}
 
 
 def remat_active(remat: Remat, n_steps: int) -> bool:
@@ -139,12 +181,23 @@ def adapt(theta: Params, support_loss: Callable[[Params, int], torch.Tensor],
     adapted = [k for k in theta if mask is None or mask.get(k)]
     keys = list(theta)
     remat = differentiable and remat_active(remat, n_steps)
+    rec = None
+    if _RECORDS is not None:
+        rec = InnerRecord(theta=[], loss=[])
+        _RECORDS.append(rec)
     for step in range(n_steps):
         with span("inner.step"):
+            if rec is not None:
+                rec.theta.append(_detached(theta))
             if differentiable:
                 def one(*vals, step=step):
                     th = dict(zip(keys, vals))
-                    grads = torch.autograd.grad(support_loss(th, step),
+                    loss = support_loss(th, step)
+                    # the forward's loss only: checkpoint's recompute of
+                    # the step finds it kept
+                    if rec is not None and len(rec.loss) == step:
+                        rec.loss.append(loss.detach())
+                    grads = torch.autograd.grad(loss,
                                                 [th[k] for k in adapted],
                                                 create_graph=not first_order)
                     th = sgd_inner_update(th, dict(zip(adapted, grads)),
@@ -159,12 +212,17 @@ def adapt(theta: Params, support_loss: Callable[[Params, int], torch.Tensor],
             with torch.enable_grad():
                 leaves = {k: v.detach().requires_grad_(k in adapted)
                           for k, v in theta.items()}
-                grads = torch.autograd.grad(support_loss(leaves, step),
+                loss = support_loss(leaves, step)
+                if rec is not None:
+                    rec.loss.append(loss.detach())
+                grads = torch.autograd.grad(loss,
                                             [leaves[k] for k in adapted])
             with torch.no_grad():
                 theta = sgd_inner_update(
                     {k: v.detach() for k, v in leaves.items()},
                     dict(zip(adapted, grads)), step_size, mask)
+    if rec is not None:
+        rec.theta.append(_detached(theta))
     return theta
 
 

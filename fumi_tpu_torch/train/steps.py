@@ -68,7 +68,7 @@ from fumi_tpu_torch.ops import fewshot, kernels
 from fumi_tpu_torch.ops import metrics as metrics_ops
 from fumi_tpu_torch.train import optim
 from fumi_tpu_torch.train import watch as watch_lib
-from fumi_tpu_torch.utils.profiling import span
+from fumi_tpu_torch.utils.profiling import count_memory, span
 
 
 class Family(NamedTuple):
@@ -566,9 +566,11 @@ def value_and_grad(family: Family, params, episode, gen,
         with span("train.loss"):
             loss, aux = family.train_loss(
                 leaves if prepare is None else prepare(leaves), episode, gen)
+            count_memory("train.loss")
         with span("train.meta_grad"):
             grads = torch.autograd.grad(loss, list(leaves.values()),
                                         allow_unused=True)
+            count_memory("train.meta_grad")
     grads = {k: torch.zeros_like(v) if g is None else g
              for (k, v), g in zip(leaves.items(), grads)}
     # aux leaves (AM3's avg_lamda) must not keep the step's graph alive

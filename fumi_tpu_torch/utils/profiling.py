@@ -52,6 +52,16 @@ The spans, by name (nesting gives the parent):
   ``fused_maml_adapt_batched``, ``gather_rows``, ``augment_embeddings``,
   ``gather_augment_rows``, ``gather_episode_rows``), by :func:`spanned`,
   above the CUDA kernel it launches.
+
+:func:`count_memory` is a counter beside the spans: the CUDA device's live
+memory at a point of the step, as a zero-length range named
+``mem.<point>=<bytes>``, on exactly while a profiler runs, as a span is.
+The points:
+
+- ``train.loss``: the end of the training loss, where the second-order
+  graph is held for the outer backward;
+- ``train.meta_grad``: the end of the outer backward, the graph freed and
+  the gradients held.
 """
 
 from __future__ import annotations
@@ -77,6 +87,18 @@ def span(name: str):
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _OFF
+
+
+def count_memory(point: str) -> None:
+    """While a profiler runs, a zero-length range ``mem.<point>=<bytes>``
+    with the bytes the caching allocator holds live on the current CUDA
+    device (``torch.cuda.memory_allocated``: its own count, on the host,
+    with no synchronisation and the peak statistics left alone); nothing
+    without a profiler or before CUDA is initialised (the CPU)."""
+    if torch.autograd._profiler_enabled() and torch.cuda.is_initialized():
+        name = f"mem.{point}={torch.cuda.memory_allocated()}"
+        with torch.profiler.record_function(name):
+            pass
 
 
 def spanned(fn: Callable) -> Callable:
