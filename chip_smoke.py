@@ -209,6 +209,15 @@ fails:
    scale), the gloo ranks' answers bitwise alike, one ``fused_adapt`` a
    rank a request; host ms beside the single-rank request's and the
    answer's gather alone;
+7zn. ``norm_relu_pool`` (``csrc/norm_relu_pool.cu``, conv4's norm, ReLU
+   and pool): at ``conv4.train``'s eight shapes its forward, backward and
+   double backward against the plain versions on the card, each alone
+   with CUDA events beside its bytes bound and the plain version's time;
+   then a second-order conv4 MAML step (B=4, 5-way 5-shot, 32 queries a
+   class, 5 steps) through the op and through the written-out chain
+   (device ms and operations a step, peak memory) and the op's launches a
+   step (:func:`norm_relu_pool_phase`; alone: ``python3 -c 'import
+   chip_smoke; chip_smoke.norm_relu_pool_alone()'``);
 8. time each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, and each path; time a
    FuMI R=1 request through ``fused_adapt`` and through the autograd
@@ -274,7 +283,8 @@ KERNEL_NAMES = ("fused_adapt", "gather_rows", "augment_embeddings",
 # csrc/fused_adapt.cu; gather_rows, gather_augment_rows and
 # gather_episode_rows are the three entry points of csrc/gather_rows.cu's
 # one kernel body; augment_embeddings is csrc/augment_embeddings.cu
-SOURCES = ("fused_adapt", "gather_rows", "augment_embeddings")
+SOURCES = ("fused_adapt", "gather_rows", "augment_embeddings",
+           "norm_relu_pool")
 CROSSOVER_STEPS = (1, 2, 4, 8, 16)
 # the driver phase: --epochs 20 --eval_freq 10 --num_ep_test 32 at B=4 runs
 # 21 train steps, 3 validation passes of 8 // 2 + 1 meta-batches (before
@@ -408,8 +418,11 @@ def device_profile(fn, names=()):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # the program's spans appear on the device's timeline too, as user
+    # annotations over the kernels they hold: they are not device time
     rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     device_us = sum(getattr(e, "device_time_total", 0) for e in rows)
     if not device_us:
         return None
@@ -4208,6 +4221,220 @@ def block_remat_alone() -> None:
                      default=str))
 
 
+# ---------------------------------------------------------------------------
+# Phase 7zn: conv4's norm, ReLU and pool as one op
+# ---------------------------------------------------------------------------
+
+# conv4.train's calls: (support 25 | query 160 images, 4 tasks x 64
+# channels, the four blocks' sides)
+NRP_SHAPES = tuple((m, 256, side) for m in (25, 160)
+                   for side in (84, 42, 21, 10))
+# bytes a pass must move, in units of the activation's bytes (4 M H W G):
+# the forward reads z twice and writes a quarter; the backward reads z and
+# g_out twice and writes g_z; the double backward reads z, v_z and g_out
+# twice and writes c_z and c_gout (csrc/norm_relu_pool.cu's note)
+NRP_PASS_BYTES = {"forward": 2.25, "backward": 3.5, "double_backward": 5.75}
+NRP_STEP_CHUNK = 2
+
+
+def nrp_inputs(dev, M, G, side, seed, beta=True):
+    """z (channels_last), b, gamma, beta (0 where ``beta`` is False: a =
+    gamma*x then rounds alike in the kernels' fma and the plain version's
+    product, so their ReLU masks and pool ties agree bitwise)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    z = r(M, side, side, G).permute(0, 3, 1, 2)
+    return (z, r(G), 1.0 + 0.3 * r(G),
+            0.2 * r(G) if beta else torch.zeros(G, device=dev))
+
+
+def nrp_gap(label, got, want, tol) -> float:
+    """max |got − want| over max |want|; fails above ``tol``."""
+    scale = float(want.abs().max())
+    gap = float((got - want).abs().max()) / max(scale, 1e-30)
+    if not gap <= tol:
+        fail(f"norm_relu_pool {label}: {gap:.3e} of the scale {scale:.3e}, "
+             f"over {tol:.0e}")
+    return gap
+
+
+def nrp_hold(dev, M, G, side) -> float:
+    """The three passes against the plain versions on one shape; the
+    largest gap. The forward's output is continuous in its inputs, so it
+    is held with a nonzero beta on each side's own statistics; the
+    backward and double backward on beta = 0 and the kernel's statistics,
+    where the two sides' masks and ties agree bitwise and only the sums'
+    order parts them."""
+    import torch
+    from fumi_tpu_torch.ops import kernels as K
+    gaps = []
+    z, b, g, be = nrp_inputs(dev, M, G, side, 1)
+    out, stats = K._nrp_forward(z, b, g, be)
+    want, wstats = K.norm_relu_pool_forward_reference(z, b, g, be)
+    gaps.append(nrp_gap("forward", out, want, 1e-5))
+    gaps.append(nrp_gap("statistics", stats, wstats, 1e-6))
+    del out, want
+    be = torch.zeros_like(be)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    g_out = torch.randn((M, side // 2, side // 2, G), generator=gen,
+                        device=dev).permute(0, 3, 1, 2)
+    got = K._nrp_backward(z, b, g, be, stats, g_out)
+    ref = K.norm_relu_pool_backward_reference(z, b, g, be, stats, g_out)
+    for name, x, y in zip(("g_z", "g_b", "g_gamma", "g_beta"), got, ref):
+        if name == "g_b":
+            if not (torch.equal(x, y) and not bool(x.any())):
+                fail("norm_relu_pool backward: g_b is not 0")
+            continue
+        gaps.append(nrp_gap(f"backward {name}", x, y, 1e-5))
+    v_z = torch.randn((M, side, side, G), generator=gen,
+                      device=dev).permute(0, 3, 1, 2)
+    v_g, v_b = torch.randn(G, generator=gen, device=dev), torch.randn(
+        G, generator=gen, device=dev)
+    got2 = K._nrp_double_backward(z, b, g, be, stats, g_out, got[4], v_z,
+                                  v_g, v_b)
+    ref2 = K.norm_relu_pool_double_backward_reference(
+        z, b, g, be, stats, g_out, ref[4], v_z, v_g, v_b)
+    for name, x, y in zip(("c_z", "c_b", "c_gamma", "c_beta", "c_gout"),
+                          got2, ref2):
+        if name in ("c_b", "c_beta"):
+            if bool(x.any()):
+                fail(f"norm_relu_pool double backward: {name} is not 0")
+            continue
+        gaps.append(nrp_gap(f"double backward {name}", x, y, 1e-5))
+    return max(gaps)
+
+
+def nrp_times(dev, M, G, side) -> dict:
+    """Each pass alone (five calls in a CUDA graph, so the host's dispatch
+    stays out: :func:`graph_ms`) and the plain version's (CUDA events,
+    median of 3 after 1), ms, beside the bytes bound."""
+    import torch
+    from fumi_tpu_torch.ops import kernels as K
+    z, b, g, be = nrp_inputs(dev, M, G, side, 3)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out, stats = K._nrp_forward(z, b, g, be)
+    g_out = torch.randn_like(out)
+    bw = K._nrp_backward(z, b, g, be, stats, g_out)
+    v_z = torch.randn((M, side, side, G), generator=gen,
+                      device=dev).permute(0, 3, 1, 2)
+    v_g, v_b = torch.ones(G, device=dev), torch.ones(G, device=dev)
+    passes = {
+        "forward": (lambda: K._nrp_forward(z, b, g, be),
+                    lambda: K.norm_relu_pool_forward_reference(z, b, g, be)),
+        "backward": (lambda: K._nrp_backward(z, b, g, be, stats, g_out),
+                     lambda: K.norm_relu_pool_backward_reference(
+                         z, b, g, be, stats, g_out)),
+        "double_backward": (
+            lambda: K._nrp_double_backward(z, b, g, be, stats, g_out, bw[4],
+                                           v_z, v_g, v_b),
+            lambda: K.norm_relu_pool_double_backward_reference(
+                z, b, g, be, stats, g_out, bw[4], v_z, v_g, v_b))}
+    elems = M * side * side * G
+    row = {}
+    for name, (kernel, plain) in passes.items():
+        row[f"{name}_ms"] = graph_ms([kernel] * 5)
+        row[f"{name}_plain_ms"] = cuda_ms(plain, 1, 3)
+        row[f"{name}_bound_ms"] = (1e3 * NRP_PASS_BYTES[name] * 4 * elems
+                                   / PEAK_BYTES_PER_S)
+    return row
+
+
+def nrp_step(Config, dev, card, fused: bool) -> dict:
+    """A chunk of conv4 MAML train steps at conv4.train's episode (B=4,
+    5-way 5-shot, 32 queries, 5 second-order steps), through the op or, with
+    ``fused`` False, through the written-out chain: device ms and
+    operations a step (torch.profiler), peak memory, the op's launches a
+    step."""
+    import torch
+    from fumi_tpu_torch.models import conv4
+    from fumi_tpu_torch.ops import kernels as K
+    from fumi_tpu_torch.train import steps
+    applies = conv4.fused_norm_applies
+    if not fused:
+        conv4.fused_norm_applies = lambda z, low: False
+    try:
+        smp = raw_samplers(dev, queries=(TRAIN_Q,))[0]
+        st = steps.make_steps(raw_cfg(Config, "maml", "conv4"),
+                              torch.Generator().manual_seed(0), device=dev)
+        run = steps.make_chunked_train(st.family, st.opt, smp, NRP_STEP_CHUNK)
+        p, s, gen, _ = run(st.params, st.opt.init(st.params),
+                           smp.generator(1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.norm_relu_pool.launches = 0
+        box = {}
+        seconds = synced_s(lambda: box.update(out=run(p, s, gen)))
+        launches = K.norm_relu_pool.launches / NRP_STEP_CHUNK
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        traced = device_profile(lambda: run(p, s, gen))
+        loss = box["out"][3]["loss"]
+        if not bool(torch.isfinite(loss).all()):
+            fail(f"norm_relu_pool step (fused={fused}): non-finite loss")
+    finally:
+        conv4.fused_norm_applies = applies
+    row = {"launches_a_step": launches, "wall_ms_a_step":
+           1e3 * seconds / NRP_STEP_CHUNK, "peak_gb": peak,
+           "loss": float(loss[0])}
+    if traced is not None:
+        row["device_ms_a_step"] = traced[0] / NRP_STEP_CHUNK
+        row["device_ops_a_step"] = traced[1] / NRP_STEP_CHUNK
+    print(f"norm_relu_pool step, {'the op' if fused else 'written out'}: "
+          f"{row} [{card}]", flush=True)
+    return row
+
+
+def norm_relu_pool_phase(Config, dev, card) -> dict:
+    """Phase 7zn (the module's docstring). Fails where a pass leaves the
+    plain version by more than 1e-5 of its scale, or a step through the op
+    launches other than 4 blocks x (6 forwards, 11 backwards, 5 double
+    backwards)."""
+    import torch
+    from fumi_tpu_torch.ops import _build
+    _build.build_all(["norm_relu_pool"])
+    for line in _build.build_logs.get("norm_relu_pool", "").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print(f"  ptxas norm_relu_pool: {line.strip()}")
+    shapes, worst = {}, 0.0
+    for M, G, side in NRP_SHAPES:
+        key = f"M{M}_G{G}_{side}x{side}"
+        worst = max(worst, nrp_hold(dev, M, G, side))
+        shapes[key] = nrp_times(dev, M, G, side)
+        print(f"norm_relu_pool {key}: {shapes[key]} [{card}]", flush=True)
+        torch.cuda.empty_cache()
+    steps_ = {"op": nrp_step(Config, dev, card, True),
+              "written_out": nrp_step(Config, dev, card, False)}
+    want = 4 * (6 + 11 + 5)
+    if steps_["op"]["launches_a_step"] != want or \
+            steps_["written_out"]["launches_a_step"] != 0:
+        fail(f"norm_relu_pool: launches a step {steps_}, expected {want} "
+             "through the op and 0 written out")
+    print(f"norm_relu_pool: the three passes within {worst:.2e} of the "
+          f"plain versions at {len(NRP_SHAPES)} shapes [{card}]", flush=True)
+    return {"max_abs_err": worst, "shapes": shapes, "step": steps_,
+            "launches": steps_["op"]["launches_a_step"]}
+
+
+def norm_relu_pool_alone() -> None:
+    """Phase 7zn by itself on the card, as ``python3 -c 'import
+    chip_smoke; chip_smoke.norm_relu_pool_alone()'`` from a checkout."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this phase needs a GPU")
+    sys.path.insert(0, HERE)
+    from fumi_tpu_torch.core.config import Config
+    from fumi_tpu_torch.ops import _build
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _build.build_all(SOURCES)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps({"norm_relu_pool": norm_relu_pool_phase(
+        Config, torch.device("cuda", 0), card)}, default=str))
+
+
 PR11_PHASES = ("ema", "debug-nans", "host-sampler", "pth", "stage-remat",
                "block-remat")
 
@@ -5909,6 +6136,8 @@ def main() -> int:
                                       table_np, ids_np, cset, by_path)
         print(f"phase multi-device: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        # ---- 7zn. conv4's norm, ReLU and pool as one op ------------------
+        nrp = norm_relu_pool_phase(Config, dev, card)
     finally:
         shutil.rmtree(driver_root, ignore_errors=True)
 
@@ -6442,6 +6671,10 @@ def main() -> int:
            for label, r in pr10_gathers.items() for key, v in r.items()},
         "launches_by_path": {p: c["gather_episode_rows"]
                              for p, c in by_path.items()},
+    }, {
+        "name": "norm_relu_pool", "route": "cuda",
+        "source": "fumi_tpu_torch/csrc/norm_relu_pool.cu",
+        "replaces": None, "bound_by": "bytes", **nrp,
     }]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@ The PyTorch counterpart of ``fumi_tpu/models/conv4.py``: 4 blocks of
 [Conv3×3(64) → batch-stat norm → ReLU → MaxPool2×2], flatten, linear head.
 Normalization uses the current batch's statistics at train and at eval (no
 running stats), written out as the JAX package writes it: ``F.batch_norm``
-and cuDNN's norm are not used.
+and cuDNN's norm are not used. On a card in fp32 a block's norm, ReLU and
+pool are one op of the port's own (``ops/kernels.py:norm_relu_pool``,
+``csrc/norm_relu_pool.cu``), the same function with hand-written kernels
+for its forward, backward and double backward.
 
 Parameters are flat state dict entries under a ``prefix`` (``""`` for
 MAML's whole net, ``im_net.`` in FuMI, ``image_encoder.`` in AM3):
@@ -36,6 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from fumi_tpu_torch.models import layers
+from fumi_tpu_torch.ops import kernels
 
 Params = Dict[str, torch.Tensor]
 EPS = 1e-5
@@ -130,15 +134,30 @@ def maxpool2x2(y: torch.Tensor) -> torch.Tensor:
     return z.permute(0, 3, 1, 2)
 
 
+def fused_norm_applies(z: torch.Tensor, low_precision: bool) -> bool:
+    """Whether a block's norm, ReLU and pool run as the one CUDA op
+    (:func:`~fumi_tpu_torch.ops.kernels.norm_relu_pool`): an fp32 conv
+    output on a CUDA device. The CPU, fp64 and bf16 keep the written-out
+    chain."""
+    return (not low_precision and z.is_cuda
+            and z.dtype == torch.float32)
+
+
 def conv_block(p: Params, y: torch.Tensor,
                compute_dtype: Optional[torch.dtype] = None,
                groups: int = 1) -> torch.Tensor:
     """Conv3×3 (SAME) → batch-stat norm → ReLU → MaxPool2×2 on (M, G·C, H,
-    W); ``p`` is a :func:`unit` of ``groups`` tasks. Under bf16 the conv
-    output, the normalized output and the pooled output are bf16."""
+    W); ``p`` is a :func:`unit` of ``groups`` tasks. An fp32 conv output on
+    a card takes the norm, ReLU and pool as one op with hand-written
+    kernels for its forward, backward and double backward
+    (:func:`fused_norm_applies`); elsewhere they are written out. Under
+    bf16 the conv output, the normalized output and the pooled output are
+    bf16."""
     low = is_low_precision(compute_dtype)
     z = layers.conv2d_f32acc(y, p["weight"], compute_dtype, padding=1,
                              groups=groups, keep_dtype=low)
+    if fused_norm_applies(z, low):
+        return kernels.norm_relu_pool(z, p["bias"], p["gamma"], p["beta"])
     z = torch.relu(batch_stat_norm(z, p, low))
     if low:
         z = z.to(compute_dtype)

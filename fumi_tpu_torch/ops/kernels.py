@@ -35,6 +35,16 @@ The counterparts of ``fumi_tpu/ops/pallas_kernels.py``:
   jittered where a seed is given. Plain version:
   :func:`gather_episode_rows_reference`, the same composition on each
   segment, bitwise equal. The sampler's kernel-gather route.
+- :func:`norm_relu_pool`: conv4's batch-statistics norm, ReLU and 2×2
+  max-pool of one block as one op (``csrc/norm_relu_pool.cu``), an
+  autograd Function whose backward is a second Function, so that the
+  forward, the backward and the double backward of second-order MAML are
+  each a hand-written kernel. It replaces no TPU kernel: the JAX package
+  leaves the chain to XLA. Plain versions:
+  :func:`norm_relu_pool_forward_reference`,
+  :func:`norm_relu_pool_backward_reference` and
+  :func:`norm_relu_pool_double_backward_reference`, the same closed forms
+  in PyTorch.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version. The design and bound of each kernel are in its
@@ -51,6 +61,8 @@ import functools
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from fumi_tpu_torch.models import mlp
 from fumi_tpu_torch.models.fumi import im_net_depth
@@ -845,3 +857,340 @@ def gather_episode_rows(table: torch.Tensor, rows: torch.Tensor,
 
 
 gather_episode_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# conv4's batch-statistics norm, ReLU and 2x2 max-pool
+# ---------------------------------------------------------------------------
+
+# conv4's norm epsilon (models/conv4.py EPS)
+NORM_EPS = 1e-5
+# the launch plan of csrc/norm_relu_pool.cu: a block covers at most
+# _NRP_MAX_VECS vectors of channels (its kMaxVecs); the sums' walks take up
+# to _NRP_BLOCKS_PER_SM blocks an SM, one partial row each
+_NRP_MAX_VECS, _NRP_BLOCKS_PER_SM = 64, 4
+
+
+class NormReluPoolPlan(NamedTuple):
+    """How ``csrc/norm_relu_pool.cu`` walks a (M, G, H, W) tensor: ``vec``
+    channels a thread (4 where G allows it and every pointer is 16-byte
+    aligned, else 1), ``tx`` channel vectors a block, and at most ``rows``
+    blocks along the cells, each writing one row of partial sums."""
+    vec: int
+    tx: int
+    rows: int
+
+
+def norm_relu_pool_plan(G: int, aligned: bool, sms: int) -> NormReluPoolPlan:
+    """The plan for G channels on a card of ``sms`` SMs: about
+    ``_NRP_BLOCKS_PER_SM`` blocks an SM in all, over the channel blocks
+    (``ceil(G / vec / tx)``) and the cells."""
+    vec = 4 if G % 4 == 0 and aligned else 1
+    tx = min(G // vec, _NRP_MAX_VECS)
+    channel_blocks = -(-(G // vec) // tx)
+    return NormReluPoolPlan(vec, tx,
+                            max(1, _NRP_BLOCKS_PER_SM * sms // channel_blocks))
+
+
+def _nrp_chan(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(1, -1, 1, 1)
+
+
+def _nrp_windows(t: torch.Tensor) -> torch.Tensor:
+    """(M, G, H, W) -> its pooled region as (M, G, H/2, 2, W/2, 2)."""
+    M, G, H, W = t.shape
+    h2, w2 = H // 2, W // 2
+    return t[:, :, :2 * h2, :2 * w2].reshape(M, G, h2, 2, w2, 2)
+
+
+def _nrp_normed(z, bias, gamma, beta, stats):
+    """x = (z + b − μ)·rstd and a = γx + β, stats = (μ, rstd)."""
+    x = (z + _nrp_chan(bias) - _nrp_chan(stats[0])) * _nrp_chan(stats[1])
+    return x, x * _nrp_chan(gamma) + _nrp_chan(beta)
+
+
+def _nrp_route(a: torch.Tensor, g_out: torch.Tensor):
+    """``(ga, routed, ties)``: ga (M, G, H, W) is g_out split evenly over
+    each window's ties of max(relu(a)) and kept where a > 0, zero outside
+    the pooled region; ``routed`` (the windows' mask of where it went) and
+    ``ties`` (M, G, H/2, 1, W/2, 1), as amax counts them."""
+    M, G, H, W = a.shape
+    win = _nrp_windows(a)
+    h = win.clamp_min(0)
+    tie = h == h.amax(dim=(3, 5), keepdim=True)
+    ties = tie.sum(dim=(3, 5), keepdim=True).to(a.dtype)
+    routed = tie & (win > 0)
+    share = g_out.reshape(win.shape[:3] + (1, win.shape[4], 1)) / ties
+    ga = torch.where(routed, share, 0.0).reshape(
+        M, G, 2 * win.shape[2], 2 * win.shape[4])
+    return F.pad(ga, (0, W - ga.shape[3], 0, H - ga.shape[2])), routed, ties
+
+
+def _nrp_sums(*terms: torch.Tensor) -> torch.Tensor:
+    """Per-channel fp64 sums of the products of ``terms``, (G,)."""
+    prod = terms[0].to(torch.float64)
+    for t in terms[1:]:
+        prod = prod * t.to(torch.float64)
+    return prod.sum(dim=(0, 2, 3))
+
+
+def norm_relu_pool_forward_reference(z: torch.Tensor, bias: torch.Tensor,
+                                     gamma: torch.Tensor, beta: torch.Tensor
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward: ``(out, stats)``, out (M, G, H/2, W/2)
+    the 2×2 max of relu(γ·(z + b − μ)·rstd + β), stats (2, G) = (μ, rstd)
+    of z + b over (M, H, W). The statistics are the kernel's: fp64 sums of
+    y − y[0] and its square, then μ and rstd in fp64, rounded to z's
+    dtype."""
+    M, G, H, W = z.shape
+    y = z + _nrp_chan(bias)
+    shift = y[0, :, 0, 0].to(torch.float64)
+    d = y.to(torch.float64) - _nrp_chan(shift)
+    n = M * H * W
+    mean = d.sum(dim=(0, 2, 3)) / n
+    var = (d.square().sum(dim=(0, 2, 3)) / n - mean.square()).clamp_min(0.0)
+    # the epsilon as z's dtype holds it, as torch adds it in that dtype
+    eps = torch.tensor(NORM_EPS, dtype=z.dtype).item()
+    stats = torch.stack([shift + mean, torch.rsqrt(var + eps)]).to(z.dtype)
+    _, a = _nrp_normed(z, bias, gamma, beta, stats)
+    return _nrp_windows(a.clamp_min(0.0)).amax(dim=(3, 5)), stats
+
+
+def norm_relu_pool_backward_reference(z, bias, gamma, beta, stats, g_out):
+    """Plain version of the backward: ``(g_z, g_b, g_gamma, g_beta,
+    sums)``. With ga the routed g_out, A = Σga and S = Σga·x per channel:
+    g_z = γ·rstd·(ga − A/N − x·S/N), g_gamma = S, g_beta = A, g_b = 0 (the
+    output does not depend on b); sums (2, G) fp64 = (A, S) for the double
+    backward."""
+    M, G, H, W = z.shape
+    n = M * H * W
+    x, a = _nrp_normed(z, bias, gamma, beta, stats)
+    ga = _nrp_route(a, g_out)[0]
+    A, S = _nrp_sums(ga), _nrp_sums(ga, x)
+    gr = gamma.to(torch.float64) * stats[1].to(torch.float64)
+    k1, k2, k3 = (_nrp_chan(k.to(z.dtype)) for k in (gr, -gr * S / n,
+                                                     -gr * A / n))
+    g_z = k1 * ga + k2 * x + k3
+    return (g_z, torch.zeros_like(bias), S.to(z.dtype), A.to(z.dtype),
+            torch.stack([A, S]))
+
+
+def norm_relu_pool_double_backward_reference(z, bias, gamma, beta, stats,
+                                             g_out, sums, v_z, v_gamma,
+                                             v_beta):
+    """Plain version of the double backward: the cotangents ``(c_z, c_b,
+    c_gamma, c_beta, c_gout)`` of the backward's inputs, given those of its
+    outputs (``v_z``, ``v_gamma``, ``v_beta``; None is zero; g_b is
+    identically 0 and takes none). μ and rstd are differentiated as
+    functions of z; the ReLU mask and the routing are piecewise constant,
+    so c_beta = c_b = 0. Per channel, V = Σv_z, VX = Σv_z·x, VG = Σv_z·ga
+    and the backward's A and S (``sums``) give the coefficients of
+    ``csrc/norm_relu_pool.cu``'s ``grad2_finalize``."""
+    M, G, H, W = z.shape
+    n = M * H * W
+    f64 = torch.float64
+    x, a = _nrp_normed(z, bias, gamma, beta, stats)
+    ga, routed, ties = _nrp_route(a, g_out)
+    if v_z is None:
+        v_z = torch.zeros_like(z)
+    Vs, VX, VG = _nrp_sums(v_z), _nrp_sums(v_z, x), _nrp_sums(v_z, ga)
+    A, S = sums[0], sums[1]
+    r, g = stats[1].to(f64), gamma.to(f64)
+    gr = g * r
+    vg = 0.0 if v_gamma is None else v_gamma.to(f64)
+    vb = 0.0 if v_beta is None else v_beta.to(f64)
+    qq = VG - A * Vs / n - S * VX / n
+    mean_p = -gr * (A * VX + Vs * S) / n ** 2 + vg * A / n
+    mean_px = -2.0 * gr * S * VX / n ** 2 + vg * S / n
+    ag, av, ax, a0, wv, wx, w0 = (
+        _nrp_chan(k.to(z.dtype)) for k in (
+            r * (vg - gr * VX / n), -gr * r * S / n,
+            -r * mean_px - g * qq * r * r / n, -r * mean_p, gr,
+            vg - gr * VX / n, vb - gr * Vs / n))
+    c_z = ag * ga + av * v_z + ax * x + a0
+    w = _nrp_windows(wv * v_z + wx * x + w0)
+    c_gout = torch.where(routed, w, 0.0).sum(dim=(3, 5)) / ties[:, :, :, 0, :, 0]
+    return (c_z, torch.zeros_like(bias), (r * qq).to(z.dtype),
+            torch.zeros_like(beta), c_gout)
+
+
+@functools.lru_cache(maxsize=None)
+def _nrp_library():
+    from fumi_tpu_torch.ops import _build
+    lib = _build.load("norm_relu_pool")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    tail = [i64, i32, i32, i32, i32, i32, i32, ptr]
+    lib.norm_relu_pool_forward_launch.argtypes = [ptr] * 7 + tail
+    lib.norm_relu_pool_backward_launch.argtypes = [ptr] * 13 + tail
+    lib.norm_relu_pool_double_backward_launch.argtypes = [ptr] * 17 + tail
+    for fn in (lib.norm_relu_pool_forward_launch,
+               lib.norm_relu_pool_backward_launch,
+               lib.norm_relu_pool_double_backward_launch):
+        fn.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _nrp_launch(who: str, fn, tensors, outs, z: torch.Tensor):
+    """One launch of an entry point of ``csrc/norm_relu_pool.cu``:
+    ``tensors`` and ``outs`` in its argument order (None is a null
+    pointer), then its scratch and the geometry."""
+    M, G, H, W = z.shape
+    present = [t for t in tensors + outs if t is not None]
+    aligned = all(t.data_ptr() % 16 == 0 for t in present)
+    plan = norm_relu_pool_plan(G, aligned, _sm_count(z.device.index))
+    partial = torch.empty((plan.rows * 3 * G,), dtype=torch.float64,
+                          device=z.device)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    ptrs = [None if t is None else t.data_ptr() for t in tensors + outs]
+    err = fn(*ptrs, partial.data_ptr(), M, G, H, W, plan.vec, plan.tx,
+             plan.rows, stream)
+    if err != 0:
+        raise RuntimeError(f"{who} kernel launch failed with CUDA error {err} "
+                           f"(shape {tuple(z.shape)}; {plan})")
+    norm_relu_pool.launches += 1
+
+
+def _nrp_channels_last(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def _nrp_empty_like_nhwc(M, G, H, W, like: torch.Tensor) -> torch.Tensor:
+    """An empty (M, G, H, W) fp32 tensor in channels_last memory."""
+    return torch.empty((M, H, W, G), dtype=torch.float32,
+                       device=like.device).permute(0, 3, 1, 2)
+
+
+def _nrp_forward(z, bias, gamma, beta):
+    if z.device.type == "cpu":
+        return norm_relu_pool_forward_reference(z, bias, gamma, beta)
+    M, G, H, W = z.shape
+    out = _nrp_empty_like_nhwc(M, G, H // 2, W // 2, z)
+    stats = torch.empty((2, G), dtype=torch.float32, device=z.device)
+    _nrp_launch("norm_relu_pool", _nrp_library().norm_relu_pool_forward_launch,
+                [z, bias, gamma, beta], [out, stats], z)
+    return out, stats
+
+
+def _nrp_backward(z, bias, gamma, beta, stats, g_out):
+    if z.device.type == "cpu":
+        return norm_relu_pool_backward_reference(z, bias, gamma, beta, stats,
+                                                 g_out)
+    M, G, H, W = z.shape
+    g_out = _nrp_channels_last(g_out)
+    g_z = _nrp_empty_like_nhwc(M, G, H, W, z)
+    g_gamma, g_beta, g_b = (torch.empty_like(gamma) for _ in range(3))
+    sums = torch.empty((2, G), dtype=torch.float64, device=z.device)
+    coef = torch.empty((3, G), dtype=torch.float32, device=z.device)
+    _nrp_launch("norm_relu_pool backward",
+                _nrp_library().norm_relu_pool_backward_launch,
+                [z, bias, gamma, beta, stats, g_out],
+                [g_z, g_gamma, g_beta, g_b, sums, coef], z)
+    return g_z, g_b, g_gamma, g_beta, sums
+
+
+def _nrp_double_backward(z, bias, gamma, beta, stats, g_out, sums, v_z,
+                         v_gamma, v_beta):
+    if z.device.type == "cpu":
+        return norm_relu_pool_double_backward_reference(
+            z, bias, gamma, beta, stats, g_out, sums, v_z, v_gamma, v_beta)
+    M, G, H, W = z.shape
+    g_out = _nrp_channels_last(g_out)
+    v_z = None if v_z is None else _nrp_channels_last(v_z)
+    v_gamma, v_beta = (None if t is None else t.contiguous()
+                       for t in (v_gamma, v_beta))
+    c_z = _nrp_empty_like_nhwc(M, G, H, W, z)
+    c_gout = _nrp_empty_like_nhwc(M, G, H // 2, W // 2, z)
+    c_gamma, c_beta, c_b = (torch.empty_like(gamma) for _ in range(3))
+    coef = torch.empty((7, G), dtype=torch.float32, device=z.device)
+    _nrp_launch("norm_relu_pool double backward",
+                _nrp_library().norm_relu_pool_double_backward_launch,
+                [z, bias, gamma, beta, stats, g_out, sums, v_z, v_gamma,
+                 v_beta], [c_z, c_gout, c_gamma, c_beta, c_b, coef], z)
+    return c_z, c_b, c_gamma, c_beta, c_gout
+
+
+class _NormReluPool(torch.autograd.Function):
+    """The op; its backward is :class:`_NormReluPoolBackward`, recorded
+    under ``create_graph=True`` so that second-order MAML differentiates
+    it."""
+
+    @staticmethod
+    def forward(ctx, z, bias, gamma, beta):
+        out, stats = _nrp_forward(z, bias, gamma, beta)
+        ctx.save_for_backward(z, bias, gamma, beta, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        return _NormReluPoolBackward.apply(*ctx.saved_tensors, g_out)
+
+
+class _NormReluPoolBackward(torch.autograd.Function):
+    """(z, b, γ, β, stats, g_out) -> (g_z, g_b, g_γ, g_β); its own backward
+    is the double backward (third order is never taken). ``stats`` is
+    saved by the forward and takes no gradient: the double backward
+    differentiates μ and rstd through z itself."""
+
+    @staticmethod
+    def forward(ctx, z, bias, gamma, beta, stats, g_out):
+        ctx.set_materialize_grads(False)
+        g_z, g_b, g_gamma, g_beta, sums = _nrp_backward(z, bias, gamma, beta,
+                                                        stats, g_out)
+        ctx.save_for_backward(z, bias, gamma, beta, stats, g_out, sums)
+        return g_z, g_b, g_gamma, g_beta
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, v_z, v_b, v_gamma, v_beta):
+        z, bias, gamma, beta, stats, g_out, sums = ctx.saved_tensors
+        c_z, c_b, c_gamma, c_beta, c_gout = _nrp_double_backward(
+            z, bias, gamma, beta, stats, g_out, sums, v_z, v_gamma, v_beta)
+        return c_z, c_b, c_gamma, c_beta, None, c_gout
+
+
+def _check_norm_relu_pool(z, bias, gamma, beta) -> None:
+    who = "norm_relu_pool"
+    if z.dim() != 4 or z.shape[2] < 2 or z.shape[3] < 2:
+        raise ValueError(f"{who} takes (M, G, H, W) with H, W >= 2, got "
+                         f"shape {tuple(z.shape)}")
+    G = z.shape[1]
+    dtypes = (torch.float32,) if z.device.type == "cuda" else (
+        torch.float32, torch.float64)
+    if z.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who} runs on cuda or cpu, not {z.device}")
+    if z.dtype not in dtypes:
+        raise TypeError(f"{who} on {z.device.type} computes "
+                        f"{', '.join(map(str, dtypes))}, got {z.dtype}")
+    for name, t in (("bias", bias), ("gamma", gamma), ("beta", beta)):
+        if tuple(t.shape) != (G,) or t.dtype != z.dtype or \
+                t.device != z.device:
+            raise ValueError(f"{who}: {name} must be ({G},) {z.dtype} on "
+                             f"{z.device}, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+
+
+@spanned
+def norm_relu_pool(z: torch.Tensor, bias: torch.Tensor, gamma: torch.Tensor,
+                   beta: torch.Tensor) -> torch.Tensor:
+    """``maxpool2x2(relu(batch_stat_norm(z, p)))`` of conv4's block as one
+    op: z (M, G, H, W), bias, gamma, beta (G,); returns (M, G, H/2, W/2)
+    in channels_last memory. Differentiable twice: its backward is an
+    autograd Function too, whose backward (the double backward) is
+    once-differentiable. A CUDA fp32 z launches ``csrc/norm_relu_pool.cu``
+    (z taken in channels_last memory), three kernels for each of the
+    forward, backward and double backward, ``launches`` counting each of
+    those calls; a CPU z (fp32 or fp64) runs the plain versions."""
+    _check_norm_relu_pool(z, bias, gamma, beta)
+    if z.device.type == "cuda":
+        z = _nrp_channels_last(z)
+        bias, gamma, beta = bias.contiguous(), gamma.contiguous(), \
+            beta.contiguous()
+    return _NormReluPool.apply(z, bias, gamma, beta)
+
+
+norm_relu_pool.launches = 0

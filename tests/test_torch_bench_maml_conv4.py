@@ -316,8 +316,27 @@ def test_readers_on_a_synthetic_trace():
     assert metric("meta_grad_gb.train").read(Ctx, rec) == pytest.approx(2.1)
 
 
+NORM = "void (anonymous namespace)::norm_relu_pool_grad2_kernel<4>(float const*)"
+
+
+def test_norm_share_reads_the_ops_kernels():
+    """norm_relu_pool's kernels 20–30 and 25–45 µs (union 25) of a step
+    whose busy time is 10–70 µs with them (60): 41.7%; the convolutions'
+    share still finds cuDNN's kernels alone."""
+    tr = conv_trace()
+    tr = Trace(tr.device + [Event(NORM, 20, 30),
+                            Event(NORM.replace("grad2", "apply"), 25, 45)],
+               tr.host, 1e-4)
+    rec = {"trace": tr, "trace_steps": 1}
+    assert metric("norm_share.train").read(Ctx, rec) == pytest.approx(
+        100 * 25 / 60)
+    assert metric("conv_share.train").read(Ctx, rec) == pytest.approx(
+        100 * 50 / 60)
+
+
 @pytest.mark.parametrize("name", ["conv_share.train", "conv_roofline.train",
-                                  "graph_gb.train", "meta_grad_gb.train"])
+                                  "graph_gb.train", "meta_grad_gb.train",
+                                  "norm_share.train"])
 def test_readers_read_nothing_where_there_is_nothing(name):
     bare = conv_trace(with_convs=False, with_counter=False)
     for rec in ({"trace": bare, "trace_steps": 1}, {"trace": None}, {}):
@@ -380,7 +399,7 @@ def test_the_cell_runs_and_is_correct_on_the_cpu(tmp_path):
     assert result["attempted"] > 0 and result["failed"] == 0
     # no card: no convolution kernel and no counter on the trace
     for name in ("conv_share.train", "conv_roofline.train",
-                 "graph_gb.train", "meta_grad_gb.train"):
+                 "graph_gb.train", "meta_grad_gb.train", "norm_share.train"):
         assert name not in result["metrics"]
     assert "inner_loop_ms.train" in result["metrics"]
 

@@ -925,6 +925,185 @@ def test_token_id_outside_the_table_answers_400_on_card(cuda_device):
         server.server_close()
 
 
+# ---------------------------------------------------------------------------
+# norm_relu_pool: conv4's norm, ReLU and pool (csrc/norm_relu_pool.cu)
+# ---------------------------------------------------------------------------
+
+# conv4.train's calls: (support 25 | query 160 images, 4 tasks x 64
+# channels, the four blocks' sides)
+NRP_SHAPES = [(m, 256, side) for m in (25, 160) for side in (84, 42, 21, 10)]
+
+
+def _nrp_inputs(dev, M, G, side, seed, beta=True):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    z = r(M, side, side, G).permute(0, 3, 1, 2)  # channels_last
+    return (z, r(G), 1.0 + 0.3 * r(G),
+            0.2 * r(G) if beta else torch.zeros(G, device=dev))
+
+
+def _nrp_passes(z, b, g, be, seed):
+    """The kernels' forward, backward and double backward of one shape, on
+    random cotangents."""
+    gen = torch.Generator(device=z.device).manual_seed(seed)
+    out, stats = kernels._nrp_forward(z, b, g, be)
+    g_out = torch.randn(out.shape, generator=gen, device=z.device)
+    bw = kernels._nrp_backward(z, b, g, be, stats, g_out)
+    v = (torch.randn(z.shape, generator=gen, device=z.device),
+         torch.randn(b.shape, generator=gen, device=z.device),
+         torch.randn(b.shape, generator=gen, device=z.device))
+    dbw = kernels._nrp_double_backward(z, b, g, be, stats, g_out, bw[4], *v)
+    return (out, stats, g_out) + tuple(bw) + tuple(dbw), v
+
+
+def _nrp_close(got, want, tol=1e-5):
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol * scale
+
+
+def _nrp_hold(z, b, g, be):
+    """The three passes against the plain versions on the card, fp32 both,
+    within 1e-5 of each output's scale: the kernels sum in fp64 partials
+    in another order and round a with one fma. The forward's output is
+    continuous, so it is held with a nonzero beta on each side's own
+    statistics; the backward and double backward on beta = 0 and the
+    kernels' statistics, where a = gamma*x rounds alike on both sides, so
+    the ReLU masks and the pool's ties agree bitwise and only the sums'
+    order parts them."""
+    M, G, H, W = z.shape
+    out, stats = kernels._nrp_forward(z, b, g, be)
+    want, want_stats = kernels.norm_relu_pool_forward_reference(z, b, g, be)
+    assert out.shape == (M, G, H // 2, W // 2)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    _nrp_close(out, want)
+    _nrp_close(stats, want_stats, 1e-6)
+    be = torch.zeros_like(be)
+    got, v = _nrp_passes(z, b, g, be, 2)
+    stats, g_out = got[1], got[2]
+    ref = kernels.norm_relu_pool_backward_reference(z, b, g, be, stats, g_out)
+    ref += kernels.norm_relu_pool_double_backward_reference(
+        z, b, g, be, stats, g_out, ref[4], *v)
+    names = ("g_z", "g_b", "g_gamma", "g_beta", "sums", "c_z", "c_b",
+             "c_gamma", "c_beta", "c_gout")
+    for name, x, y in zip(names, got[3:], ref):
+        if name in ("g_b", "c_b", "c_beta"):
+            assert not bool(x.any()) and not bool(y.any()), name
+        else:
+            _nrp_close(x.double() if name == "sums" else x, y)
+
+
+@pytest.mark.parametrize("shape", NRP_SHAPES,
+                         ids=lambda s: f"M{s[0]}-{s[2]}x{s[2]}")
+def test_norm_relu_pool_matches_plain_version(cuda_device, shape):
+    """conv4.train's eight shapes, 16-byte loads (:func:`_nrp_hold`)."""
+    M, G, side = shape
+    _nrp_hold(*_nrp_inputs(cuda_device, M, G, side, 1))
+
+
+def test_norm_relu_pool_repeats_bitwise(cuda_device):
+    """No float atomics: two runs of the three passes give the same bits."""
+    z, b, g, be = _nrp_inputs(cuda_device, 25, 256, 84, 5)
+    first, _ = _nrp_passes(z, b, g, be, 6)
+    second, _ = _nrp_passes(z, b, g, be, 6)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("G,offset", [(15, 0), (16, 1), (320, 0)])
+def test_norm_relu_pool_other_channel_counts(cuda_device, G, offset):
+    """The scalar walk (G = 15: no vectors of 4; G = 16 one float into its
+    storage: unaligned) and several channel blocks (G = 320: 80 vectors,
+    two blocks across the channels), odd sides, :func:`_nrp_hold`."""
+    z, b, g, be = _nrp_inputs(cuda_device, 3, G, 21, 8)
+    base = torch.empty(z.numel() + offset, device=cuda_device)
+    nhwc = base[offset:].view(3, 21, 21, G)
+    nhwc.copy_(z.permute(0, 2, 3, 1))
+    z = nhwc.permute(0, 3, 1, 2)
+    aligned = z.data_ptr() % 16 == 0
+    assert kernels.norm_relu_pool_plan(G, aligned, 132).vec == (
+        4 if G % 4 == 0 and not offset else 1)
+    _nrp_hold(z, b, g, be)
+
+
+def test_norm_relu_pool_launches(cuda_device):
+    """One launch a forward, backward and double backward; conv4's four
+    blocks launch four forwards in fp32 and none in bf16 or fp64."""
+    from fumi_tpu_torch.models import conv4
+    z, b, g, be = (t.requires_grad_() for t in
+                   _nrp_inputs(cuda_device, 25, 256, 21, 9))
+    before = kernels.norm_relu_pool.launches
+    out = kernels.norm_relu_pool(z, b, g, be)
+    assert kernels.norm_relu_pool.launches == before + 1
+    grads = torch.autograd.grad((out * out).sum(), (z, g), create_graph=True)
+    assert kernels.norm_relu_pool.launches == before + 2
+    torch.autograd.grad(sum(t.sum() for t in grads), be)
+    # the double backward, and the outer pass through the forward again
+    assert kernels.norm_relu_pool.launches == before + 4
+    params = {k: v.to(cuda_device) for k, v in conv4.init(
+        torch.Generator().manual_seed(0), im_size=84).items()}
+    x = torch.rand(2, 10, 84, 84, 3, device=cuda_device)
+    for dtype, cd, launched in ((torch.float32, None, 4),
+                                (torch.float32, torch.bfloat16, 0),
+                                (torch.float64, None, 0)):
+        before = kernels.norm_relu_pool.launches
+        p = {k: v.to(dtype) for k, v in params.items()}
+        conv4.apply(p, x.to(dtype), cd)
+        assert kernels.norm_relu_pool.launches == before + launched
+
+
+def _maml_conv4_step(cuda_device):
+    from fumi_tpu_torch.core.episode import Episode
+    from fumi_tpu_torch.metalearn import inner_loop
+    from fumi_tpu_torch.models import conv4
+    gen = torch.Generator().manual_seed(0)
+    params = {k: v.to(cuda_device) for k, v in conv4.init(
+        gen, im_size=20, hidden=16, n_way=3).items()}
+    B, S, Q = 2, 6, 12
+    x = torch.rand(B, S + Q, 20, 20, 3, generator=gen).to(cuda_device)
+    y = torch.arange(3).repeat(B, (S + Q) // 3).to(cuda_device)
+    episode = Episode(support_im=x[:, :S], support_text=None,
+                      support_text_mask=None, support_ids=None,
+                      support_y=y[:, :S], query_im=x[:, S:], query_ids=None,
+                      query_y=y[:, S:])
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    loss, _ = inner_loop.maml_episode_loss(
+        conv4.apply, leaves, episode, n_steps=3, step_size=0.1,
+        first_order=False)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss, dict(zip(leaves, grads))
+
+
+def test_maml_conv4_second_order_step_matches_written_out(cuda_device,
+                                                         monkeypatch):
+    """A second-order MAML step through Conv-4 (2 tasks, 3 inner steps, a
+    20-pixel side so block 2 is odd) through the op against the same step
+    through the written-out chain on the card, deterministic cuDNN: the
+    loss within 1e-5, each leaf of the meta-gradient within 1e-3 of
+    max(its norm, the median leaf's). Both are fp32; the op's statistics
+    are fp64 sums and its a one fma, the chain's fp32 reductions, so they
+    part at the rounding level, and three second-order steps carry that
+    into the gradient; the conv biases' gradients are the chain's
+    rounding residual against the op's exact 0 (the output does not
+    depend on them)."""
+    from fumi_tpu_torch.models import conv4
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    before = kernels.norm_relu_pool.launches
+    loss, grads = _maml_conv4_step(cuda_device)
+    # 4 blocks x (4 forwards; 3 inner and 4 outer backwards; 3 double)
+    assert kernels.norm_relu_pool.launches == before + 4 * (4 + 7 + 3)
+    monkeypatch.setattr(conv4, "fused_norm_applies", lambda z, low: False)
+    want_loss, want = _maml_conv4_step(cuda_device)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    norms = {k: float(v.norm()) for k, v in want.items()}
+    median = float(np.median(list(norms.values())))
+    for k in want:
+        gap = float((grads[k] - want[k]).norm())
+        assert gap <= 1e-3 * max(norms[k], median), (k, gap, norms[k])
+
+
 if __name__ == "__main__":
     sys.exit(pytest.main([__file__, "-m", "cuda", "-q", "--noconftest",
                           "-p", "no:cacheprovider"]))
