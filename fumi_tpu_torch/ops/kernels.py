@@ -71,7 +71,7 @@ from fumi_tpu_torch.utils.profiling import spanned
 # The fused kernel wins from this horizon on: on an NVIDIA H100 80GB HBM3
 # (700 W) a FuMI request (R=1, 100 queries) took 1.17 ms through the kernel
 # at 1 adaptation step against 3.33 ms through the autograd engine, and the
-# kernel stayed ahead at 2, 4, 8 and 16 steps (chip_smoke.py, PERF.md).
+# kernel stayed ahead at 2, 4, 8 and 16 steps (PERF.md section 6).
 MIN_FUSED_STEPS = 1
 
 

@@ -11,8 +11,9 @@ that rank made (``ops/kernels.py``'s counters). ``fn`` must be a
 module-level function; values travel by pickle, tensors as CPU copies.
 
 The driver uses it for its single-process ``--tpu_mesh_dp N``/
-``--tpu_mesh_mp M`` form (``cli/main.py``); the tests and
-``chip_smoke.py`` use it to run the engines.
+``--tpu_mesh_mp M`` form (``cli/main.py``); the tests use it to run the
+engines, on CPU ranks over gloo and, on a card, a one-rank NCCL world
+(``tests/test_torch_cuda.py``).
 
 A rank that raises, or dies, fails the whole world: the other ranks are
 stopped and :func:`spawn_world` raises ``RuntimeError`` with the rank's

@@ -3,13 +3,13 @@ row gathers that carry it as their epilogue (``gather_augment_rows``,
 ``gather_episode_rows``).
 
 ``augment_embeddings_reference`` is the plain version of the CUDA kernel
-(``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the two bitwise
-equal on the card). Its generator is its own (Philox4x32-10 keyed by the
-seed), so against the JAX package it is held to the same properties, not
-the same bits: the bounds of the jitter, clean queries, determinism per
-seed, ``scale=0`` as the identity, independence from how the rows are
-split, and the first two moments of U[-s, s) within 4 sigma over 2e5
-draws. JAX's own kernel and reference are run on the same checks.
+(``tests/test_torch_cuda.py`` holds the two bitwise equal on the card).
+Its generator is its own (Philox4x32-10 keyed by the seed), so against
+the JAX package it is held to the same properties, not the same bits:
+the bounds of the jitter, clean queries, determinism per seed,
+``scale=0`` as the identity, independence from how the rows are split,
+and the first two moments of U[-s, s) within 4 sigma over 2e5 draws.
+JAX's own kernel and reference are run on the same checks.
 """
 
 import jax

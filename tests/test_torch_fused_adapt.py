@@ -3,8 +3,8 @@
 ``fused_adapt_reference`` (the plain PyTorch version of the CUDA kernel)
 is held against the Pallas kernel run in interpret mode on the CPU, and
 against a plain autograd SGD loop. The CUDA kernel itself is held against
-the reference on the card by ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.
+the reference on the card by ``tests/test_torch_cuda.py``, and timed
+alone by ``scripts/kernel_times.py``.
 """
 
 import numpy as np
