@@ -7,7 +7,9 @@ running stats), written out as the JAX package writes it: ``F.batch_norm``
 and cuDNN's norm are not used. On a card in fp32 a block's norm, ReLU and
 pool are one op of the port's own (``ops/kernels.py:norm_relu_pool``,
 ``csrc/norm_relu_pool.cu``), the same function with hand-written kernels
-for its forward, backward and double backward.
+for its forward, backward and double backward, and the convolution is the
+port's fp32 implicit GEMM (``ops/kernels.py:conv3x3_fprop``,
+``csrc/conv3x3.cu``), whose gradients of every order are its kernels too.
 
 Parameters are flat state dict entries under a ``prefix`` (``""`` for
 MAML's whole net, ``im_net.`` in FuMI, ``image_encoder.`` in AM3):
@@ -143,19 +145,34 @@ def fused_norm_applies(z: torch.Tensor, low_precision: bool) -> bool:
             and z.dtype == torch.float32)
 
 
+def conv_kernel_applies(y: torch.Tensor, w: torch.Tensor, groups: int,
+                        low_precision: bool) -> bool:
+    """Whether a block's convolution runs as the port's kernels
+    (:func:`~fumi_tpu_torch.ops.kernels.conv3x3_fprop`): where
+    :func:`fused_norm_applies` holds of its fp32 input on a card, at
+    channel counts the kernels take. The CPU, fp64 and bf16 keep
+    ``F.conv2d``."""
+    return fused_norm_applies(y, low_precision) and \
+        kernels.conv3x3_supported(y.shape[1] // groups, w.shape[0] // groups)
+
+
 def conv_block(p: Params, y: torch.Tensor,
                compute_dtype: Optional[torch.dtype] = None,
                groups: int = 1) -> torch.Tensor:
     """Conv3×3 (SAME) → batch-stat norm → ReLU → MaxPool2×2 on (M, G·C, H,
-    W); ``p`` is a :func:`unit` of ``groups`` tasks. An fp32 conv output on
-    a card takes the norm, ReLU and pool as one op with hand-written
-    kernels for its forward, backward and double backward
-    (:func:`fused_norm_applies`); elsewhere they are written out. Under
-    bf16 the conv output, the normalized output and the pooled output are
-    bf16."""
+    W); ``p`` is a :func:`unit` of ``groups`` tasks. In fp32 on a card the
+    convolution is the port's own kernels, forward and gradients
+    (:func:`conv_kernel_applies`), and the norm, ReLU and pool one op with
+    hand-written kernels for its forward, backward and double backward
+    (:func:`fused_norm_applies`); elsewhere ``F.conv2d`` and the chain
+    written out. Under bf16 the conv output, the normalized output and the
+    pooled output are bf16."""
     low = is_low_precision(compute_dtype)
-    z = layers.conv2d_f32acc(y, p["weight"], compute_dtype, padding=1,
-                             groups=groups, keep_dtype=low)
+    if conv_kernel_applies(y, p["weight"], groups, low):
+        z = kernels.conv3x3_fprop(y, p["weight"], groups)
+    else:
+        z = layers.conv2d_f32acc(y, p["weight"], compute_dtype, padding=1,
+                                 groups=groups, keep_dtype=low)
     if fused_norm_applies(z, low):
         return kernels.norm_relu_pool(z, p["bias"], p["gamma"], p["beta"])
     z = torch.relu(batch_stat_norm(z, p, low))

@@ -45,6 +45,16 @@ The counterparts of ``fumi_tpu/ops/pallas_kernels.py``:
   :func:`norm_relu_pool_backward_reference` and
   :func:`norm_relu_pool_double_backward_reference`, the same closed forms
   in PyTorch.
+- :func:`conv3x3_fprop`, :func:`conv3x3_dgrad`, :func:`conv3x3_wgrad`:
+  conv4's stride-1 SAME 3x3 grouped convolution, its input gradient and
+  its weight gradient as fp32 implicit GEMMs on the CUDA cores
+  (``csrc/conv3x3.cu``, tiled by :func:`conv3x3_plan`), three autograd
+  Functions whose backwards are each other, so every order of
+  differentiation stays on them. They replace no TPU kernel: the JAX
+  package leaves the convolutions to XLA, the port sent them to cuDNN.
+  Plain versions: :func:`conv3x3_fprop_reference`,
+  :func:`conv3x3_dgrad_reference` and :func:`conv3x3_wgrad_reference`,
+  the windows' products written out.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version. The design and bound of each kernel are in its
@@ -1194,3 +1204,340 @@ def norm_relu_pool(z: torch.Tensor, bias: torch.Tensor, gamma: torch.Tensor,
 
 
 norm_relu_pool.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# conv4's 3x3 convolutions (csrc/conv3x3.cu)
+# ---------------------------------------------------------------------------
+
+# csrc/conv3x3.cu's fixed tiles: output channels a fprop/dgrad block (kTN);
+# a wgrad chunk's gy pixels and x slots (kWP, kWX); a narrow wgrad chunk's
+# pixels (kNP)
+_CONV_TN, _CONV_WP, _CONV_WX, _CONV_NP = 64, 48, 96, 64
+# blocks an SM holds of a 128-pixel fprop/dgrad or of a wgrad (registers
+# and shared memory: 55 KB and 74 KB), and the fewest chunks a wgrad split
+# walks
+_CONV_RESIDENT, _CONV_MIN_CHUNKS = 2, 4
+CONV3X3_KINDS = ("fprop", "dgrad", "wgrad")
+
+
+class Conv3x3Plan(NamedTuple):
+    """How ``csrc/conv3x3.cu`` covers one call: ``tile_m`` output pixels a
+    fprop/dgrad block; a wgrad's ``splits`` blocks along the positions
+    (each one partial, summed in a fixed order by a second launch), and,
+    where C_in % 4 == 0, ``rows`` image-row pieces of ``piece`` pixels a
+    chunk."""
+    tile_m: int
+    splits: int
+    rows: int
+    piece: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def conv3x3_supported(cin: int, cout: int) -> bool:
+    """Whether the kernels take C_in and C_out channels a group: C_out a
+    multiple of 4 (16-byte rows of gy), C_in a multiple of 4 or at most 3
+    (the narrow kernels, block 0's images)."""
+    return cin >= 1 and cout >= 1 and cout % 4 == 0 and (
+        cin % 4 == 0 or cin <= 3)
+
+
+def conv3x3_plan(kind: str, M: int, H: int, W: int, G: int, cin: int,
+                 cout: int, sms: int) -> Conv3x3Plan:
+    """The plan of a ``kind`` call (fprop, dgrad or wgrad) over M images of
+    H x W, G groups of ``cin`` -> ``cout`` channels, on a card of ``sms``
+    SMs; raises ValueError on what the kernels do not take.
+
+    fprop/dgrad: 128-pixel tiles where they make a wave of the card
+    (``_CONV_RESIDENT`` blocks an SM), 64 below. wgrad: enough splits of the
+    positions for two such waves over the output tiles, each walking at
+    least ``_CONV_MIN_CHUNKS`` chunks where there are so many; a chunk is
+    64 pixels (C_in <= 3), else one row of up to 48 pixels (a longer row
+    in pieces) or as many whole short rows as fit."""
+    if kind not in CONV3X3_KINDS:
+        raise ValueError(f"conv3x3_plan: kind is one of {CONV3X3_KINDS}, "
+                         f"got {kind!r}")
+    if min(M, H, W, G) < 1 or not conv3x3_supported(cin, cout):
+        raise ValueError(
+            f"conv3x3 {kind} takes C_out a multiple of 4 and C_in a multiple "
+            f"of 4 or at most 3 a group, got M={M} H={H} W={W} G={G} "
+            f"C_in={cin} C_out={cout}")
+    P = M * H * W
+    if kind != "wgrad":
+        n = cout if kind == "fprop" else cin
+        blocks = _cdiv(P, 128) * G * _cdiv(n, _CONV_TN)
+        return Conv3x3Plan(128 if blocks >= _CONV_RESIDENT * sms else 64,
+                           1, 1, 1)
+    target = 2 * _CONV_RESIDENT * sms
+    if cin <= 3:
+        rows = piece = 1
+        chunks = _cdiv(P, _CONV_NP)
+        tiles = G * _cdiv(cout, 64)
+    else:
+        piece = min(W, _CONV_WP)
+        rows = max(1, min(_CONV_WP // piece, _CONV_WX // (piece + 2))) \
+            if piece == W else 1
+        chunks = _cdiv(M * H * _cdiv(W, piece), rows)
+        tiles = 3 * G * _cdiv(cout, 64) * _cdiv(cin, 64)
+    splits = min(_cdiv(chunks, _CONV_MIN_CHUNKS), _cdiv(target, tiles))
+    return Conv3x3Plan(0, splits, rows, piece)
+
+
+def _conv_patches(x: torch.Tensor) -> torch.Tensor:
+    """(M, C, H, W) -> (M, C, 9, H, W): each pixel's 3x3 window, tap 3r + s,
+    zero outside the image."""
+    H, W = x.shape[2], x.shape[3]
+    xp = F.pad(x, (1, 1, 1, 1))
+    return torch.stack([xp[:, :, r:r + H, s:s + W] for r in range(3)
+                        for s in range(3)], dim=2)
+
+
+def conv3x3_fprop_reference(x: torch.Tensor, w: torch.Tensor,
+                            groups: int) -> torch.Tensor:
+    """Plain version of the forward: y (M, G·C_out, H, W) of x (M, G·C_in,
+    H, W) and w (G·C_out, C_in, 3, 3), a stride-1 SAME grouped convolution
+    written out as the windows' products."""
+    M, _, H, W = x.shape
+    G, cin, cout = groups, w.shape[1], w.shape[0] // groups
+    patches = _conv_patches(x).reshape(M, G, cin, 9, H, W)
+    y = torch.einsum("mgckhw,gnck->mgnhw", patches,
+                     w.reshape(G, cout, cin, 9))
+    return y.reshape(M, G * cout, H, W)
+
+
+def conv3x3_dgrad_reference(g: torch.Tensor, w: torch.Tensor,
+                            groups: int) -> torch.Tensor:
+    """Plain version of the input gradient: dx (M, G·C_in, H, W) of gy (M,
+    G·C_out, H, W) through w, the forward with the window turned by 180°
+    and the channel roles swapped."""
+    G, cin, cout = groups, w.shape[1], w.shape[0] // groups
+    turned = w.reshape(G, cout, cin, 9).flip(-1).transpose(1, 2)
+    return conv3x3_fprop_reference(g, turned.reshape(G * cin, cout, 3, 3), G)
+
+
+def conv3x3_wgrad_reference(x: torch.Tensor, g: torch.Tensor,
+                            groups: int) -> torch.Tensor:
+    """Plain version of the weight gradient: dw (G·C_out, C_in, 3, 3), each
+    tap's x window times gy summed over every pixel."""
+    M, _, H, W = x.shape
+    G, cin, cout = groups, x.shape[1] // groups, g.shape[1] // groups
+    patches = _conv_patches(x).reshape(M, G, cin, 9, H, W)
+    dw = torch.einsum("mgckhw,mgnhw->gnck", patches,
+                      g.reshape(M, G, cout, H, W))
+    return dw.reshape(G * cout, cin, 3, 3)
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_library():
+    from fumi_tpu_torch.ops import _build
+    lib = _build.load("conv3x3")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.conv3x3_fprop_launch, lib.conv3x3_dgrad_launch):
+        fn.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        fn.restype = i32
+    lib.conv3x3_wgrad_launch.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
+    lib.conv3x3_wgrad_launch.restype = i32
+    lib.conv3x3_wgrad_partial_floats.argtypes = [i32] * 3
+    lib.conv3x3_wgrad_partial_floats.restype = ctypes.c_longlong
+    return lib
+
+
+def _conv_nhwc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in channels_last memory at a 16-byte aligned address."""
+    t = t.contiguous(memory_format=torch.channels_last)
+    if t.data_ptr() % 16:
+        t = torch.empty_like(t, memory_format=torch.channels_last).copy_(t)
+    return t
+
+
+def _conv_launch(kind: str, a: torch.Tensor, b: torch.Tensor,
+                 groups: int) -> torch.Tensor:
+    """One call of an entry point of ``csrc/conv3x3.cu``: fprop (x, w),
+    dgrad (gy, w) or wgrad (x, gy)."""
+    G = groups
+    a = _conv_nhwc(a)
+    b = _conv_nhwc(b) if kind == "wgrad" else b.contiguous()
+    M, _, H, W = a.shape
+    if kind == "wgrad":
+        cin, cout = a.shape[1] // G, b.shape[1] // G
+        out = torch.empty((G * cout, cin, 3, 3), dtype=a.dtype,
+                          device=a.device)
+    else:
+        cin, cout = b.shape[1], b.shape[0] // G
+        n = cout if kind == "fprop" else cin
+        out = torch.empty((M, H, W, G * n), dtype=a.dtype,
+                          device=a.device).permute(0, 3, 1, 2)
+    plan = conv3x3_plan(kind, M, H, W, G, cin, cout, _sm_count(a.device.index))
+    lib = _conv_library()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if kind == "wgrad":
+        part = torch.empty(
+            (plan.splits * lib.conv3x3_wgrad_partial_floats(G, cin, cout),),
+            dtype=a.dtype, device=a.device)
+        err = lib.conv3x3_wgrad_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), part.data_ptr(), M, H,
+            W, G, cin, cout, plan.splits, plan.rows, plan.piece, stream)
+    else:
+        # the weight packed for the main loop (the narrow forward reads it
+        # where it lies)
+        wp = None if kind == "fprop" and cin <= 3 else torch.empty(
+            (b.numel(),), dtype=a.dtype, device=a.device)
+        fn = (lib.conv3x3_fprop_launch if kind == "fprop"
+              else lib.conv3x3_dgrad_launch)
+        err = fn(a.data_ptr(), b.data_ptr(),
+                 None if wp is None else wp.data_ptr(), out.data_ptr(), M, H,
+                 W, G, cin, cout, plan.tile_m, stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3 {kind} kernel launch failed with CUDA "
+                           f"error {err} (shapes {tuple(a.shape)}, "
+                           f"{tuple(b.shape)}, groups {G}; {plan})")
+    _CONV_ENTRY[kind].launches += 1
+    return out
+
+
+_CONV_REFERENCE = {"fprop": conv3x3_fprop_reference,
+                   "dgrad": conv3x3_dgrad_reference,
+                   "wgrad": conv3x3_wgrad_reference}
+
+
+def _conv(kind: str, a: torch.Tensor, b: torch.Tensor,
+          groups: int) -> torch.Tensor:
+    if a.device.type == "cpu":
+        return _CONV_REFERENCE[kind](a, b, groups)
+    return _conv_launch(kind, a, b, groups)
+
+
+class _Conv3x3Fprop(torch.autograd.Function):
+    """y = fprop(x, w); bilinear, so its backward is the other two entry
+    points: g_x = dgrad(gy, w), g_w = wgrad(x, gy)."""
+
+    @staticmethod
+    def forward(ctx, x, w, groups):
+        ctx.save_for_backward(x, w)
+        ctx.groups = groups
+        return _conv("fprop", x, w, groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        G = ctx.groups
+        gx = _Conv3x3Dgrad.apply(gy, w, G) if ctx.needs_input_grad[0] else None
+        gw = _Conv3x3Wgrad.apply(x, gy, G) if ctx.needs_input_grad[1] else None
+        return gx, gw, None
+
+
+class _Conv3x3Dgrad(torch.autograd.Function):
+    """dx = dgrad(g, w); with c the cotangent of dx: g_g = fprop(c, w),
+    g_w = wgrad(c, g)."""
+
+    @staticmethod
+    def forward(ctx, g, w, groups):
+        ctx.save_for_backward(g, w)
+        ctx.groups = groups
+        return _conv("dgrad", g, w, groups)
+
+    @staticmethod
+    def backward(ctx, c):
+        g, w = ctx.saved_tensors
+        G = ctx.groups
+        gg = _Conv3x3Fprop.apply(c, w, G) if ctx.needs_input_grad[0] else None
+        gw = _Conv3x3Wgrad.apply(c, g, G) if ctx.needs_input_grad[1] else None
+        return gg, gw, None
+
+
+class _Conv3x3Wgrad(torch.autograd.Function):
+    """dw = wgrad(x, g); with c the cotangent of dw: g_x = dgrad(g, c),
+    g_g = fprop(x, c)."""
+
+    @staticmethod
+    def forward(ctx, x, g, groups):
+        ctx.save_for_backward(x, g)
+        ctx.groups = groups
+        return _conv("wgrad", x, g, groups)
+
+    @staticmethod
+    def backward(ctx, c):
+        x, g = ctx.saved_tensors
+        G = ctx.groups
+        gx = _Conv3x3Dgrad.apply(g, c, G) if ctx.needs_input_grad[0] else None
+        gg = _Conv3x3Fprop.apply(x, c, G) if ctx.needs_input_grad[1] else None
+        return gx, gg, None
+
+
+def _check_conv3x3(kind: str, a: torch.Tensor, b: torch.Tensor,
+                   groups: int) -> None:
+    """fprop (x, w), dgrad (gy, w) or wgrad (x, gy): activations (M, G·C,
+    H, W), the weight (G·C_out, C_in, 3, 3); one device and dtype, fp32 on
+    a card, fp32 or fp64 on the CPU; channel counts the kernels take."""
+    who = "conv3x3_" + kind
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who} runs on cuda or cpu, not {a.device}")
+    dtypes = (torch.float32,) if a.device.type == "cuda" else (
+        torch.float32, torch.float64)
+    if a.dtype not in dtypes or b.dtype != a.dtype or b.device != a.device:
+        raise TypeError(f"{who} on {a.device.type} computes "
+                        f"{', '.join(map(str, dtypes))} on one device, got "
+                        f"{a.dtype} on {a.device} and {b.dtype} on "
+                        f"{b.device}")
+    G = groups
+    ok = a.dim() == 4 and b.dim() == 4 and G >= 1
+    if ok and kind == "wgrad":
+        ok = a.shape[0] == b.shape[0] and a.shape[2:] == b.shape[2:] and \
+            a.shape[1] % G == 0 and b.shape[1] % G == 0
+        cin, cout = a.shape[1] // G, b.shape[1] // G
+    elif ok:
+        cin, cout = b.shape[1], b.shape[0] // G
+        ok = b.shape[0] % G == 0 and tuple(b.shape[2:]) == (3, 3) and \
+            a.shape[1] == G * (cin if kind == "fprop" else cout)
+    if not ok or not conv3x3_supported(cin, cout):
+        raise ValueError(f"{who}: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} at groups {G} are not a 3x3 "
+                         f"convolution the kernels take (C_out a multiple of "
+                         f"4, C_in a multiple of 4 or at most 3)")
+
+
+@spanned
+def conv3x3_fprop(x: torch.Tensor, w: torch.Tensor,
+                  groups: int = 1) -> torch.Tensor:
+    """A stride-1 SAME 3x3 grouped convolution, ``F.conv2d(x, w, padding=1,
+    groups=groups)`` without bias: x (M, G·C_in, H, W), w (G·C_out, C_in,
+    3, 3) -> (M, G·C_out, H, W) in channels_last memory. Differentiable to
+    any order: its backward is :func:`conv3x3_dgrad` and
+    :func:`conv3x3_wgrad`, whose backwards are again the three. A CUDA fp32
+    x launches ``csrc/conv3x3.cu`` (``launches`` counts each call of this
+    entry point, the backwards' too); a CPU x (fp32 or fp64) runs
+    :func:`conv3x3_fprop_reference`."""
+    _check_conv3x3("fprop", x, w, groups)
+    return _Conv3x3Fprop.apply(x, w, groups)
+
+
+@spanned
+def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor,
+                  groups: int = 1) -> torch.Tensor:
+    """The input gradient of :func:`conv3x3_fprop` through w: gy (M,
+    G·C_out, H, W) -> dx (M, G·C_in, H, W); differentiable, as the
+    forward. Plain version: :func:`conv3x3_dgrad_reference`."""
+    _check_conv3x3("dgrad", g, w, groups)
+    return _Conv3x3Dgrad.apply(g, w, groups)
+
+
+@spanned
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
+                  groups: int = 1) -> torch.Tensor:
+    """The weight gradient of :func:`conv3x3_fprop`: x (M, G·C_in, H, W)
+    and gy (M, G·C_out, H, W) -> dw (G·C_out, C_in, 3, 3); differentiable,
+    as the forward. A card runs two kernels, the partials of the plan's
+    splits of the positions and their sum. Plain version:
+    :func:`conv3x3_wgrad_reference`."""
+    _check_conv3x3("wgrad", x, g, groups)
+    return _Conv3x3Wgrad.apply(x, g, groups)
+
+
+conv3x3_fprop.launches = 0
+conv3x3_dgrad.launches = 0
+conv3x3_wgrad.launches = 0
+_CONV_ENTRY = {"fprop": conv3x3_fprop, "dgrad": conv3x3_dgrad,
+               "wgrad": conv3x3_wgrad}

@@ -26,16 +26,21 @@ benchmark's cells, read from ``benchmark/configs`` and
   episodes of that table, each also jittered; the table in bf16; raw rows
   of 84·84·3 in fp32, bf16 and uint8 (4096 of them, past the L2);
 - ``norm_relu_pool``: its forward, backward and double backward at
-  ``conv4.train``'s eight shapes.
+  ``conv4.train``'s eight shapes;
+- ``conv3x3``: its fprop, dgrad and wgrad at ``conv4.train``'s eight call
+  shapes (block 0's images take no dgrad), beside cuDNN's ``F.conv2d``
+  and its gradients, the library yardstick.
 
 The bounds are the least time of ``benchmark/costs/peaks.py:least_seconds``
 on the work ``benchmark/costs/kernels.py`` counts, the counts the
 benchmark's roofline readers use; ``norm_relu_pool``'s bytes, which
-``benchmark/costs`` does not count, are :data:`NRP_PASS_BYTES` here.
+``benchmark/costs`` does not count, are :data:`NRP_PASS_BYTES` here;
+``conv3x3``'s are the call's products, ``benchmark/costs/maml.py``'s
+``conv_units``, at the fp32 peak.
 
 A subset runs by importing the per-kernel functions, for example
 
-    python3 -c 'import sys; sys.path.insert(0, "scripts"); import kernel_times as t; t.norm_relu_pool_times(t.setup())'
+    python3 -c 'import sys; sys.path.insert(0, "scripts"); import kernel_times as t; t.conv3x3_times(t.setup())'
 
 Needs one CUDA card and ``nvcc``; imports no JAX.
 """
@@ -53,6 +58,7 @@ sys.path.insert(0, HERE)
 
 from benchmark.costs.kernels import (  # noqa: E402
     fused_adapt_cost, gather_bytes, widen_bytes)
+from benchmark.costs.maml import conv_units  # noqa: E402
 from benchmark.costs.peaks import PEAK_BYTES_PER_S, least_seconds  # noqa: E402
 from fumi_tpu_torch.core.config import Config  # noqa: E402
 
@@ -83,12 +89,22 @@ RAW_ROW = CONV4["widths"]["im_size"] ** 2 * CONV4["widths"]["im_channels"]
 # 50 MB L2 as it does while training), the jitter's scale
 TABLE_ROWS, AUG_SCALE = 4096, 0.1
 SOURCES = ("fused_adapt", "gather_rows", "augment_embeddings",
-           "norm_relu_pool")
+           "norm_relu_pool", "conv3x3")
 # conv4.train's norm_relu_pool calls (M images, G channels, side): the
 # support set or the queries of each task, the tasks' channels side by
 # side, each block's input side
 NRP_SHAPES = tuple(
     (m, CONV4["train"]["batch_size"] * CONV4["widths"]["hidden"],
+     CONV4["widths"]["im_size"] >> k)
+    for m in (CONV4["episode"]["num_ways"] * CONV4["episode"]["num_shots"],
+              CONV4["episode"]["num_ways"]
+              * CONV4["episode"]["num_query_train"])
+    for k in range(CONV4["widths"]["blocks"]))
+# conv4.train's convolution calls (M images, groups, C_in a group, side):
+# each block at the support set and at the queries, the tasks as groups
+CONV_SHAPES = tuple(
+    (m, CONV4["train"]["batch_size"],
+     CONV4["widths"]["hidden"] if k else CONV4["widths"]["im_channels"],
      CONV4["widths"]["im_size"] >> k)
     for m in (CONV4["episode"]["num_ways"] * CONV4["episode"]["num_shots"],
               CONV4["episode"]["num_ways"]
@@ -351,10 +367,56 @@ def norm_relu_pool_times(dev) -> None:
         torch.cuda.empty_cache()
 
 
+def conv3x3_times(dev) -> None:
+    """``conv3x3``'s entry points at ``conv4.train``'s call shapes, five
+    calls a graph, beside cuDNN's ``F.conv2d`` and its input or weight
+    gradient (``aten::convolution_backward``, five a graph) and the plain
+    versions (two a graph); the bound is the call's products at the fp32
+    peak, one block's ``conv_units`` times its images and groups."""
+    import torch
+    import torch.nn.functional as F
+    from fumi_tpu_torch.ops import kernels as K
+    units = conv_units(CONV4)[0]
+    hidden = CONV4["widths"]["hidden"]
+    for M, G, cin, side in CONV_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(5)
+
+        def nhwc(c):
+            return torch.randn((M, side, side, G * c), generator=gen,
+                               device=dev).permute(0, 3, 1, 2)
+        x, gy = nhwc(cin), nhwc(hidden)
+        w = torch.randn((G * hidden, cin, 3, 3), generator=gen, device=dev)
+
+        def library(mask):
+            return lambda: torch.ops.aten.convolution_backward(
+                gy, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], G,
+                mask)
+        passes = {
+            "fprop": (lambda: K.conv3x3_fprop(x, w, G),
+                      lambda: K.conv3x3_fprop_reference(x, w, G),
+                      lambda: F.conv2d(x, w, padding=1, groups=G)),
+            "dgrad": (lambda: K.conv3x3_dgrad(gy, w, G),
+                      lambda: K.conv3x3_dgrad_reference(gy, w, G),
+                      library([True, False, False])),
+            "wgrad": (lambda: K.conv3x3_wgrad(x, gy, G),
+                      lambda: K.conv3x3_wgrad_reference(x, gy, G),
+                      library([False, True, False]))}
+        block = CONV4["widths"]["im_size"].bit_length() - side.bit_length()
+        for name, (kernel, plain, cudnn) in passes.items():
+            if name == "dgrad" and block == 0:
+                continue
+            ms = in_turns({"kernel": [kernel] * 5, "plain": [plain] * 2,
+                           "cudnn": [cudnn] * 5})
+            report(f"conv3x3 {name} M={M} G={G} C_in={cin} {side}x{side}",
+                   ms, least_seconds(units[block] * M * G, 0))
+        del x, gy, w
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     dev = setup()
     for part in (fused_adapt_times, gather_times, episode_times,
-                 norm_relu_pool_times):
+                 norm_relu_pool_times, conv3x3_times):
         part(dev)
     print(f"card: {card_line()}")
     return 0

@@ -31,7 +31,7 @@ from fumi_tpu_torch.models import mlp
 from fumi_tpu_torch.ops import kernels
 from fumi_tpu_torch.serve import FewShotClassifier
 from fumi_tpu_torch.train import steps
-from scripts.kernel_times import CONV4, NRP_SHAPES
+from scripts.kernel_times import CONV4, CONV_SHAPES, NRP_SHAPES
 
 pytestmark = pytest.mark.cuda
 
@@ -1332,6 +1332,82 @@ def test_norm_relu_pool_launches(cuda_device):
         assert kernels.norm_relu_pool.launches == before + launched
 
 
+# ---------------------------------------------------------------------------
+# conv3x3: conv4's convolutions (csrc/conv3x3.cu)
+# ---------------------------------------------------------------------------
+
+CONV_ENTRIES = ("fprop", "dgrad", "wgrad")
+
+
+def _conv_inputs(dev, M, G, cin, side, seed):
+    """x (M, G·C_in, side, side), w (G·64, C_in, 3, 3) at torch's default
+    init scale, gy (M, G·64, side, side); channels_last activations."""
+    hidden = CONV4["widths"]["hidden"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def nhwc(c):
+        return torch.randn((M, side, side, G * c), generator=gen,
+                           device=dev).permute(0, 3, 1, 2)
+    w = torch.randn((G * hidden, cin, 3, 3), generator=gen, device=dev)
+    return nhwc(cin), w / (9 * cin) ** 0.5, nhwc(hidden)
+
+
+def _conv_passes(x, w, gy, G):
+    return (kernels.conv3x3_fprop(x, w, G), kernels.conv3x3_dgrad(gy, w, G),
+            kernels.conv3x3_wgrad(x, gy, G))
+
+
+def _conv_launches():
+    return [getattr(kernels, "conv3x3_" + k).launches for k in CONV_ENTRIES]
+
+
+@pytest.mark.parametrize(
+    "shape", CONV_SHAPES + ((25, 1, 3, 84), (25, 1, 64, 21), (7, 2, 8, 9)),
+    ids=lambda s: f"M{s[0]}-G{s[1]}-C{s[2]}-{s[3]}x{s[3]}")
+def test_conv3x3_matches_fp64_conv2d(cuda_device, shape):
+    """conv4.train's eight call shapes (groups 4; block 0's dgrad too, which
+    conv4 never launches), shared weights (groups 1) and a small odd one
+    (8 channels, 64 of the 128-pixel tiles): each entry point within 1e-5
+    of its output's largest value from fp64 F.conv2d and its autograd
+    gradients (fp32 sums of 9·C_in products, the weight gradient's
+    partials of a few thousand positions summed in fp64), in channels_last
+    memory, one launch each, and the same bits on a second run."""
+    M, G, cin, side = shape
+    x, w, gy = _conv_inputs(cuda_device, M, G, cin, side, 1)
+    before = _conv_launches()
+    got = _conv_passes(x, w, gy, G)
+    assert _conv_launches() == [n + 1 for n in before]
+    x64, w64 = x.double().requires_grad_(), w.double().requires_grad_()
+    y = torch.nn.functional.conv2d(x64, w64, padding=1, groups=G)
+    want = (y,) + torch.autograd.grad(y, (x64, w64), gy.double())
+    for name, a, b in zip(CONV_ENTRIES, got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        if name != "wgrad":
+            assert a.is_contiguous(memory_format=torch.channels_last), name
+        gap = float((a.double() - b).abs().max()) / float(b.abs().max())
+        assert gap <= 1e-5, (name, gap)
+    for a, b in zip(got, _conv_passes(x, w, gy, G)):
+        assert torch.equal(a, b)
+
+
+def test_conv3x3_refuses_what_the_kernels_do_not_take(cuda_device):
+    """bf16 and fp64 raise on the card (conv4 keeps F.conv2d there), as do
+    channel counts the kernels do not take; an unaligned input is copied
+    to an aligned one."""
+    x, w, gy = _conv_inputs(cuda_device, 2, 1, 8, 6, 2)
+    for dtype in (torch.bfloat16, torch.float64):
+        with pytest.raises(TypeError):
+            kernels.conv3x3_fprop(x.to(dtype), w.to(dtype))
+    with pytest.raises(ValueError):
+        kernels.conv3x3_fprop(x[:, :6], w[:, :6])
+    base = torch.empty(x.numel() + 1, device=cuda_device)
+    shifted = base[1:].view(2, 6, 6, 8).permute(0, 3, 1, 2)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    assert torch.equal(kernels.conv3x3_fprop(shifted, w),
+                       kernels.conv3x3_fprop(x, w))
+
+
 # (side, channels, ways, tasks, support and query images a task, inner
 # steps, step size): a 20-pixel side so block 2 is odd, and conv4.train's
 # episode (benchmark/configs/maml-conv4-inat-anim.json)
@@ -1378,12 +1454,42 @@ def _leaf_gaps(got, want):
             / max(norms[k], median) for k in want}
 
 
+def test_conv4_step_runs_no_cudnn_convolution(cuda_device):
+    """A conv4.train-shaped second-order MAML step: no aten convolution
+    operator runs (so no cuDNN kernel), every device operation whose name
+    ``benchmark/convs.py``'s ``PARTS`` finds is one of
+    ``csrc/conv3x3.cu``'s, and each entry point launches as often as the
+    CPU test counts its calls (tests/test_torch_conv3x3.py): 11n + 4
+    fprop and wgrad, 9n + 3 dgrad for n inner steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from benchmark.convs import PARTS
+    shape = CONV4_STEPS["conv4.train"]
+    n = shape[6]
+    _maml_conv4_step(cuda_device, shape)
+    before = _conv_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _maml_conv4_step(cuda_device, shape)
+        torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_conv_launches(), before)] == [
+        11 * n + 4, 9 * n + 3, 11 * n + 4]
+    ops = {e.name for e in prof.events()}
+    assert not ops & {"aten::convolution", "aten::_convolution",
+                      "aten::cudnn_convolution", "aten::convolution_backward"}
+    kernels_run = {k.name for e in prof.events() for k in e.kernels}
+    convs = {k for k in kernels_run if any(p in k for p in PARTS)}
+    assert convs and all("conv3x3_" in k for k in convs), convs
+    for entry in CONV_ENTRIES:
+        assert any(f"conv3x3_{entry}" in k for k in convs), entry
+
+
 @pytest.mark.parametrize("shape", list(CONV4_STEPS))
 def test_maml_conv4_second_order_step_matches_written_out(cuda_device,
                                                          monkeypatch, shape):
-    """A second-order MAML step through Conv-4 through the op against the
-    same step through the written-out chain on the card, deterministic
-    cuDNN; the op launches 4 blocks x (n + 1 forwards, n inner and n + 1
+    """A second-order MAML step through Conv-4 through the port's ops (the
+    convolutions' kernels and the norm op) against the same step through
+    ``F.conv2d`` and the written-out chain on the card, deterministic
+    cuDNN; the norm op launches 4 blocks x (n + 1 forwards, n inner and n + 1
     outer backwards, n double backwards) for n inner steps, 88 at
     conv4.train.
 
