@@ -29,7 +29,13 @@ The counterpart of ``fumi_tpu/metalearn/inner_loop.py``'s
   outputs) is whole-step checkpointing here, because torch's selective
   checkpointing refuses a region whose graph is differentiated twice
   (the inner ``autograd.grad`` and the outer backward), which is what a
-  second-order step is.
+  second-order step is. A checkpointed step's inner gradient unpacks what
+  its forward saved, so torch builds the support forward twice in the
+  step (:func:`_replaying`). Each recompute of a step inside the outer
+  backward runs inside a span ``inner.recompute`` and ends in the memory
+  counter of that name (``utils/profiling.py``), the step's graph rebuilt
+  beside what the outer backward still holds. Both are inert without a
+  profiler.
 
 - :func:`recording` keeps, while it is open, each :func:`adapt` call's
   per-task states θ_0 … θ_n and the support loss at θ_0 … θ_{n−1}, all
@@ -53,7 +59,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from fumi_tpu_torch.core.episode import Episode
-from fumi_tpu_torch.utils.profiling import span
+from fumi_tpu_torch.utils.profiling import count_memory, span
 
 Params = Dict[str, torch.Tensor]
 Mask = Optional[Dict[str, bool]]
@@ -108,22 +114,39 @@ def remat_active(remat: Remat, n_steps: int) -> bool:
 
 
 def _replaying(fn: Callable, gen: Optional[torch.Generator]) -> Callable:
-    """``fn`` for ``checkpoint``: its recompute sees ``gen`` as the first
-    run saw it and leaves ``gen`` as it found it, so the dropout masks
-    drawn again are the same masks."""
-    if gen is None:
-        return fn
-    state = gen.get_state()
-    ran = []
+    """``fn`` for ``checkpoint``. Its first call is the step's forward.
+    Torch calls it again wherever autograd unpacks what the step saved:
+    inside the first call, where the step's own inner gradient needs the
+    support forward that ``checkpoint`` kept no tensor of (torch builds it
+    again and stops there), and inside the outer backward, the recompute
+    proper, which runs inside a span ``inner.recompute`` that ends in the
+    memory counter of that name. Every later call sees ``gen`` as the
+    first call saw it and leaves ``gen`` as it found it, so the dropout
+    masks drawn again are the same masks."""
+    state = None if gen is None else gen.get_state()
+    calls = []  # "first" while the first call runs, "done" after it
+
+    def recompute(*args):
+        with span("inner.recompute"):
+            try:
+                return fn(*args)
+            finally:
+                count_memory("inner.recompute")
 
     def run(*args):
-        if not ran:
-            ran.append(True)
-            return fn(*args)
+        if not calls:
+            calls.append("first")
+            try:
+                return fn(*args)
+            finally:
+                calls[0] = "done"
+        body = recompute if calls[0] == "done" else fn
+        if gen is None:
+            return body(*args)
         after = gen.get_state()
         gen.set_state(state)
         try:
-            return fn(*args)
+            return body(*args)
         finally:
             gen.set_state(after)
     return run

@@ -8,6 +8,14 @@ the pool, the layouts and the bf16 activation storage are conv4's
 (``models/conv4.py``): NHWC images in, per-task weights as channel groups
 of one grouped convolution, statistics per task.
 
+In fp32 on a card the convolutions leave cuDNN, under conv4's rule
+(``conv4.conv_kernel_applies``): each 3×3 unit runs the port's implicit
+GEMM (``ops/kernels.py:conv3x3_fprop``, ``csrc/conv3x3.cu``), whose
+gradients of every order are its kernels too, and the 1×1 shortcut is a
+per-group GEMM (:func:`pointwise_conv`, cuBLAS with TF32 off), whose
+gradients are autograd's GEMMs. The norm, leaky ReLU, residual add and
+pool stay written out. The CPU, fp64 and bf16 keep ``F.conv2d``.
+
 Parameters under a ``prefix``: ``{prefix}blocks.{i}.{c1,c2,c3,sc}.``
 ``weight`` (out, in, kh, kw), ``.bias``, ``.gamma``, ``.beta``, and
 ``{prefix}head.weight`` / ``.bias``.
@@ -21,10 +29,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from fumi_tpu_torch.models import layers
+from fumi_tpu_torch.models import conv4, layers
 from fumi_tpu_torch.models.conv4 import (batch_stat_norm, conv_init,
                                          from_groups, is_low_precision,
                                          maxpool2x2, to_groups, unit)
+from fumi_tpu_torch.ops import kernels
 
 Params = Dict[str, torch.Tensor]
 CHANNELS: Tuple[int, ...] = (64, 160, 320, 640)
@@ -39,14 +48,39 @@ UNITS = ("c1", "c2", "c3", "sc")
 STAGE_REMAT_OVERRIDE: Optional[Tuple[bool, ...]] = None
 
 
+def pointwise_conv(y: torch.Tensor, w: torch.Tensor,
+                   groups: int) -> torch.Tensor:
+    """The 1×1 grouped convolution ``F.conv2d(y, w, groups=groups)`` as one
+    batched GEMM of the groups: y (M, G·C_in, H, W), w (G·C_out, C_in, 1,
+    1) -> (M, G·C_out, H, W) in channels_last memory, through the port's
+    fp32 product (``layers.matmul_f32acc``)."""
+    M, _, H, W = y.shape
+    G, cin = groups, w.shape[1]
+    cout = w.shape[0] // G
+    x = y.permute(0, 2, 3, 1).reshape(M * H * W, G, cin).transpose(0, 1)
+    z = layers.matmul_f32acc(x, w.reshape(G, cout, cin).transpose(1, 2))
+    return z.transpose(0, 1).reshape(M, H, W, G * cout).permute(0, 3, 1, 2)
+
+
+def _conv(y: torch.Tensor, w: torch.Tensor, compute_dtype, groups: int,
+          low: bool) -> torch.Tensor:
+    """A unit's convolution (SAME: padding 1 for 3×3, 0 for the 1×1
+    shortcut): in fp32 on a card the port's 3×3 kernels or the 1×1 GEMM,
+    elsewhere ``F.conv2d``."""
+    if w.shape[-1] == 3 and conv4.conv_kernel_applies(y, w, groups, low):
+        return kernels.conv3x3_fprop(y, w, groups)
+    if w.shape[-1] == 1 and conv4.fused_norm_applies(y, low):
+        return pointwise_conv(y, w, groups)
+    return layers.conv2d_f32acc(y, w, compute_dtype,
+                                padding=w.shape[-1] // 2, groups=groups,
+                                keep_dtype=low)
+
+
 def _conv_bn(p: Params, y: torch.Tensor, compute_dtype, groups: int
              ) -> torch.Tensor:
-    """conv (SAME: padding 1 for 3×3, 0 for the 1×1 shortcut) → batch-stat
-    norm; bf16 out under the bf16 policy."""
+    """conv → batch-stat norm; bf16 out under the bf16 policy."""
     low = is_low_precision(compute_dtype)
-    z = layers.conv2d_f32acc(y, p["weight"], compute_dtype,
-                             padding=p["weight"].shape[-1] // 2,
-                             groups=groups, keep_dtype=low)
+    z = _conv(y, p["weight"], compute_dtype, groups, low)
     z = batch_stat_norm(z, p, low)
     return z.to(compute_dtype) if low else z
 

@@ -46,8 +46,9 @@ The counterparts of ``fumi_tpu/ops/pallas_kernels.py``:
   :func:`norm_relu_pool_double_backward_reference`, the same closed forms
   in PyTorch.
 - :func:`conv3x3_fprop`, :func:`conv3x3_dgrad`, :func:`conv3x3_wgrad`:
-  conv4's stride-1 SAME 3x3 grouped convolution, its input gradient and
-  its weight gradient as fp32 implicit GEMMs on the CUDA cores
+  the stride-1 SAME 3x3 grouped convolution of conv4 and of resnet12's
+  units, its input gradient and its weight gradient as fp32 implicit
+  GEMMs on the CUDA cores
   (``csrc/conv3x3.cu``, tiled by :func:`conv3x3_plan`), three autograd
   Functions whose backwards are each other, so every order of
   differentiation stays on them. They replace no TPU kernel: the JAX
@@ -1207,7 +1208,7 @@ norm_relu_pool.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# conv4's 3x3 convolutions (csrc/conv3x3.cu)
+# conv4's and resnet12's 3x3 convolutions (csrc/conv3x3.cu)
 # ---------------------------------------------------------------------------
 
 # csrc/conv3x3.cu's fixed tiles: output channels a fprop/dgrad block (kTN);
@@ -1215,9 +1216,11 @@ norm_relu_pool.launches = 0
 # pixels (kNP)
 _CONV_TN, _CONV_WP, _CONV_WX, _CONV_NP = 64, 48, 96, 64
 # blocks an SM holds of a 128-pixel fprop/dgrad or of a wgrad (registers
-# and shared memory: 55 KB and 74 KB), and the fewest chunks a wgrad split
-# walks
-_CONV_RESIDENT, _CONV_MIN_CHUNKS = 2, 4
+# and shared memory: 55 KB and 74 KB); the fewest chunks a wgrad split
+# walks, and the most: a split's partial is one fp32 sum over its chunks'
+# positions, whose rounding grows with its length, and wide channel tiles
+# (a few splits of many tiles) leave the last wave of blocks mostly empty
+_CONV_RESIDENT, _CONV_MIN_CHUNKS, _CONV_MAX_CHUNKS = 2, 4, 160
 CONV3X3_KINDS = ("fprop", "dgrad", "wgrad")
 
 
@@ -1254,9 +1257,10 @@ def conv3x3_plan(kind: str, M: int, H: int, W: int, G: int, cin: int,
     fprop/dgrad: 128-pixel tiles where they make a wave of the card
     (``_CONV_RESIDENT`` blocks an SM), 64 below. wgrad: enough splits of the
     positions for two such waves over the output tiles, each walking at
-    least ``_CONV_MIN_CHUNKS`` chunks where there are so many; a chunk is
-    64 pixels (C_in <= 3), else one row of up to 48 pixels (a longer row
-    in pieces) or as many whole short rows as fit."""
+    least ``_CONV_MIN_CHUNKS`` chunks where there are so many, and at most
+    ``_CONV_MAX_CHUNKS``; a chunk is 64 pixels (C_in <= 3), else one row of
+    up to 48 pixels (a longer row in pieces) or as many whole short rows as
+    fit."""
     if kind not in CONV3X3_KINDS:
         raise ValueError(f"conv3x3_plan: kind is one of {CONV3X3_KINDS}, "
                          f"got {kind!r}")
@@ -1282,7 +1286,8 @@ def conv3x3_plan(kind: str, M: int, H: int, W: int, G: int, cin: int,
             if piece == W else 1
         chunks = _cdiv(M * H * _cdiv(W, piece), rows)
         tiles = 3 * G * _cdiv(cout, 64) * _cdiv(cin, 64)
-    splits = min(_cdiv(chunks, _CONV_MIN_CHUNKS), _cdiv(target, tiles))
+    splits = max(min(_cdiv(chunks, _CONV_MIN_CHUNKS), _cdiv(target, tiles)),
+                 _cdiv(chunks, _CONV_MAX_CHUNKS))
     return Conv3x3Plan(0, splits, rows, piece)
 
 

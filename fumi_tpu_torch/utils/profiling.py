@@ -41,6 +41,9 @@ The spans, by name (nesting gives the parent):
 - ``train.loss``: the family's training loss, the forward of the step;
 - ``inner.step``: one inner SGD step of ``metalearn/inner_loop.py:adapt``
   (forward, inner gradient, update), with or without an outer graph;
+- ``inner.recompute``: one recompute of a checkpointed inner step
+  (``--tpu_remat``, ``metalearn/inner_loop.py``) inside the outer
+  backward: the step's forward and inner gradient built again;
 - ``inner.query``: the query forward and the outer loss after the inner
   loop;
 - ``train.meta_grad``: the outer backward, ``torch.autograd.grad`` of the
@@ -63,7 +66,9 @@ The points:
 - ``train.loss``: the end of the training loss, where the second-order
   graph is held for the outer backward;
 - ``train.meta_grad``: the end of the outer backward, the graph freed and
-  the gradients held.
+  the gradients held;
+- ``inner.recompute``: the end of each recompute of a checkpointed inner
+  step, its graph rebuilt beside what the outer backward still holds.
 """
 
 from __future__ import annotations

@@ -29,14 +29,17 @@ benchmark's cells, read from ``benchmark/configs`` and
   ``conv4.train``'s eight shapes;
 - ``conv3x3``: its fprop, dgrad and wgrad at ``conv4.train``'s eight call
   shapes (block 0's images take no dgrad), beside cuDNN's ``F.conv2d``
-  and its gradients, the library yardstick.
+  and its gradients, the library yardstick; and at ``resnet12.train``'s
+  sixteen 3×3 call shapes (each stage's first and second unit at the
+  support set and the queries), beside cuDNN (no plain version).
 
 The bounds are the least time of ``benchmark/costs/peaks.py:least_seconds``
 on the work ``benchmark/costs/kernels.py`` counts, the counts the
 benchmark's roofline readers use; ``norm_relu_pool``'s bytes, which
 ``benchmark/costs`` does not count, are :data:`NRP_PASS_BYTES` here;
 ``conv3x3``'s are the call's products, ``benchmark/costs/maml.py``'s
-``conv_units``, at the fp32 peak.
+``conv_units`` and ``benchmark/costs/maml_resnet12.py``'s
+``conv_layers``, at the fp32 peak.
 
 A subset runs by importing the per-kernel functions, for example
 
@@ -59,6 +62,7 @@ sys.path.insert(0, HERE)
 from benchmark.costs.kernels import (  # noqa: E402
     fused_adapt_cost, gather_bytes, widen_bytes)
 from benchmark.costs.maml import conv_units  # noqa: E402
+from benchmark.costs.maml_resnet12 import conv_layers  # noqa: E402
 from benchmark.costs.peaks import PEAK_BYTES_PER_S, least_seconds  # noqa: E402
 from fumi_tpu_torch.core.config import Config  # noqa: E402
 
@@ -69,9 +73,11 @@ def _bench_json(*parts):
 
 
 # the widths of the benchmark's cells: fumi.serve and fumi.train run
-# fumi-inat-anim, conv4.train runs maml-conv4-inat-anim
+# fumi-inat-anim, conv4.train runs maml-conv4-inat-anim, resnet12.train
+# maml-resnet12-inat-anim
 FUMI = _bench_json("configs", "fumi-inat-anim.json")
 CONV4 = _bench_json("configs", "maml-conv4-inat-anim.json")
+RESNET12 = _bench_json("configs", "maml-resnet12-inat-anim.json")
 B, WAYS = FUMI["train"]["batch_size"], FUMI["episode"]["num_ways"]
 SHOTS = FUMI["episode"]["num_shots"]
 TRAIN_Q = FUMI["episode"]["num_query_train"]
@@ -110,6 +116,17 @@ CONV_SHAPES = tuple(
               CONV4["episode"]["num_ways"]
               * CONV4["episode"]["num_query_train"])
     for k in range(CONV4["widths"]["blocks"]))
+# resnet12.train's 3x3 convolution calls (M images, groups, C_in and C_out a
+# group, side): each stage's first unit (C_in -> C_out) and second (C_out
+# -> C_out, as the third), at the support set and at the queries
+RESNET12_CONV_SHAPES = tuple(
+    (m, RESNET12["train"]["batch_size"], cin, cout, side)
+    for m in (RESNET12["episode"]["num_ways"]
+              * RESNET12["episode"]["num_shots"],
+              RESNET12["episode"]["num_ways"]
+              * RESNET12["episode"]["num_query_train"])
+    for _, unit, side, cin, cout, k, _ in conv_layers(RESNET12)
+    if k == 3 and unit in ("c1", "c2"))
 # bytes a pass must move, in units of the activation's bytes (4 M H W G):
 # the forward reads z twice and writes a quarter; the backward reads z and
 # g_out twice and writes g_z; the double backward reads z, v_z and g_out
@@ -368,24 +385,35 @@ def norm_relu_pool_times(dev) -> None:
 
 
 def conv3x3_times(dev) -> None:
-    """``conv3x3``'s entry points at ``conv4.train``'s call shapes, five
-    calls a graph, beside cuDNN's ``F.conv2d`` and its input or weight
-    gradient (``aten::convolution_backward``, five a graph) and the plain
-    versions (two a graph); the bound is the call's products at the fp32
-    peak, one block's ``conv_units`` times its images and groups."""
+    """``conv3x3``'s entry points at ``conv4.train``'s and
+    ``resnet12.train``'s call shapes, five calls a graph, beside cuDNN's
+    ``F.conv2d`` and its input or weight gradient
+    (``aten::convolution_backward``, five a graph) and, at conv4's, the
+    plain versions (two a graph; at ResNet-12's widths their windows take
+    gigabytes); the bound is the call's products at the fp32 peak, the
+    layer's operations for one image (``conv_units``, ``conv_layers``)
+    times its images and groups."""
     import torch
     import torch.nn.functional as F
     from fumi_tpu_torch.ops import kernels as K
     units = conv_units(CONV4)[0]
     hidden = CONV4["widths"]["hidden"]
-    for M, G, cin, side in CONV_SHAPES:
+    ops = {(side, cin, cout): n for _, _, side, cin, cout, k, n
+           in conv_layers(RESNET12) if k == 3}
+    calls = [("", M, G, cin, hidden, side,
+              units[CONV4["widths"]["im_size"].bit_length()
+                    - side.bit_length()], True)
+             for M, G, cin, side in CONV_SHAPES]
+    calls += [("resnet12 ", M, G, cin, cout, side, ops[(side, cin, cout)],
+               False) for M, G, cin, cout, side in RESNET12_CONV_SHAPES]
+    for label, M, G, cin, cout, side, per_image, plain in calls:
         gen = torch.Generator(device=dev).manual_seed(5)
 
         def nhwc(c):
             return torch.randn((M, side, side, G * c), generator=gen,
                                device=dev).permute(0, 3, 1, 2)
-        x, gy = nhwc(cin), nhwc(hidden)
-        w = torch.randn((G * hidden, cin, 3, 3), generator=gen, device=dev)
+        x, gy = nhwc(cin), nhwc(cout)
+        w = torch.randn((G * cout, cin, 3, 3), generator=gen, device=dev)
 
         def library(mask):
             return lambda: torch.ops.aten.convolution_backward(
@@ -401,14 +429,17 @@ def conv3x3_times(dev) -> None:
             "wgrad": (lambda: K.conv3x3_wgrad(x, gy, G),
                       lambda: K.conv3x3_wgrad_reference(x, gy, G),
                       library([False, True, False]))}
-        block = CONV4["widths"]["im_size"].bit_length() - side.bit_length()
-        for name, (kernel, plain, cudnn) in passes.items():
-            if name == "dgrad" and block == 0:
+        for name, (kernel, reference, cudnn) in passes.items():
+            if name == "dgrad" and cin <= 3:  # the images take no dgrad
                 continue
-            ms = in_turns({"kernel": [kernel] * 5, "plain": [plain] * 2,
-                           "cudnn": [cudnn] * 5})
-            report(f"conv3x3 {name} M={M} G={G} C_in={cin} {side}x{side}",
-                   ms, least_seconds(units[block] * M * G, 0))
+            routes = {"kernel": [kernel] * 5}
+            if plain:
+                routes["plain"] = [reference] * 2
+            routes["cudnn"] = [cudnn] * 5
+            shape = f"C_in={cin}" + ("" if plain else f" C_out={cout}")
+            report(f"conv3x3 {label}{name} M={M} G={G} {shape} "
+                   f"{side}x{side}", in_turns(routes),
+                   least_seconds(per_image * M * G, 0))
         del x, gy, w
         torch.cuda.empty_cache()
 

@@ -4,8 +4,9 @@
 ``gradgradcheck`` of the three autograd Functions, whose backwards are
 each other; a second-order MAML step of Conv-4 through them against the
 ``F.conv2d`` chain in fp64, with the calls of each entry point the card
-launches; conv4's dispatch (the CPU, bf16, fp64 and resnet12 keep
-``F.conv2d``); the plan and what it refuses. The kernels themselves are
+launches; the backbones' dispatch (the CPU, bf16 and fp64 keep
+``F.conv2d``); the plan, at conv4's and ResNet-12's calls, and what it
+refuses. The kernels themselves are
 held against fp64 ``F.conv2d`` on the card (``tests/test_torch_cuda.py``)."""
 
 import pytest
@@ -129,8 +130,9 @@ def test_maml_second_order_step_through_the_functions(monkeypatch):
 
 
 def test_dispatch_keeps_conv2d_off_the_card(monkeypatch):
-    """The CPU in fp32 and fp64, bf16, and resnet12 anywhere never reach the
-    kernels' entry point: ``F.conv2d`` computes every convolution."""
+    """The CPU in fp32 and fp64, and bf16, never reach the kernels' entry
+    point, in conv4 or in resnet12: ``F.conv2d`` computes every
+    convolution, the 1×1 shortcuts too."""
     calls = []
     monkeypatch.setattr(kernels, "conv3x3_fprop",
                         lambda *a: calls.append(a))
@@ -206,6 +208,51 @@ def test_plan():
     assert plan("wgrad", 2, 100, 100, 1, 64, 64, 132) == (0, 150, 1, 48)
     assert plan("wgrad", 1, 2, 10, 1, 64, 64, 132) == (0, 1, 4, 10)
     assert plan("wgrad", 1, 1, 1, 1, 3, 4, 132) == (0, 1, 1, 1)
+
+
+# resnet12.train's 3x3 calls (side, C_in, C_out) at 4 groups, and the wgrad
+# plan each gets on 132 SMs at the support set (M=25) and the queries
+# (M=160)
+RESNET12_WGRAD = {
+    (84, 3, 64): ((0, 132, 1, 1), (0, 132, 1, 1)),
+    (84, 64, 64): ((0, 44, 1, 48), (0, 168, 1, 48)),
+    (42, 64, 160): ((0, 15, 1, 42), (0, 42, 1, 42)),
+    (42, 160, 160): ((0, 7, 1, 42), (0, 42, 1, 42)),
+    (21, 160, 320): ((0, 3, 2, 21), (0, 11, 2, 21)),
+    (21, 320, 320): ((0, 2, 2, 21), (0, 11, 2, 21)),
+    (10, 320, 640): ((0, 1, 4, 10), (0, 3, 4, 10)),
+    (10, 640, 640): ((0, 1, 4, 10), (0, 3, 4, 10))}
+
+
+def _resnet12_calls():
+    side, cin = 84, 3
+    for ch in resnet12.CHANNELS:
+        yield side, cin, ch
+        yield side, ch, ch
+        side, cin = side // 2, ch
+
+
+@pytest.mark.parametrize("M", [25, 160])
+@pytest.mark.parametrize("call", list(_resnet12_calls()),
+                         ids=lambda c: f"{c[0]}x{c[0]}-{c[1]}-{c[2]}")
+def test_plan_at_resnet12_widths(call, M):
+    """ResNet-12's calls at 64-640 channels (160 output channels fill 2.5
+    of the 64-wide tiles): 128-pixel fprop and dgrad tiles, every call a
+    wave of the card or more; wgrad at least two waves of blocks over its
+    tiles (3 kernel rows x 4 groups x 10 x 10 at 640), each split walking
+    4 to 160 chunks: the queries' long walks at 64-640 channels split
+    further than the waves ask (168 splits at 84x84, 3 at 640 channels)."""
+    side, cin, cout = call
+    plan = kernels.conv3x3_plan
+    for kind in ("fprop", "dgrad"):
+        assert plan(kind, M, side, side, 4, cin, cout, 132) == (128, 1, 1, 1)
+    got = plan("wgrad", M, side, side, 4, cin, cout, 132)
+    assert got == RESNET12_WGRAD[call][M == 160]
+    tiles = 4 * (-(-cout // 64)) * (1 if cin <= 3 else 3 * -(-cin // 64))
+    assert got.splits * tiles >= 2 * 2 * 132
+    chunks = (-(-M * side * side // 64) if cin <= 3 else
+              -(-M * side * -(-side // got.piece) // got.rows))
+    assert 4 * got.splits <= chunks <= 160 * got.splits
 
 
 @pytest.mark.parametrize("cin,cout",

@@ -31,7 +31,8 @@ from fumi_tpu_torch.models import mlp
 from fumi_tpu_torch.ops import kernels
 from fumi_tpu_torch.serve import FewShotClassifier
 from fumi_tpu_torch.train import steps
-from scripts.kernel_times import CONV4, CONV_SHAPES, NRP_SHAPES
+from scripts.kernel_times import (CONV4, CONV_SHAPES, NRP_SHAPES,
+                                  RESNET12, RESNET12_CONV_SHAPES)
 
 pytestmark = pytest.mark.cuda
 
@@ -1339,10 +1340,11 @@ def test_norm_relu_pool_launches(cuda_device):
 CONV_ENTRIES = ("fprop", "dgrad", "wgrad")
 
 
-def _conv_inputs(dev, M, G, cin, side, seed):
-    """x (M, G·C_in, side, side), w (G·64, C_in, 3, 3) at torch's default
-    init scale, gy (M, G·64, side, side); channels_last activations."""
-    hidden = CONV4["widths"]["hidden"]
+def _conv_inputs(dev, M, G, cin, side, seed, cout=None):
+    """x (M, G·C_in, side, side), w (G·C_out, C_in, 3, 3) at torch's
+    default init scale, gy (M, G·C_out, side, side); channels_last
+    activations; C_out conv4's 64 unless given."""
+    hidden = cout or CONV4["widths"]["hidden"]
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def nhwc(c):
@@ -1373,7 +1375,10 @@ def test_conv3x3_matches_fp64_conv2d(cuda_device, shape):
     partials of a few thousand positions summed in fp64), in channels_last
     memory, one launch each, and the same bits on a second run."""
     M, G, cin, side = shape
-    x, w, gy = _conv_inputs(cuda_device, M, G, cin, side, 1)
+    _hold_conv3x3(*_conv_inputs(cuda_device, M, G, cin, side, 1), G)
+
+
+def _hold_conv3x3(x, w, gy, G):
     before = _conv_launches()
     got = _conv_passes(x, w, gy, G)
     assert _conv_launches() == [n + 1 for n in before]
@@ -1388,6 +1393,30 @@ def test_conv3x3_matches_fp64_conv2d(cuda_device, shape):
         assert gap <= 1e-5, (name, gap)
     for a, b in zip(got, _conv_passes(x, w, gy, G)):
         assert torch.equal(a, b)
+
+
+# the small ResNet-12 step's calls below (RESNET12_STEPS["small"]): 8-20
+# channels, part of a 32-channel chunk and of a 64-channel tile, sides 20,
+# 10, 5 and 2
+RESNET12_SMALL_CONV_SHAPES = tuple(
+    (m, 2, cin, cout, side) for m in (6, 12)
+    for side, cin, cout in ((20, 3, 8), (20, 8, 8), (10, 8, 12), (10, 12, 12),
+                            (5, 12, 16), (5, 16, 16), (2, 16, 20),
+                            (2, 20, 20)))
+
+
+@pytest.mark.parametrize(
+    "shape", RESNET12_CONV_SHAPES + RESNET12_SMALL_CONV_SHAPES,
+    ids=lambda s: f"M{s[0]}-G{s[1]}-C{s[2]}-{s[3]}-{s[4]}x{s[4]}")
+def test_conv3x3_matches_fp64_conv2d_at_resnet12_widths(cuda_device, shape):
+    """resnet12.train's sixteen 3x3 call shapes (each stage's first and
+    second unit, the support set and the queries, 4 groups; 160 output
+    channels fill 2.5 of the kernels' 64-wide tiles, 640 x 640 is 100 tile
+    pairs a group) and the small step's: as conv4's shapes, each entry
+    point within 1e-5 of its output's largest value from fp64 F.conv2d and
+    its gradients, one launch each, the same bits twice."""
+    M, G, cin, cout, side = shape
+    _hold_conv3x3(*_conv_inputs(cuda_device, M, G, cin, side, 1, cout), G)
 
 
 def test_conv3x3_refuses_what_the_kernels_do_not_take(cuda_device):
@@ -1532,6 +1561,143 @@ def test_maml_conv4_second_order_step_matches_written_out(cuda_device,
         2 * abs(float(want_loss) - exact_loss)
     op, chain = _leaf_gaps(grads, exact), _leaf_gaps(want, exact)
     assert max(op.values()) <= 2 * max(chain.values()), (op, chain)
+
+
+# (side, channels, ways, tasks, support and query images a task, inner
+# steps, step size): a 20-pixel side (stage 2 odd) at small widths, and
+# resnet12.train's episode (benchmark/configs/maml-resnet12-inat-anim.json)
+RESNET12_STEPS = {
+    "small": (20, (8, 12, 16, 20), 3, 2, 6, 12, 3, 0.1),
+    "resnet12.train": (
+        RESNET12["widths"]["im_size"], tuple(RESNET12["widths"]["channels"]),
+        RESNET12["episode"]["num_ways"], RESNET12["train"]["batch_size"],
+        RESNET12["episode"]["num_ways"] * RESNET12["episode"]["num_shots"],
+        RESNET12["episode"]["num_ways"]
+        * RESNET12["episode"]["num_query_train"],
+        RESNET12["train"]["inner_steps"], RESNET12["train"]["step_size"]),
+}
+
+
+def _maml_resnet12_step(cuda_device, shape, dtype=torch.float32,
+                        tasks=None, seed=0):
+    """A second-order MAML step through ResNet-12 from ``seed``'s weights
+    and images, each inner step checkpointed as ``--tpu_remat auto`` does
+    it; ``tasks`` (a slice) takes those tasks alone, their share of the
+    mean loss and of its gradient."""
+    from fumi_tpu_torch.metalearn import inner_loop
+    from fumi_tpu_torch.models import resnet12
+    side, channels, ways, B, S, Q, n_steps, step_size = shape
+    gen = torch.Generator().manual_seed(seed)
+    params = {k: v.to(cuda_device, dtype) for k, v in resnet12.init(
+        gen, im_size=side, n_way=ways, channels=channels).items()}
+    x = torch.rand(B, S + Q, side, side, 3, generator=gen).to(cuda_device,
+                                                              dtype)
+    y = torch.arange(ways).repeat(B, (S + Q) // ways).to(cuda_device)
+    tasks = tasks or slice(0, B)
+    x, y = x[tasks], y[tasks]
+    share = x.shape[0] / B
+    episode = Episode(support_im=x[:, :S], support_text=None,
+                      support_text_mask=None, support_ids=None,
+                      support_y=y[:, :S], query_im=x[:, S:], query_ids=None,
+                      query_y=y[:, S:])
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    loss, _ = inner_loop.maml_episode_loss(
+        resnet12.apply, leaves, episode, n_steps=n_steps,
+        step_size=step_size, first_order=False, remat="save_convs")
+    grads = torch.autograd.grad(loss * share, list(leaves.values()))
+    return loss.detach() * share, dict(zip(leaves, grads))
+
+
+def test_resnet12_step_runs_no_cudnn_convolution(cuda_device):
+    """A resnet12.train-shaped second-order MAML step with checkpointed
+    inner steps: no aten convolution operator runs (so no cuDNN kernel),
+    every device operation whose name ``benchmark/convs.py``'s ``PARTS``
+    finds is one of ``csrc/conv3x3.cu``'s, and each entry point launches
+    as often as the CPU test counts its calls
+    (tests/test_torch_bench_maml_resnet12.py): 59n + 12 fprop, 44n + 11
+    dgrad, 47n + 12 wgrad for n inner steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from benchmark.convs import PARTS
+    shape = RESNET12_STEPS["resnet12.train"]
+    n = shape[6]
+    _maml_resnet12_step(cuda_device, shape)
+    before = _conv_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _maml_resnet12_step(cuda_device, shape)
+        torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_conv_launches(), before)] == [
+        59 * n + 12, 44 * n + 11, 47 * n + 12]
+    # the profiler's own records (prof.events() takes minutes to build here)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    ops = {e.name() for e in events if e.device_type() != cuda}
+    assert not ops & {"aten::convolution", "aten::_convolution",
+                      "aten::cudnn_convolution", "aten::convolution_backward"}
+    kernels_run = {e.name() for e in events if e.device_type() == cuda}
+    convs = {k for k in kernels_run if any(p in k for p in PARTS)}
+    assert convs and all("conv3x3_" in k for k in convs), convs
+    for entry in CONV_ENTRIES:
+        assert any(f"conv3x3_{entry}" in k for k in convs), entry
+
+
+@pytest.mark.parametrize("shape", list(RESNET12_STEPS))
+def test_maml_resnet12_second_order_step_matches_written_out(cuda_device,
+                                                            monkeypatch,
+                                                            shape):
+    """A second-order MAML step through ResNet-12 on the port's kernels
+    (the 3x3 convolutions on ``csrc/conv3x3.cu``, the 1x1 shortcuts as
+    GEMMs), each inner step checkpointed, against the step in fp64 (a task
+    at a time, so that it fits), for two seeds' weights and images: the
+    port's loss and the worst leaf of its meta-gradient no farther from
+    fp64 than twice the farther of the written-out chain's two fp32
+    library routes, cuDNN's (deterministic) and PyTorch's own convolutions
+    (cuDNN off, the benchmark reference's route).
+
+    Why both routes and two seeds: five second-order steps through the
+    max-pools' near ties carry any fp32 evaluation of resnet12.train's
+    step ~1e-4 of the loss and ~0.3 of the worst leaf from fp64 (the
+    median leaf ~0.15, every route alike); there cuDNN's chain has landed
+    1e-5 of the loss from fp64 on three seeds out of three where PyTorch's
+    own convolutions land 4e-5 to 8e-5, though its single weight-gradient
+    calls part from fp64 by up to 1.6e-4 of their largest entry, the
+    port's by under 1e-5."""
+    from fumi_tpu_torch.models import conv4
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    keep = conv4.fused_norm_applies
+    shape_ = RESNET12_STEPS[shape]
+    port, chain = {"loss": [], "leaf": []}, {"loss": [], "leaf": []}
+    for seed in (0, 1):
+        monkeypatch.setattr(conv4, "fused_norm_applies", keep)
+        runs = [_maml_resnet12_step(cuda_device, shape_, seed=seed)]
+        torch.cuda.empty_cache()
+        monkeypatch.setattr(conv4, "fused_norm_applies",
+                            lambda z, low: False)
+        before = _conv_launches()
+        for cudnn in (True, False):
+            monkeypatch.setattr(torch.backends.cudnn, "enabled", cudnn)
+            runs.append(_maml_resnet12_step(cuda_device, shape_, seed=seed))
+            torch.cuda.empty_cache()
+        monkeypatch.setattr(torch.backends.cudnn, "enabled", True)
+        assert _conv_launches() == before
+        exact_loss, exact = 0.0, None
+        for b in range(shape_[3]):
+            part_loss, part = _maml_resnet12_step(
+                cuda_device, shape_, torch.float64, slice(b, b + 1), seed)
+            exact_loss += float(part_loss)
+            exact = part if exact is None else {k: exact[k] + part[k]
+                                                for k in exact}
+            del part
+            torch.cuda.empty_cache()
+        for i, (loss, grads) in enumerate(runs):
+            side = chain if i else port
+            side["loss"].append(abs(float(loss) - exact_loss)
+                                / abs(exact_loss))
+            side["leaf"].append(max(_leaf_gaps(grads, exact).values()))
+        del runs, exact
+    for k in ("loss", "leaf"):
+        assert max(port[k]) <= 2 * max(chain[k]), (k, port[k], chain[k])
 
 
 if __name__ == "__main__":
