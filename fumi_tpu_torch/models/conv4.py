@@ -138,9 +138,9 @@ def maxpool2x2(y: torch.Tensor) -> torch.Tensor:
 
 def fused_norm_applies(z: torch.Tensor, low_precision: bool) -> bool:
     """Whether a block's norm, ReLU and pool run as the one CUDA op
-    (:func:`~fumi_tpu_torch.ops.kernels.norm_relu_pool`): an fp32 conv
-    output on a CUDA device. The CPU, fp64 and bf16 keep the written-out
-    chain."""
+    (:func:`~fumi_tpu_torch.ops.kernels.norm_relu_pool`, and resnet12's
+    unit epilogues as its leaky forms): an fp32 conv output on a CUDA
+    device. The CPU, fp64 and bf16 keep the written-out chain."""
     return (not low_precision and z.is_cuda
             and z.dtype == torch.float32)
 

@@ -13,8 +13,13 @@ In fp32 on a card the convolutions leave cuDNN, under conv4's rule
 GEMM (``ops/kernels.py:conv3x3_fprop``, ``csrc/conv3x3.cu``), whose
 gradients of every order are its kernels too, and the 1×1 shortcut is a
 per-group GEMM (:func:`pointwise_conv`, cuBLAS with TF32 off), whose
-gradients are autograd's GEMMs. The norm, leaky ReLU, residual add and
-pool stay written out. The CPU, fp64 and bf16 keep ``F.conv2d``.
+gradients are autograd's GEMMs; under conv4's other rule
+(``conv4.fused_norm_applies``) the norm and leaky ReLU of units c1 and c2
+are one op (``ops/kernels.py:norm_leaky_relu``), and c3's norm, the
+shortcut's, their sum, the leaky ReLU and the pool another
+(``norm_residual_pool``): ``csrc/norm_relu_pool.cu``'s leaky forms, with
+hand-written kernels for their forward, backward and double backward.
+The CPU, fp64 and bf16 keep ``F.conv2d`` and the chain written out.
 
 Parameters under a ``prefix``: ``{prefix}blocks.{i}.{c1,c2,c3,sc}.``
 ``weight`` (out, in, kh, kw), ``.bias``, ``.gamma``, ``.beta``, and
@@ -37,7 +42,7 @@ from fumi_tpu_torch.ops import kernels
 
 Params = Dict[str, torch.Tensor]
 CHANNELS: Tuple[int, ...] = (64, 160, 320, 640)
-LEAK = 0.1
+LEAK = kernels.NORM_LEAK  # built into csrc/norm_relu_pool.cu's leaky forms
 UNITS = ("c1", "c2", "c3", "sc")
 # Stage-selective checkpointing, an experiment switch (the JAX package's):
 # stage i of a True entry keeps only its input for the backward pass and
@@ -76,11 +81,10 @@ def _conv(y: torch.Tensor, w: torch.Tensor, compute_dtype, groups: int,
                                 keep_dtype=low)
 
 
-def _conv_bn(p: Params, y: torch.Tensor, compute_dtype, groups: int
-             ) -> torch.Tensor:
-    """conv → batch-stat norm; bf16 out under the bf16 policy."""
-    low = is_low_precision(compute_dtype)
-    z = _conv(y, p["weight"], compute_dtype, groups, low)
+def _norm(z: torch.Tensor, p: Params, compute_dtype, low: bool
+          ) -> torch.Tensor:
+    """A unit's batch-stat norm written out; bf16 out under the bf16
+    policy."""
     z = batch_stat_norm(z, p, low)
     return z.to(compute_dtype) if low else z
 
@@ -98,13 +102,31 @@ def block_init(gen: torch.Generator, in_ch: int, out_ch: int) -> Params:
 def res_block(params: Params, name: str, y: torch.Tensor, B: int,
               compute_dtype=None) -> torch.Tensor:
     """Stage ``name`` on (M, B·C, H, W): 3×[conv-norm(-leaky)] + projected
-    shortcut → leaky → maxpool 2×2."""
-    def cb(u, t):
-        return _conv_bn(unit(params, f"{name}.{u}", B), t, compute_dtype, B)
-    z = F.leaky_relu(cb("c1", y), LEAK)
-    z = F.leaky_relu(cb("c2", z), LEAK)
-    z = cb("c3", z)
-    return maxpool2x2(F.leaky_relu(z + cb("sc", y), LEAK))
+    shortcut → leaky → maxpool 2×2. Where ``conv4.fused_norm_applies``
+    holds of a unit's conv output (fp32 on a card), the norms, the leaky
+    ReLUs, the residual add and the pool are the two ops of
+    ``csrc/norm_relu_pool.cu``; elsewhere they are written out."""
+    low = is_low_precision(compute_dtype)
+
+    def conv(u, t):
+        p = unit(params, f"{name}.{u}", B)
+        return _conv(t, p["weight"], compute_dtype, B, low), p
+
+    def norm_leaky(z, p):
+        if conv4.fused_norm_applies(z, low):
+            return kernels.norm_leaky_relu(z, p["bias"], p["gamma"],
+                                           p["beta"])
+        return F.leaky_relu(_norm(z, p, compute_dtype, low), LEAK)
+
+    z = norm_leaky(*conv("c1", y))
+    z = norm_leaky(*conv("c2", z))
+    (z, p), (zs, ps) = conv("c3", z), conv("sc", y)
+    if conv4.fused_norm_applies(z, low):
+        return kernels.norm_residual_pool(z, p["bias"], p["gamma"],
+                                          p["beta"], zs, ps["bias"],
+                                          ps["gamma"], ps["beta"])
+    return maxpool2x2(F.leaky_relu(_norm(z, p, compute_dtype, low)
+                                   + _norm(zs, ps, compute_dtype, low), LEAK))
 
 
 def feature_dim(im_size: int = 84,

@@ -39,12 +39,15 @@ The counterparts of ``fumi_tpu/ops/pallas_kernels.py``:
   max-pool of one block as one op (``csrc/norm_relu_pool.cu``), an
   autograd Function whose backward is a second Function, so that the
   forward, the backward and the double backward of second-order MAML are
-  each a hand-written kernel. It replaces no TPU kernel: the JAX package
-  leaves the chain to XLA. Plain versions:
-  :func:`norm_relu_pool_forward_reference`,
+  each a hand-written kernel; :func:`norm_leaky_relu` (resnet12's units c1
+  and c2: the norm and leaky ReLU) and :func:`norm_residual_pool` (its
+  unit c3 and the shortcut: two norms, their sum, leaky ReLU and the pool)
+  are its other forms (:class:`NormForm`), the same kernels' other
+  instances. They replace no TPU kernel: the JAX package leaves the chains
+  to XLA. Plain versions: :func:`norm_relu_pool_forward_reference`,
   :func:`norm_relu_pool_backward_reference` and
   :func:`norm_relu_pool_double_backward_reference`, the same closed forms
-  in PyTorch.
+  in PyTorch, given the form.
 - :func:`conv3x3_fprop`, :func:`conv3x3_dgrad`, :func:`conv3x3_wgrad`:
   the stride-1 SAME 3x3 grouped convolution of conv4 and of resnet12's
   units, its input gradient and its weight gradient as fp32 implicit
@@ -871,20 +874,38 @@ gather_episode_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# conv4's batch-statistics norm, ReLU and 2x2 max-pool
+# the batch-statistics norm, ReLU or leaky ReLU and 2x2 max-pool of conv4's
+# blocks and resnet12's units (csrc/norm_relu_pool.cu)
 # ---------------------------------------------------------------------------
 
 # conv4's norm epsilon (models/conv4.py EPS)
 NORM_EPS = 1e-5
+# resnet12's leaky ReLU slope (models/resnet12.py LEAK is this; the
+# kernels' kLeak)
+NORM_LEAK = 0.1
 # the launch plan of csrc/norm_relu_pool.cu: a block covers at most
 # _NRP_MAX_VECS vectors of channels (its kMaxVecs); the sums' walks take up
 # to _NRP_BLOCKS_PER_SM blocks an SM, one partial row each
 _NRP_MAX_VECS, _NRP_BLOCKS_PER_SM = 64, 4
 
 
+class NormForm(NamedTuple):
+    """One of ``csrc/norm_relu_pool.cu``'s three instances: leaky ReLU
+    (slope :data:`NORM_LEAK`) or ReLU, the 2×2 max-pool after it or none,
+    and how many normed branches are summed before the activation."""
+    leaky: bool
+    pool: bool
+    branches: int
+
+
+RELU_POOL = NormForm(False, True, 1)       # conv4's block
+LEAKY = NormForm(True, False, 1)           # resnet12's units c1 and c2
+LEAKY_SUM_POOL = NormForm(True, True, 2)   # resnet12's c3 and shortcut
+
+
 class NormReluPoolPlan(NamedTuple):
     """How ``csrc/norm_relu_pool.cu`` walks a (M, G, H, W) tensor: ``vec``
-    channels a thread (4 where G allows it and every pointer is 16-byte
+    channels a thread (4 where G allows it and every activation is 16-byte
     aligned, else 1), ``tx`` channel vectors a block, and at most ``rows``
     blocks along the cells, each writing one row of partial sums."""
     vec: int
@@ -914,24 +935,55 @@ def _nrp_windows(t: torch.Tensor) -> torch.Tensor:
     return t[:, :, :2 * h2, :2 * w2].reshape(M, G, h2, 2, w2, 2)
 
 
+def _nrp_branches(tensors) -> list:
+    """The flat (z, bias, gamma, beta) of each branch, as tuples."""
+    return [tuple(tensors[i:i + 4]) for i in range(0, len(tensors), 4)]
+
+
 def _nrp_normed(z, bias, gamma, beta, stats):
     """x = (z + b − μ)·rstd and a = γx + β, stats = (μ, rstd)."""
     x = (z + _nrp_chan(bias) - _nrp_chan(stats[0])) * _nrp_chan(stats[1])
     return x, x * _nrp_chan(gamma) + _nrp_chan(beta)
 
 
-def _nrp_route(a: torch.Tensor, g_out: torch.Tensor):
-    """``(ga, routed, ties)``: ga (M, G, H, W) is g_out split evenly over
-    each window's ties of max(relu(a)) and kept where a > 0, zero outside
-    the pooled region; ``routed`` (the windows' mask of where it went) and
-    ``ties`` (M, G, H/2, 1, W/2, 1), as amax counts them."""
+def _nrp_summed(tensors, stats):
+    """Each branch's x, and a = Σ γ_k·x_k + β_k over the branches; branch
+    k's (μ, rstd) are rows 2k and 2k + 1 of ``stats``."""
+    xs, a = [], None
+    for k, (z, b, g, be) in enumerate(_nrp_branches(tensors)):
+        x, ak = _nrp_normed(z, b, g, be, stats[2 * k:2 * k + 2])
+        xs.append(x)
+        a = ak if a is None else a + ak
+    return xs, a
+
+
+def _nrp_act(form: NormForm, a: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(a, NORM_LEAK) if form.leaky else a.clamp_min(0.0)
+
+
+def _nrp_sloped(form: NormForm, a: torch.Tensor, g: torch.Tensor):
+    """g·act'(a), with act'(a) = 0.1 (leaky) or 0 (ReLU) for a <= 0, as
+    torch's backwards take them."""
+    return torch.where(a > 0, g, g * NORM_LEAK if form.leaky else 0.0)
+
+
+def _nrp_route(form: NormForm, a: torch.Tensor, g_out: torch.Tensor):
+    """``(ga, routed, ties)``: ga (M, G, H, W) is g_out times act'(a), with
+    the pool split evenly over each window's ties of max(act(a)) (under
+    ReLU kept where a > 0) and zero outside the pooled region; ``routed``
+    (the windows' mask of where it went) and ``ties`` (M, G, H/2, 1, W/2,
+    1), as amax counts them; None for both without the pool."""
+    if not form.pool:
+        return _nrp_sloped(form, a, g_out), None, None
     M, G, H, W = a.shape
     win = _nrp_windows(a)
-    h = win.clamp_min(0)
+    h = _nrp_act(form, win)
     tie = h == h.amax(dim=(3, 5), keepdim=True)
     ties = tie.sum(dim=(3, 5), keepdim=True).to(a.dtype)
-    routed = tie & (win > 0)
+    routed = tie if form.leaky else tie & (win > 0)
     share = g_out.reshape(win.shape[:3] + (1, win.shape[4], 1)) / ties
+    if form.leaky:
+        share = _nrp_sloped(form, win, share)
     ga = torch.where(routed, share, 0.0).reshape(
         M, G, 2 * win.shape[2], 2 * win.shape[4])
     return F.pad(ga, (0, W - ga.shape[3], 0, H - ga.shape[2])), routed, ties
@@ -945,14 +997,10 @@ def _nrp_sums(*terms: torch.Tensor) -> torch.Tensor:
     return prod.sum(dim=(0, 2, 3))
 
 
-def norm_relu_pool_forward_reference(z: torch.Tensor, bias: torch.Tensor,
-                                     gamma: torch.Tensor, beta: torch.Tensor
-                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the forward: ``(out, stats)``, out (M, G, H/2, W/2)
-    the 2×2 max of relu(γ·(z + b − μ)·rstd + β), stats (2, G) = (μ, rstd)
-    of z + b over (M, H, W). The statistics are the kernel's: fp64 sums of
-    y − y[0] and its square, then μ and rstd in fp64, rounded to z's
-    dtype."""
+def _nrp_stats(z: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """(μ, rstd) (2, G) of z + b over (M, H, W), as the kernels take them:
+    fp64 sums of y − y[0] and its square, then μ and rstd in fp64, rounded
+    to z's dtype."""
     M, G, H, W = z.shape
     y = z + _nrp_chan(bias)
     shift = y[0, :, 0, 0].to(torch.float64)
@@ -962,67 +1010,101 @@ def norm_relu_pool_forward_reference(z: torch.Tensor, bias: torch.Tensor,
     var = (d.square().sum(dim=(0, 2, 3)) / n - mean.square()).clamp_min(0.0)
     # the epsilon as z's dtype holds it, as torch adds it in that dtype
     eps = torch.tensor(NORM_EPS, dtype=z.dtype).item()
-    stats = torch.stack([shift + mean, torch.rsqrt(var + eps)]).to(z.dtype)
-    _, a = _nrp_normed(z, bias, gamma, beta, stats)
-    return _nrp_windows(a.clamp_min(0.0)).amax(dim=(3, 5)), stats
+    return torch.stack([shift + mean, torch.rsqrt(var + eps)]).to(z.dtype)
 
 
-def norm_relu_pool_backward_reference(z, bias, gamma, beta, stats, g_out):
-    """Plain version of the backward: ``(g_z, g_b, g_gamma, g_beta,
-    sums)``. With ga the routed g_out, A = Σga and S = Σga·x per channel:
-    g_z = γ·rstd·(ga − A/N − x·S/N), g_gamma = S, g_beta = A, g_b = 0 (the
-    output does not depend on b); sums (2, G) fp64 = (A, S) for the double
-    backward."""
-    M, G, H, W = z.shape
+def norm_relu_pool_forward_reference(form: NormForm, tensors
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward of ``form`` on ``tensors``, the flat
+    (z, bias, gamma, beta) of each branch: ``(out, stats)``. out is act(a),
+    a = Σ_k γ_k·(z_k + b_k − μ_k)·rstd_k + β_k, (M, G, H, W), or its 2×2
+    max (M, G, H/2, W/2) with the pool; stats (2·branches, G) is each
+    branch's (μ, rstd) (:func:`_nrp_stats`)."""
+    stats = torch.cat([_nrp_stats(z, b)
+                       for z, b, _, _ in _nrp_branches(tensors)])
+    h = _nrp_act(form, _nrp_summed(tensors, stats)[1])
+    return (_nrp_windows(h).amax(dim=(3, 5)) if form.pool else h), stats
+
+
+def norm_relu_pool_backward_reference(form: NormForm, tensors, stats,
+                                      g_out):
+    """Plain version of the backward: ``(grads, sums)``, grads the flat
+    (g_z, g_b, g_gamma, g_beta) of each branch. With ga the routed g_out
+    (:func:`_nrp_route`), A = Σga and S_k = Σga·x_k per channel: g_z_k =
+    γ_k·rstd_k·(ga − A/N − x_k·S_k/N), g_gamma_k = S_k, g_beta_k = A, g_b_k =
+    0 (the output does not depend on b); sums (2·branches, G) fp64 = each
+    branch's (A, S_k) for the double backward."""
+    M, G, H, W = tensors[0].shape
     n = M * H * W
-    x, a = _nrp_normed(z, bias, gamma, beta, stats)
-    ga = _nrp_route(a, g_out)[0]
-    A, S = _nrp_sums(ga), _nrp_sums(ga, x)
-    gr = gamma.to(torch.float64) * stats[1].to(torch.float64)
-    k1, k2, k3 = (_nrp_chan(k.to(z.dtype)) for k in (gr, -gr * S / n,
-                                                     -gr * A / n))
-    g_z = k1 * ga + k2 * x + k3
-    return (g_z, torch.zeros_like(bias), S.to(z.dtype), A.to(z.dtype),
-            torch.stack([A, S]))
+    xs, a = _nrp_summed(tensors, stats)
+    ga = _nrp_route(form, a, g_out)[0]
+    A = _nrp_sums(ga)
+    grads, sums = [], []
+    for k, ((z, b, g, _), x) in enumerate(zip(_nrp_branches(tensors), xs)):
+        S = _nrp_sums(ga, x)
+        gr = g.to(torch.float64) * stats[2 * k + 1].to(torch.float64)
+        k1, k2, k3 = (_nrp_chan(c.to(z.dtype)) for c in (gr, -gr * S / n,
+                                                         -gr * A / n))
+        grads += [k1 * ga + k2 * x + k3, torch.zeros_like(b), S.to(z.dtype),
+                  A.to(z.dtype)]
+        sums += [A, S]
+    return tuple(grads), torch.stack(sums)
 
 
-def norm_relu_pool_double_backward_reference(z, bias, gamma, beta, stats,
-                                             g_out, sums, v_z, v_gamma,
-                                             v_beta):
-    """Plain version of the double backward: the cotangents ``(c_z, c_b,
-    c_gamma, c_beta, c_gout)`` of the backward's inputs, given those of its
-    outputs (``v_z``, ``v_gamma``, ``v_beta``; None is zero; g_b is
+def norm_relu_pool_double_backward_reference(form: NormForm, tensors, stats,
+                                             g_out, sums, cots):
+    """Plain version of the double backward: ``(cs, c_gout)``, cs the flat
+    cotangents (c_z, c_b, c_gamma, c_beta) of each branch's inputs to the
+    backward, c_gout g_out's, given ``cots``, the flat cotangents (v_z,
+    v_b, v_gamma, v_beta) of each branch's outputs (None is zero; g_b is
     identically 0 and takes none). μ and rstd are differentiated as
-    functions of z; the ReLU mask and the routing are piecewise constant,
-    so c_beta = c_b = 0. Per channel, V = Σv_z, VX = Σv_z·x, VG = Σv_z·ga
-    and the backward's A and S (``sums``) give the coefficients of
-    ``csrc/norm_relu_pool.cu``'s ``grad2_finalize``."""
-    M, G, H, W = z.shape
+    functions of z; act' and the routing are piecewise constant, so c_beta =
+    c_b = 0 and the branches meet only in ga and c_gout. Per branch and
+    channel, V = Σv_z, VX = Σv_z·x, VG = Σv_z·ga and the backward's A and S
+    (``sums``) give the coefficients of ``csrc/norm_relu_pool.cu``'s
+    ``grad2_finalize``; c_gout is the routing's transpose of act'(a) times
+    the branches' summed terms."""
+    M, G, H, W = tensors[0].shape
     n = M * H * W
     f64 = torch.float64
-    x, a = _nrp_normed(z, bias, gamma, beta, stats)
-    ga, routed, ties = _nrp_route(a, g_out)
-    if v_z is None:
-        v_z = torch.zeros_like(z)
-    Vs, VX, VG = _nrp_sums(v_z), _nrp_sums(v_z, x), _nrp_sums(v_z, ga)
-    A, S = sums[0], sums[1]
-    r, g = stats[1].to(f64), gamma.to(f64)
-    gr = g * r
-    vg = 0.0 if v_gamma is None else v_gamma.to(f64)
-    vb = 0.0 if v_beta is None else v_beta.to(f64)
-    qq = VG - A * Vs / n - S * VX / n
-    mean_p = -gr * (A * VX + Vs * S) / n ** 2 + vg * A / n
-    mean_px = -2.0 * gr * S * VX / n ** 2 + vg * S / n
-    ag, av, ax, a0, wv, wx, w0 = (
-        _nrp_chan(k.to(z.dtype)) for k in (
-            r * (vg - gr * VX / n), -gr * r * S / n,
-            -r * mean_px - g * qq * r * r / n, -r * mean_p, gr,
-            vg - gr * VX / n, vb - gr * Vs / n))
-    c_z = ag * ga + av * v_z + ax * x + a0
-    w = _nrp_windows(wv * v_z + wx * x + w0)
+    xs, a = _nrp_summed(tensors, stats)
+    ga, routed, ties = _nrp_route(form, a, g_out)
+    cs, w = [], None
+    for k, ((z, b, gamma, beta), x) in enumerate(
+            zip(_nrp_branches(tensors), xs)):
+        v_z, _, v_gamma, v_beta = cots[4 * k:4 * k + 4]
+        if v_z is None:
+            v_z = torch.zeros_like(z)
+        Vs, VX, VG = _nrp_sums(v_z), _nrp_sums(v_z, x), _nrp_sums(v_z, ga)
+        A, S = sums[2 * k], sums[2 * k + 1]
+        r, g = stats[2 * k + 1].to(f64), gamma.to(f64)
+        gr = g * r
+        vg = 0.0 if v_gamma is None else v_gamma.to(f64)
+        vb = 0.0 if v_beta is None else v_beta.to(f64)
+        qq = VG - A * Vs / n - S * VX / n
+        mean_p = -gr * (A * VX + Vs * S) / n ** 2 + vg * A / n
+        mean_px = -2.0 * gr * S * VX / n ** 2 + vg * S / n
+        ag, av, ax, a0, wv, wx, w0 = (
+            _nrp_chan(c.to(z.dtype)) for c in (
+                r * (vg - gr * VX / n), -gr * r * S / n,
+                -r * mean_px - g * qq * r * r / n, -r * mean_p, gr,
+                vg - gr * VX / n, vb - gr * Vs / n))
+        cs += [ag * ga + av * v_z + ax * x + a0, torch.zeros_like(b),
+               (r * qq).to(z.dtype), torch.zeros_like(beta)]
+        term = wv * v_z + wx * x + w0
+        w = term if w is None else w + term
+    if not form.pool:
+        return tuple(cs), _nrp_sloped(form, a, w)
+    w = _nrp_windows(w)
+    if form.leaky:
+        w = _nrp_sloped(form, _nrp_windows(a), w)
     c_gout = torch.where(routed, w, 0.0).sum(dim=(3, 5)) / ties[:, :, :, 0, :, 0]
-    return (c_z, torch.zeros_like(bias), (r * qq).to(z.dtype),
-            torch.zeros_like(beta), c_gout)
+    return tuple(cs), c_gout
+
+
+# the kernels' tensors of a branch, in the order of csrc's Branch
+_NRP_SLOTS = ("z", "bias", "gamma", "beta", "stats", "sums", "coef", "v_z",
+              "v_gamma", "v_beta", "d_z", "d_gamma", "d_beta", "d_b")
 
 
 @functools.lru_cache(maxsize=None)
@@ -1030,13 +1112,10 @@ def _nrp_library():
     from fumi_tpu_torch.ops import _build
     lib = _build.load("norm_relu_pool")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    tail = [i64, i32, i32, i32, i32, i32, i32, ptr]
-    lib.norm_relu_pool_forward_launch.argtypes = [ptr] * 7 + tail
-    lib.norm_relu_pool_backward_launch.argtypes = [ptr] * 13 + tail
-    lib.norm_relu_pool_double_backward_launch.argtypes = [ptr] * 17 + tail
     for fn in (lib.norm_relu_pool_forward_launch,
                lib.norm_relu_pool_backward_launch,
                lib.norm_relu_pool_double_backward_launch):
+        fn.argtypes = [i32, i32, i32, ptr, ptr, i64] + [i32] * 6 + [ptr]
         fn.restype = i32
     return lib
 
@@ -1046,24 +1125,33 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _nrp_launch(who: str, fn, tensors, outs, z: torch.Tensor):
+def _nrp_launch(form: NormForm, who: str, entry: str, branches, g_out,
+                out, z: torch.Tensor):
     """One launch of an entry point of ``csrc/norm_relu_pool.cu``:
-    ``tensors`` and ``outs`` in its argument order (None is a null
-    pointer), then its scratch and the geometry."""
+    ``branches`` holds each branch's tensors by the names of
+    :data:`_NRP_SLOTS` (a missing one is a null pointer), ``g_out`` and
+    ``out`` the shared ones (None: null); then its scratch and the
+    geometry."""
     M, G, H, W = z.shape
-    present = [t for t in tensors + outs if t is not None]
-    aligned = all(t.data_ptr() % 16 == 0 for t in present)
+    acts = [t for br in branches for t in (br.get("z"), br.get("v_z"),
+                                           br.get("d_z"))]
+    aligned = all(t.data_ptr() % 16 == 0 for t in acts + [g_out, out]
+                  if t is not None)
     plan = norm_relu_pool_plan(G, aligned, _sm_count(z.device.index))
-    partial = torch.empty((plan.rows * 3 * G,), dtype=torch.float64,
-                          device=z.device)
+    partial = torch.empty((plan.rows * 3 * form.branches * G,),
+                          dtype=torch.float64, device=z.device)
+    tensors = [br.get(s) for br in branches for s in _NRP_SLOTS] + [g_out,
+                                                                    out]
+    table = (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors))
     stream = torch.cuda.current_stream(z.device).cuda_stream
-    ptrs = [None if t is None else t.data_ptr() for t in tensors + outs]
-    err = fn(*ptrs, partial.data_ptr(), M, G, H, W, plan.vec, plan.tx,
-             plan.rows, stream)
+    err = getattr(_nrp_library(), entry)(
+        int(form.leaky), int(form.pool), form.branches, table,
+        partial.data_ptr(), M, G, H, W, plan.vec, plan.tx, plan.rows, stream)
     if err != 0:
         raise RuntimeError(f"{who} kernel launch failed with CUDA error {err} "
                            f"(shape {tuple(z.shape)}; {plan})")
-    norm_relu_pool.launches += 1
+    _NRP_OPS[form].launches += 1
 
 
 def _nrp_channels_last(t: torch.Tensor) -> torch.Tensor:
@@ -1076,96 +1164,122 @@ def _nrp_empty_like_nhwc(M, G, H, W, like: torch.Tensor) -> torch.Tensor:
                        device=like.device).permute(0, 3, 1, 2)
 
 
-def _nrp_forward(z, bias, gamma, beta):
-    if z.device.type == "cpu":
-        return norm_relu_pool_forward_reference(z, bias, gamma, beta)
+def _nrp_out_shape(form: NormForm, z: torch.Tensor) -> Tuple[int, ...]:
     M, G, H, W = z.shape
-    out = _nrp_empty_like_nhwc(M, G, H // 2, W // 2, z)
-    stats = torch.empty((2, G), dtype=torch.float32, device=z.device)
-    _nrp_launch("norm_relu_pool", _nrp_library().norm_relu_pool_forward_launch,
-                [z, bias, gamma, beta], [out, stats], z)
+    return (M, G, H // 2, W // 2) if form.pool else (M, G, H, W)
+
+
+def _nrp_inputs(tensors, stats) -> list:
+    """Each branch's inputs and statistics for a launch."""
+    return [dict(z=z, bias=b, gamma=g, beta=be, stats=stats[2 * k])
+            for k, (z, b, g, be) in enumerate(_nrp_branches(tensors))]
+
+
+def _nrp_outputs(branch: dict) -> list:
+    """A branch's outputs (g_z, g_b, g_gamma, g_beta or the cotangents c_),
+    allocated into ``branch`` as the kernels' d_ tensors."""
+    z, gamma = branch["z"], branch["gamma"]
+    branch.update(d_z=_nrp_empty_like_nhwc(*z.shape, z),
+                  d_b=torch.empty_like(gamma), d_gamma=torch.empty_like(gamma),
+                  d_beta=torch.empty_like(gamma))
+    return [branch["d_z"], branch["d_b"], branch["d_gamma"], branch["d_beta"]]
+
+
+def _nrp_forward(form: NormForm, tensors):
+    z = tensors[0]
+    if z.device.type == "cpu":
+        return norm_relu_pool_forward_reference(form, tensors)
+    out = _nrp_empty_like_nhwc(*_nrp_out_shape(form, z), z)
+    stats = torch.empty((2 * form.branches, z.shape[1]), dtype=torch.float32,
+                        device=z.device)
+    _nrp_launch(form, _NRP_OPS[form].__name__, "norm_relu_pool_forward_launch",
+                _nrp_inputs(tensors, stats), None, out, z)
     return out, stats
 
 
-def _nrp_backward(z, bias, gamma, beta, stats, g_out):
+def _nrp_backward(form: NormForm, tensors, stats, g_out):
+    z = tensors[0]
     if z.device.type == "cpu":
-        return norm_relu_pool_backward_reference(z, bias, gamma, beta, stats,
-                                                 g_out)
-    M, G, H, W = z.shape
-    g_out = _nrp_channels_last(g_out)
-    g_z = _nrp_empty_like_nhwc(M, G, H, W, z)
-    g_gamma, g_beta, g_b = (torch.empty_like(gamma) for _ in range(3))
-    sums = torch.empty((2, G), dtype=torch.float64, device=z.device)
-    coef = torch.empty((3, G), dtype=torch.float32, device=z.device)
-    _nrp_launch("norm_relu_pool backward",
-                _nrp_library().norm_relu_pool_backward_launch,
-                [z, bias, gamma, beta, stats, g_out],
-                [g_z, g_gamma, g_beta, g_b, sums, coef], z)
-    return g_z, g_b, g_gamma, g_beta, sums
+        return norm_relu_pool_backward_reference(form, tensors, stats, g_out)
+    G, nb = z.shape[1], form.branches
+    sums = torch.empty((2 * nb, G), dtype=torch.float64, device=z.device)
+    coef = torch.empty((nb, 3, G), dtype=torch.float32, device=z.device)
+    branches, grads = _nrp_inputs(tensors, stats), []
+    for k, br in enumerate(branches):
+        br.update(sums=sums[2 * k], coef=coef[k])
+        grads += _nrp_outputs(br)
+    _nrp_launch(form, f"{_NRP_OPS[form].__name__} backward",
+                "norm_relu_pool_backward_launch", branches,
+                _nrp_channels_last(g_out), None, z)
+    return tuple(grads), sums
 
 
-def _nrp_double_backward(z, bias, gamma, beta, stats, g_out, sums, v_z,
-                         v_gamma, v_beta):
+def _nrp_double_backward(form: NormForm, tensors, stats, g_out, sums, cots):
+    z = tensors[0]
     if z.device.type == "cpu":
         return norm_relu_pool_double_backward_reference(
-            z, bias, gamma, beta, stats, g_out, sums, v_z, v_gamma, v_beta)
-    M, G, H, W = z.shape
-    g_out = _nrp_channels_last(g_out)
-    v_z = None if v_z is None else _nrp_channels_last(v_z)
-    v_gamma, v_beta = (None if t is None else t.contiguous()
-                       for t in (v_gamma, v_beta))
-    c_z = _nrp_empty_like_nhwc(M, G, H, W, z)
-    c_gout = _nrp_empty_like_nhwc(M, G, H // 2, W // 2, z)
-    c_gamma, c_beta, c_b = (torch.empty_like(gamma) for _ in range(3))
-    coef = torch.empty((7, G), dtype=torch.float32, device=z.device)
-    _nrp_launch("norm_relu_pool double backward",
-                _nrp_library().norm_relu_pool_double_backward_launch,
-                [z, bias, gamma, beta, stats, g_out, sums, v_z, v_gamma,
-                 v_beta], [c_z, c_gout, c_gamma, c_beta, c_b, coef], z)
-    return c_z, c_b, c_gamma, c_beta, c_gout
+            form, tensors, stats, g_out, sums, cots)
+    coef = torch.empty((form.branches, 7, z.shape[1]), dtype=torch.float32,
+                       device=z.device)
+    branches, cs = _nrp_inputs(tensors, stats), []
+    for k, br in enumerate(branches):
+        v_z, _, v_gamma, v_beta = cots[4 * k:4 * k + 4]
+        br.update(sums=sums[2 * k], coef=coef[k],
+                  v_z=None if v_z is None else _nrp_channels_last(v_z),
+                  v_gamma=None if v_gamma is None else v_gamma.contiguous(),
+                  v_beta=None if v_beta is None else v_beta.contiguous())
+        cs += _nrp_outputs(br)
+    c_gout = _nrp_empty_like_nhwc(*_nrp_out_shape(form, z), z)
+    _nrp_launch(form, f"{_NRP_OPS[form].__name__} double backward",
+                "norm_relu_pool_double_backward_launch", branches,
+                _nrp_channels_last(g_out), c_gout, z)
+    return tuple(cs), c_gout
 
 
 class _NormReluPool(torch.autograd.Function):
-    """The op; its backward is :class:`_NormReluPoolBackward`, recorded
-    under ``create_graph=True`` so that second-order MAML differentiates
-    it."""
+    """The op of a :class:`NormForm` on the flat (z, b, γ, β) of its
+    branches; its backward is :class:`_NormReluPoolBackward`, recorded under
+    ``create_graph=True`` so that second-order MAML differentiates it."""
 
     @staticmethod
-    def forward(ctx, z, bias, gamma, beta):
-        out, stats = _nrp_forward(z, bias, gamma, beta)
-        ctx.save_for_backward(z, bias, gamma, beta, stats)
+    def forward(ctx, form, *tensors):
+        out, stats = _nrp_forward(form, tensors)
+        ctx.form = form
+        ctx.save_for_backward(*tensors, stats)
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        return _NormReluPoolBackward.apply(*ctx.saved_tensors, g_out)
+        return (None,) + _NormReluPoolBackward.apply(
+            ctx.form, *ctx.saved_tensors, g_out)
 
 
 class _NormReluPoolBackward(torch.autograd.Function):
-    """(z, b, γ, β, stats, g_out) -> (g_z, g_b, g_γ, g_β); its own backward
-    is the double backward (third order is never taken). ``stats`` is
-    saved by the forward and takes no gradient: the double backward
-    differentiates μ and rstd through z itself."""
+    """(z, b, γ, β of each branch, stats, g_out) -> (g_z, g_b, g_γ, g_β of
+    each branch); its own backward is the double backward (third order is
+    never taken). ``stats`` is saved by the forward and takes no gradient:
+    the double backward differentiates μ and rstd through z itself."""
 
     @staticmethod
-    def forward(ctx, z, bias, gamma, beta, stats, g_out):
+    def forward(ctx, form, *args):
         ctx.set_materialize_grads(False)
-        g_z, g_b, g_gamma, g_beta, sums = _nrp_backward(z, bias, gamma, beta,
-                                                        stats, g_out)
-        ctx.save_for_backward(z, bias, gamma, beta, stats, g_out, sums)
-        return g_z, g_b, g_gamma, g_beta
+        *tensors, stats, g_out = args
+        grads, sums = _nrp_backward(form, tensors, stats, g_out)
+        ctx.form = form
+        ctx.save_for_backward(*tensors, stats, g_out, sums)
+        return grads
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, v_z, v_b, v_gamma, v_beta):
-        z, bias, gamma, beta, stats, g_out, sums = ctx.saved_tensors
-        c_z, c_b, c_gamma, c_beta, c_gout = _nrp_double_backward(
-            z, bias, gamma, beta, stats, g_out, sums, v_z, v_gamma, v_beta)
-        return c_z, c_b, c_gamma, c_beta, None, c_gout
+    def backward(ctx, *cots):
+        *tensors, stats, g_out, sums = ctx.saved_tensors
+        cs, c_gout = _nrp_double_backward(ctx.form, tensors, stats, g_out,
+                                          sums, cots)
+        return (None,) + cs + (None, c_gout)
 
 
-def _check_norm_relu_pool(z, bias, gamma, beta) -> None:
-    who = "norm_relu_pool"
+def _check_norm(who: str, tensors) -> None:
+    z = tensors[0]
     if z.dim() != 4 or z.shape[2] < 2 or z.shape[3] < 2:
         raise ValueError(f"{who} takes (M, G, H, W) with H, W >= 2, got "
                          f"shape {tuple(z.shape)}")
@@ -1177,12 +1291,26 @@ def _check_norm_relu_pool(z, bias, gamma, beta) -> None:
     if z.dtype not in dtypes:
         raise TypeError(f"{who} on {z.device.type} computes "
                         f"{', '.join(map(str, dtypes))}, got {z.dtype}")
-    for name, t in (("bias", bias), ("gamma", gamma), ("beta", beta)):
-        if tuple(t.shape) != (G,) or t.dtype != z.dtype or \
-                t.device != z.device:
-            raise ValueError(f"{who}: {name} must be ({G},) {z.dtype} on "
-                             f"{z.device}, got {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device}")
+    for zk, *params in _nrp_branches(tensors):
+        if zk.shape != z.shape or zk.dtype != z.dtype or \
+                zk.device != z.device:
+            raise ValueError(f"{who}: every branch must be {tuple(z.shape)} "
+                             f"{z.dtype} on {z.device}, got "
+                             f"{tuple(zk.shape)} {zk.dtype} on {zk.device}")
+        for name, t in zip(("bias", "gamma", "beta"), params):
+            if tuple(t.shape) != (G,) or t.dtype != z.dtype or \
+                    t.device != z.device:
+                raise ValueError(f"{who}: {name} must be ({G},) {z.dtype} "
+                                 f"on {z.device}, got {tuple(t.shape)} "
+                                 f"{t.dtype} on {t.device}")
+
+
+def _norm_op(form: NormForm, tensors) -> torch.Tensor:
+    _check_norm(_NRP_OPS[form].__name__, tensors)
+    if tensors[0].device.type == "cuda":
+        tensors = [_nrp_channels_last(t) if t.dim() == 4 else t.contiguous()
+                   for t in tensors]
+    return _NormReluPool.apply(form, *tensors)
 
 
 @spanned
@@ -1196,15 +1324,40 @@ def norm_relu_pool(z: torch.Tensor, bias: torch.Tensor, gamma: torch.Tensor,
     (z taken in channels_last memory), three kernels for each of the
     forward, backward and double backward, ``launches`` counting each of
     those calls; a CPU z (fp32 or fp64) runs the plain versions."""
-    _check_norm_relu_pool(z, bias, gamma, beta)
-    if z.device.type == "cuda":
-        z = _nrp_channels_last(z)
-        bias, gamma, beta = bias.contiguous(), gamma.contiguous(), \
-            beta.contiguous()
-    return _NormReluPool.apply(z, bias, gamma, beta)
+    return _norm_op(RELU_POOL, (z, bias, gamma, beta))
+
+
+@spanned
+def norm_leaky_relu(z: torch.Tensor, bias: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor) -> torch.Tensor:
+    """``leaky_relu(batch_stat_norm(z, p), 0.1)`` of resnet12's units c1
+    and c2 as one op, :func:`norm_relu_pool`'s leaky form without the
+    pool: (M, G, H, W) out in channels_last memory; differentiable twice,
+    on the same kernels and plain versions, ``launches`` its own."""
+    return _norm_op(LEAKY, (z, bias, gamma, beta))
+
+
+@spanned
+def norm_residual_pool(z: torch.Tensor, bias: torch.Tensor,
+                       gamma: torch.Tensor, beta: torch.Tensor,
+                       z_sc: torch.Tensor, bias_sc: torch.Tensor,
+                       gamma_sc: torch.Tensor, beta_sc: torch.Tensor
+                       ) -> torch.Tensor:
+    """``maxpool2x2(leaky_relu(batch_stat_norm(z, p) + batch_stat_norm(z_sc,
+    p_sc), 0.1))`` of resnet12's unit c3 and its stage's shortcut as one
+    op, :func:`norm_relu_pool`'s leaky form of two branches: z and z_sc (M,
+    G, H, W) -> (M, G, H/2, W/2) in channels_last memory; differentiable
+    twice, on the same kernels and plain versions, ``launches`` its own."""
+    return _norm_op(LEAKY_SUM_POOL, (z, bias, gamma, beta, z_sc, bias_sc,
+                                     gamma_sc, beta_sc))
 
 
 norm_relu_pool.launches = 0
+norm_leaky_relu.launches = 0
+norm_residual_pool.launches = 0
+# each form's wrapper, whose ``launches`` its launches count
+_NRP_OPS = {RELU_POOL: norm_relu_pool, LEAKY: norm_leaky_relu,
+            LEAKY_SUM_POOL: norm_residual_pool}
 
 
 # ---------------------------------------------------------------------------

@@ -53,10 +53,11 @@ The spans, by name (nesting gives the parent):
   gradient norms);
 - each kernel wrapper of ``ops/kernels.py`` (``fused_adapt``,
   ``fused_maml_adapt_batched``, ``gather_rows``, ``augment_embeddings``,
-  ``gather_augment_rows``, ``gather_episode_rows``, ``norm_relu_pool``),
-  by :func:`spanned`, above the CUDA kernel it launches (the forward's, for
-  ``norm_relu_pool``: its backward and double backward run in autograd's
-  engine, under ``train.meta_grad`` or ``inner.step``).
+  ``gather_augment_rows``, ``gather_episode_rows``, ``norm_relu_pool``,
+  ``norm_leaky_relu``, ``norm_residual_pool``), by :func:`spanned`, above
+  the CUDA kernel it launches (the forward's, for the norm ops: their
+  backward and double backward run in autograd's engine, under
+  ``train.meta_grad`` or ``inner.step``).
 
 :func:`count_memory` is a counter beside the spans: the CUDA device's live
 memory at a point of the step, as a zero-length range named

@@ -26,7 +26,9 @@ benchmark's cells, read from ``benchmark/configs`` and
   episodes of that table, each also jittered; the table in bf16; raw rows
   of 84·84·3 in fp32, bf16 and uint8 (4096 of them, past the L2);
 - ``norm_relu_pool``: its forward, backward and double backward at
-  ``conv4.train``'s eight shapes;
+  ``conv4.train``'s eight shapes, and its leaky forms' (``norm_leaky_relu``,
+  ``norm_residual_pool``) at ``resnet12.train``'s eight (no plain version
+  there: its fp64 sums of those activations take gigabytes);
 - ``conv3x3``: its fprop, dgrad and wgrad at ``conv4.train``'s eight call
   shapes (block 0's images take no dgrad), beside cuDNN's ``F.conv2d``
   and its gradients, the library yardstick; and at ``resnet12.train``'s
@@ -36,7 +38,8 @@ benchmark's cells, read from ``benchmark/configs`` and
 The bounds are the least time of ``benchmark/costs/peaks.py:least_seconds``
 on the work ``benchmark/costs/kernels.py`` counts, the counts the
 benchmark's roofline readers use; ``norm_relu_pool``'s bytes, which
-``benchmark/costs`` does not count, are :data:`NRP_PASS_BYTES` here;
+``benchmark/costs`` does not count, are :data:`NRP_PASS_BYTES` here (and
+:data:`NRP_LEAKY_PASS_BYTES`, :data:`NRP_RESIDUAL_PASS_BYTES`);
 ``conv3x3``'s are the call's products, ``benchmark/costs/maml.py``'s
 ``conv_units`` and ``benchmark/costs/maml_resnet12.py``'s
 ``conv_layers``, at the fp32 peak.
@@ -127,11 +130,29 @@ RESNET12_CONV_SHAPES = tuple(
               * RESNET12["episode"]["num_query_train"])
     for _, unit, side, cin, cout, k, _ in conv_layers(RESNET12)
     if k == 3 and unit in ("c1", "c2"))
+# resnet12.train's norm_relu_pool calls of the leaky forms (M images, G
+# channels, side): the support set or the queries, the tasks' channels side
+# by side, each stage's side (its units c1, c2 and c3 with the shortcut)
+RESNET12_NRP_SHAPES = tuple(
+    (m, RESNET12["train"]["batch_size"] * c,
+     RESNET12["widths"]["im_size"] >> k)
+    for m in (RESNET12["episode"]["num_ways"]
+              * RESNET12["episode"]["num_shots"],
+              RESNET12["episode"]["num_ways"]
+              * RESNET12["episode"]["num_query_train"])
+    for k, c in enumerate(RESNET12["widths"]["channels"]))
 # bytes a pass must move, in units of the activation's bytes (4 M H W G):
 # the forward reads z twice and writes a quarter; the backward reads z and
 # g_out twice and writes g_z; the double backward reads z, v_z and g_out
 # twice and writes c_z and c_gout (csrc/norm_relu_pool.cu's note)
 NRP_PASS_BYTES = {"forward": 2.25, "backward": 3.5, "double_backward": 5.75}
+# the same for the leaky form without the pool (an output as large as z)
+NRP_LEAKY_PASS_BYTES = {"forward": 3.0, "backward": 5.0,
+                        "double_backward": 8.0}
+# and for the residual form, two branches z and z_sc read (and their
+# gradients written) beside a pooled output
+NRP_RESIDUAL_PASS_BYTES = {"forward": 4.25, "backward": 6.5,
+                           "double_backward": 10.75}
 
 
 def card_line() -> str:
@@ -347,41 +368,59 @@ def episode_times(dev) -> None:
                least_seconds(0, widen_bytes(m, t.shape[1], t.element_size())))
 
 
-def norm_relu_pool_times(dev) -> None:
-    """``norm_relu_pool``'s three passes at ``conv4.train``'s shapes, five
-    calls a graph, beside the plain versions (two a graph)."""
+def _nrp_calls(dev, form, M, G, side):
+    """The forward, backward and double backward of ``form`` at one shape
+    on random inputs, each as (kernel, plain) callables."""
     import torch
     from fumi_tpu_torch.ops import kernels as K
-    for M, G, side in NRP_SHAPES:
-        gen = torch.Generator(device=dev).manual_seed(3)
+    gen = torch.Generator(device=dev).manual_seed(3)
 
-        def r(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
-        z = r(M, side, side, G).permute(0, 3, 1, 2)  # channels_last
-        b, g, be = r(G), 1.0 + 0.3 * r(G), 0.2 * r(G)
-        fwd, stats = K._nrp_forward(z, b, g, be)
-        g_out = torch.randn_like(fwd)
-        sums = K._nrp_backward(z, b, g, be, stats, g_out)[4]
-        v = (r(M, side, side, G).permute(0, 3, 1, 2), r(G), r(G))
-        passes = {
-            "forward": (lambda: K._nrp_forward(z, b, g, be),
-                        lambda: K.norm_relu_pool_forward_reference(
-                            z, b, g, be)),
-            "backward": (lambda: K._nrp_backward(z, b, g, be, stats, g_out),
-                         lambda: K.norm_relu_pool_backward_reference(
-                             z, b, g, be, stats, g_out)),
-            "double_backward": (
-                lambda: K._nrp_double_backward(z, b, g, be, stats, g_out,
-                                               sums, *v),
-                lambda: K.norm_relu_pool_double_backward_reference(
-                    z, b, g, be, stats, g_out, sums, *v))}
-        for name, (kernel, plain) in passes.items():
-            ms = in_turns({"kernel": [kernel] * 5, "plain": [plain] * 2})
-            nbytes = NRP_PASS_BYTES[name] * 4 * M * side * side * G
-            report(f"norm_relu_pool {name} M={M} G={G} {side}x{side}", ms,
-                   nbytes / PEAK_BYTES_PER_S)
-        del z, fwd, g_out, sums, v
-        torch.cuda.empty_cache()
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    t, cots = [], []
+    for _ in range(form.branches):
+        t += [r(M, side, side, G).permute(0, 3, 1, 2),  # channels_last
+              r(G), 1.0 + 0.3 * r(G), 0.2 * r(G)]
+        cots += [r(M, side, side, G).permute(0, 3, 1, 2), None, r(G), r(G)]
+    out, stats = K._nrp_forward(form, t)
+    g_out = torch.randn_like(out)
+    sums = K._nrp_backward(form, t, stats, g_out)[1]
+    return {
+        "forward": (lambda: K._nrp_forward(form, t),
+                    lambda: K.norm_relu_pool_forward_reference(form, t)),
+        "backward": (lambda: K._nrp_backward(form, t, stats, g_out),
+                     lambda: K.norm_relu_pool_backward_reference(
+                         form, t, stats, g_out)),
+        "double_backward": (
+            lambda: K._nrp_double_backward(form, t, stats, g_out, sums,
+                                           cots),
+            lambda: K.norm_relu_pool_double_backward_reference(
+                form, t, stats, g_out, sums, cots))}
+
+
+def norm_relu_pool_times(dev) -> None:
+    """``norm_relu_pool``'s three passes at ``conv4.train``'s shapes, five
+    calls a graph, beside the plain versions (two a graph); its leaky
+    forms' at ``resnet12.train``'s, the kernels alone."""
+    import torch
+    from fumi_tpu_torch.ops import kernels as K
+    cases = [("norm_relu_pool", K.RELU_POOL, NRP_SHAPES, NRP_PASS_BYTES,
+              True),
+             ("norm_leaky_relu", K.LEAKY, RESNET12_NRP_SHAPES,
+              NRP_LEAKY_PASS_BYTES, False),
+             ("norm_residual_pool", K.LEAKY_SUM_POOL, RESNET12_NRP_SHAPES,
+              NRP_RESIDUAL_PASS_BYTES, False)]
+    for label, form, shapes, pass_bytes, plain in cases:
+        for M, G, side in shapes:
+            for name, (kernel, reference) in _nrp_calls(
+                    dev, form, M, G, side).items():
+                routes = {"kernel": [kernel] * 5}
+                if plain:
+                    routes["plain"] = [reference] * 2
+                nbytes = pass_bytes[name] * 4 * M * side * side * G
+                report(f"{label} {name} M={M} G={G} {side}x{side}",
+                       in_turns(routes), nbytes / PEAK_BYTES_PER_S)
+            torch.cuda.empty_cache()
 
 
 def conv3x3_times(dev) -> None:

@@ -227,7 +227,11 @@ def test_the_cards_convolutions_are_conv2d(base, monkeypatch):
     step's forward and inner gradient rebuilt in the outer backward (12n
     forwards, 12n weight and 11n input gradients): 59n + 12, 47n + 12 and
     44n + 11; the shortcut's GEMM runs in each of those 3n + 1 forward
-    passes of 4 stages."""
+    passes of 4 stages. Every unit's norm and activation take
+    ``norm_relu_pool``'s leaky forms (here their plain versions), as often
+    as the card launches them: per stage, 3n + 1 forwards and backwards
+    and n double backwards of the residual form (c3 and the shortcut),
+    twice that of the norm and leaky ReLU (c1, c2)."""
     counts = {"fprop": 0, "dgrad": 0, "wgrad": 0}
     conv = kernels._conv
 
@@ -240,6 +244,12 @@ def test_the_cards_convolutions_are_conv2d(base, monkeypatch):
     def gemm(*a):
         gemms.append(a[1].shape)
         return pointwise(*a)
+    norms = {}
+    for name in ("_nrp_forward", "_nrp_backward", "_nrp_double_backward"):
+        def norm_counted(form, *a, _fn=getattr(kernels, name), _name=name):
+            norms[form, _name] = norms.get((form, _name), 0) + 1
+            return _fn(form, *a)
+        monkeypatch.setattr(kernels, name, norm_counted)
     monkeypatch.setattr(kernels, "_conv", counted)
     monkeypatch.setattr(resnet12, "pointwise_conv", gemm)
     monkeypatch.setattr(conv4, "fused_norm_applies", lambda z, low: not low)
@@ -248,6 +258,12 @@ def test_the_cards_convolutions_are_conv2d(base, monkeypatch):
     assert counts == {"fprop": 59 * n + 12, "wgrad": 47 * n + 12,
                       "dgrad": 44 * n + 11}, counts
     assert len(gemms) == 4 * (3 * n + 1)
+    passes = {"_nrp_forward": 3 * n + 1, "_nrp_backward": 3 * n + 1,
+              "_nrp_double_backward": n}
+    assert norms == {
+        **{(kernels.LEAKY, k): 8 * v for k, v in passes.items()},
+        **{(kernels.LEAKY_SUM_POOL, k): 4 * v for k, v in passes.items()}
+    }, norms
     assert abs(loss - base.loss) <= 1e-10 * abs(base.loss)
     assert grad_gap(grads, base.grads) <= 1e-10
 

@@ -32,7 +32,8 @@ from fumi_tpu_torch.ops import kernels
 from fumi_tpu_torch.serve import FewShotClassifier
 from fumi_tpu_torch.train import steps
 from scripts.kernel_times import (CONV4, CONV_SHAPES, NRP_SHAPES,
-                                  RESNET12, RESNET12_CONV_SHAPES)
+                                  RESNET12, RESNET12_CONV_SHAPES,
+                                  RESNET12_NRP_SHAPES)
 
 pytestmark = pytest.mark.cuda
 
@@ -1209,33 +1210,41 @@ def test_one_rank_nccl_world_on_card(cuda_device, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# norm_relu_pool: conv4's norm, ReLU and pool (csrc/norm_relu_pool.cu)
+# norm_relu_pool: conv4's norm, ReLU and pool, and resnet12's leaky forms
+# (csrc/norm_relu_pool.cu)
 # ---------------------------------------------------------------------------
 
 
-
-def _nrp_inputs(dev, M, G, side, seed, beta=True):
+def _nrp_inputs(dev, M, G, side, seed, beta=True, branches=1):
+    """(z, b, γ, β) of each branch, flat."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def r(*shape):
         return torch.randn(shape, generator=gen, device=dev)
-    z = r(M, side, side, G).permute(0, 3, 1, 2)  # channels_last
-    return (z, r(G), 1.0 + 0.3 * r(G),
-            0.2 * r(G) if beta else torch.zeros(G, device=dev))
+    out = []
+    for _ in range(branches):
+        out += [r(M, side, side, G).permute(0, 3, 1, 2),  # channels_last
+                r(G), 1.0 + 0.3 * r(G),
+                0.2 * r(G) if beta else torch.zeros(G, device=dev)]
+    return out
 
 
-def _nrp_passes(z, b, g, be, seed):
+def _nrp_passes(form, t, seed):
     """The kernels' forward, backward and double backward of one shape, on
     random cotangents."""
-    gen = torch.Generator(device=z.device).manual_seed(seed)
-    out, stats = kernels._nrp_forward(z, b, g, be)
-    g_out = torch.randn(out.shape, generator=gen, device=z.device)
-    bw = kernels._nrp_backward(z, b, g, be, stats, g_out)
-    v = (torch.randn(z.shape, generator=gen, device=z.device),
-         torch.randn(b.shape, generator=gen, device=z.device),
-         torch.randn(b.shape, generator=gen, device=z.device))
-    dbw = kernels._nrp_double_backward(z, b, g, be, stats, g_out, bw[4], *v)
-    return (out, stats, g_out) + tuple(bw) + tuple(dbw), v
+    dev = t[0].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out, stats = kernels._nrp_forward(form, t)
+    g_out = torch.randn(out.shape, generator=gen, device=dev)
+    grads, sums = kernels._nrp_backward(form, t, stats, g_out)
+    cots = []
+    for _ in range(form.branches):
+        cots += [torch.randn(t[0].shape, generator=gen, device=dev), None,
+                 torch.randn(t[1].shape, generator=gen, device=dev),
+                 torch.randn(t[1].shape, generator=gen, device=dev)]
+    cs, c_gout = kernels._nrp_double_backward(form, t, stats, g_out, sums,
+                                              cots)
+    return (out, stats, g_out) + grads + (sums,) + cs + (c_gout,), cots
 
 
 def _nrp_close(got, want, tol=1e-5):
@@ -1243,31 +1252,33 @@ def _nrp_close(got, want, tol=1e-5):
     assert float((got - want).abs().max()) <= tol * scale
 
 
-def _nrp_hold(z, b, g, be):
+def _nrp_hold(form, t):
     """The three passes against the plain versions on the card, fp32 both,
     within 1e-5 of each output's scale: the kernels sum in fp64 partials
     in another order and round a with one fma. The forward's output is
-    continuous, so it is held with a nonzero beta on each side's own
-    statistics; the backward and double backward on beta = 0 and the
-    kernels' statistics, where a = gamma*x rounds alike on both sides, so
-    the ReLU masks and the pool's ties agree bitwise and only the sums'
-    order parts them."""
-    M, G, H, W = z.shape
-    out, stats = kernels._nrp_forward(z, b, g, be)
-    want, want_stats = kernels.norm_relu_pool_forward_reference(z, b, g, be)
-    assert out.shape == (M, G, H // 2, W // 2)
+    continuous, so it is held with nonzero betas on each side's own
+    statistics; the backward and double backward on betas of 0 and the
+    kernels' statistics, where a = Σγ·x rounds alike on both sides, so
+    act' and the pool's ties agree bitwise and only the sums' order parts
+    them."""
+    M, G, H, W = t[0].shape
+    out, stats = kernels._nrp_forward(form, t)
+    want, want_stats = kernels.norm_relu_pool_forward_reference(form, t)
+    assert out.shape == (M, G) + ((H // 2, W // 2) if form.pool else (H, W))
     assert out.is_contiguous(memory_format=torch.channels_last)
     _nrp_close(out, want)
     _nrp_close(stats, want_stats, 1e-6)
-    be = torch.zeros_like(be)
-    got, v = _nrp_passes(z, b, g, be, 2)
+    t = [torch.zeros_like(x) if i % 4 == 3 else x for i, x in enumerate(t)]
+    got, cots = _nrp_passes(form, t, 2)
     stats, g_out = got[1], got[2]
-    ref = kernels.norm_relu_pool_backward_reference(z, b, g, be, stats, g_out)
-    ref += kernels.norm_relu_pool_double_backward_reference(
-        z, b, g, be, stats, g_out, ref[4], *v)
-    names = ("g_z", "g_b", "g_gamma", "g_beta", "sums", "c_z", "c_b",
-             "c_gamma", "c_beta", "c_gout")
-    for name, x, y in zip(names, got[3:], ref):
+    grads, sums = kernels.norm_relu_pool_backward_reference(form, t, stats,
+                                                            g_out)
+    cs, c_gout = kernels.norm_relu_pool_double_backward_reference(
+        form, t, stats, g_out, sums, cots)
+    names = ("g_z", "g_b", "g_gamma", "g_beta") * form.branches + (
+        "sums",) + ("c_z", "c_b", "c_gamma", "c_beta") * form.branches + (
+        "c_gout",)
+    for name, x, y in zip(names, got[3:], grads + (sums,) + cs + (c_gout,)):
         if name in ("g_b", "c_b", "c_beta"):
             assert not bool(x.any()) and not bool(y.any()), name
         else:
@@ -1279,14 +1290,32 @@ def _nrp_hold(z, b, g, be):
 def test_norm_relu_pool_matches_plain_version(cuda_device, shape):
     """conv4.train's eight shapes, 16-byte loads (:func:`_nrp_hold`)."""
     M, G, side = shape
-    _nrp_hold(*_nrp_inputs(cuda_device, M, G, side, 1))
+    _nrp_hold(kernels.RELU_POOL, _nrp_inputs(cuda_device, M, G, side, 1))
 
 
-def test_norm_relu_pool_repeats_bitwise(cuda_device):
-    """No float atomics: two runs of the three passes give the same bits."""
-    z, b, g, be = _nrp_inputs(cuda_device, 25, 256, 84, 5)
-    first, _ = _nrp_passes(z, b, g, be, 6)
-    second, _ = _nrp_passes(z, b, g, be, 6)
+@pytest.mark.parametrize("form", ["leaky", "residual"])
+@pytest.mark.parametrize("shape", RESNET12_NRP_SHAPES,
+                         ids=lambda s: f"M{s[0]}-G{s[1]}-{s[2]}x{s[2]}")
+def test_norm_leaky_forms_match_plain_versions(cuda_device, shape, form):
+    """resnet12.train's eight shapes of its units' epilogues (the support
+    set and the queries at each stage's side and channels), the leaky form
+    without the pool (c1, c2) and the residual one (c3 with the shortcut),
+    :func:`_nrp_hold`."""
+    M, G, side = shape
+    nform = {"leaky": kernels.LEAKY, "residual": kernels.LEAKY_SUM_POOL}[form]
+    _nrp_hold(nform, _nrp_inputs(cuda_device, M, G, side, 1,
+                                 branches=nform.branches))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("form", ["RELU_POOL", "LEAKY", "LEAKY_SUM_POOL"])
+def test_norm_relu_pool_repeats_bitwise(cuda_device, form):
+    """No float atomics: two runs of the three passes give the same bits,
+    in each form."""
+    nform = getattr(kernels, form)
+    t = _nrp_inputs(cuda_device, 25, 256, 84, 5, branches=nform.branches)
+    first, _ = _nrp_passes(nform, t, 6)
+    second, _ = _nrp_passes(nform, t, 6)
     for x, y in zip(first, second):
         assert torch.equal(x, y)
 
@@ -1295,22 +1324,26 @@ def test_norm_relu_pool_repeats_bitwise(cuda_device):
 def test_norm_relu_pool_other_channel_counts(cuda_device, G, offset):
     """The scalar walk (G = 15: no vectors of 4; G = 16 one float into its
     storage: unaligned) and several channel blocks (G = 320: 80 vectors,
-    two blocks across the channels), odd sides, :func:`_nrp_hold`."""
-    z, b, g, be = _nrp_inputs(cuda_device, 3, G, 21, 8)
-    base = torch.empty(z.numel() + offset, device=cuda_device)
-    nhwc = base[offset:].view(3, 21, 21, G)
-    nhwc.copy_(z.permute(0, 2, 3, 1))
-    z = nhwc.permute(0, 3, 1, 2)
-    aligned = z.data_ptr() % 16 == 0
-    assert kernels.norm_relu_pool_plan(G, aligned, 132).vec == (
-        4 if G % 4 == 0 and not offset else 1)
-    _nrp_hold(z, b, g, be)
+    two blocks across the channels), odd sides, :func:`_nrp_hold`, in each
+    form."""
+    for form in (kernels.RELU_POOL, kernels.LEAKY, kernels.LEAKY_SUM_POOL):
+        t = _nrp_inputs(cuda_device, 3, G, 21, 8, branches=form.branches)
+        for k in range(0, len(t), 4):
+            base = torch.empty(t[k].numel() + offset, device=cuda_device)
+            nhwc = base[offset:].view(3, 21, 21, G)
+            nhwc.copy_(t[k].permute(0, 2, 3, 1))
+            t[k] = nhwc.permute(0, 3, 1, 2)
+        aligned = t[0].data_ptr() % 16 == 0
+        assert kernels.norm_relu_pool_plan(G, aligned, 132).vec == (
+            4 if G % 4 == 0 and not offset else 1)
+        _nrp_hold(form, t)
 
 
 def test_norm_relu_pool_launches(cuda_device):
     """One launch a forward, backward and double backward; conv4's four
-    blocks launch four forwards in fp32 and none in bf16 or fp64."""
-    from fumi_tpu_torch.models import conv4
+    blocks launch four forwards in fp32 and none in bf16 or fp64, and
+    resnet12's four stages eight leaky and four residual ones."""
+    from fumi_tpu_torch.models import conv4, resnet12
     z, b, g, be = (t.requires_grad_() for t in
                    _nrp_inputs(cuda_device, 25, 256, 21, 9))
     before = kernels.norm_relu_pool.launches
@@ -1323,14 +1356,22 @@ def test_norm_relu_pool_launches(cuda_device):
     assert kernels.norm_relu_pool.launches == before + 4
     params = {k: v.to(cuda_device) for k, v in conv4.init(
         torch.Generator().manual_seed(0), im_size=84).items()}
+    p12 = {k: v.to(cuda_device) for k, v in resnet12.init(
+        torch.Generator().manual_seed(0), im_size=84,
+        channels=(8, 12, 16, 20)).items()}
     x = torch.rand(2, 10, 84, 84, 3, device=cuda_device)
-    for dtype, cd, launched in ((torch.float32, None, 4),
-                                (torch.float32, torch.bfloat16, 0),
-                                (torch.float64, None, 0)):
-        before = kernels.norm_relu_pool.launches
-        p = {k: v.to(dtype) for k, v in params.items()}
-        conv4.apply(p, x.to(dtype), cd)
-        assert kernels.norm_relu_pool.launches == before + launched
+    ops = (kernels.norm_relu_pool, kernels.norm_leaky_relu,
+           kernels.norm_residual_pool)
+    for dtype, cd, launched in ((torch.float32, None, (4, 8, 4)),
+                                (torch.float32, torch.bfloat16, (0, 0, 0)),
+                                (torch.float64, None, (0, 0, 0))):
+        before = [op.launches for op in ops]
+        conv4.apply({k: v.to(dtype) for k, v in params.items()}, x.to(dtype),
+                    cd)
+        resnet12.apply({k: v.to(dtype) for k, v in p12.items()},
+                       x.to(dtype), cd)
+        assert tuple(op.launches - n for op, n in zip(ops, before)) == \
+            launched
 
 
 # ---------------------------------------------------------------------------
@@ -1615,19 +1656,30 @@ def test_resnet12_step_runs_no_cudnn_convolution(cuda_device):
     finds is one of ``csrc/conv3x3.cu``'s, and each entry point launches
     as often as the CPU test counts its calls
     (tests/test_torch_bench_maml_resnet12.py): 59n + 12 fprop, 44n + 11
-    dgrad, 47n + 12 wgrad for n inner steps."""
+    dgrad, 47n + 12 wgrad for n inner steps. Every unit's epilogue runs
+    through ``csrc/norm_relu_pool.cu``'s leaky forms, none written out: 4
+    stages × (3n + 1 forwards, 3n + 1 backwards, n double backwards) of
+    the residual form, twice that of the leaky one (c1, c2), 296 and 148
+    launches at n = 5 (a checkpointed step runs 3n + 1 forward passes:
+    tests/test_torch_norm_relu_pool.py counts a plain step's), none of
+    conv4's; their kernels' names hold none of ``PARTS``."""
     from torch.profiler import ProfilerActivity, profile
     from benchmark.convs import PARTS
     shape = RESNET12_STEPS["resnet12.train"]
     n = shape[6]
     _maml_resnet12_step(cuda_device, shape)
     before = _conv_launches()
+    ops = (kernels.norm_relu_pool, kernels.norm_leaky_relu,
+           kernels.norm_residual_pool)
+    norms = [op.launches for op in ops]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _maml_resnet12_step(cuda_device, shape)
         torch.cuda.synchronize()
     assert [a - b for a, b in zip(_conv_launches(), before)] == [
         59 * n + 12, 44 * n + 11, 47 * n + 12]
+    assert [op.launches - k for op, k in zip(ops, norms)] == [
+        0, 8 * (7 * n + 2), 4 * (7 * n + 2)]
     # the profiler's own records (prof.events() takes minutes to build here)
     cuda = torch.autograd.DeviceType.CUDA
     events = list(prof.profiler.kineto_results.events())
@@ -1639,6 +1691,7 @@ def test_resnet12_step_runs_no_cudnn_convolution(cuda_device):
     assert convs and all("conv3x3_" in k for k in convs), convs
     for entry in CONV_ENTRIES:
         assert any(f"conv3x3_{entry}" in k for k in convs), entry
+    assert any("norm_relu_pool" in k for k in kernels_run)
 
 
 @pytest.mark.parametrize("shape", list(RESNET12_STEPS))
@@ -1647,7 +1700,9 @@ def test_maml_resnet12_second_order_step_matches_written_out(cuda_device,
                                                             shape):
     """A second-order MAML step through ResNet-12 on the port's kernels
     (the 3x3 convolutions on ``csrc/conv3x3.cu``, the 1x1 shortcuts as
-    GEMMs), each inner step checkpointed, against the step in fp64 (a task
+    GEMMs, the units' norms, leaky ReLUs, residual adds and pools on
+    ``csrc/norm_relu_pool.cu``), each inner step checkpointed, against the
+    written-out chain and against the step in fp64 (a task
     at a time, so that it fits), for two seeds' weights and images: the
     port's loss and the worst leaf of its meta-gradient no farther from
     fp64 than twice the farther of the written-out chain's two fp32
